@@ -1,0 +1,91 @@
+"""Build and load the port's CUDA C++ kernels.
+
+Every source in ``kernels/csrc/`` is compiled by ``nvcc`` for ``sm_90a``
+into its own shared library with a plain C interface, under
+``kernels/build/`` (listed in ``.gitignore``), and loaded with ``ctypes``.
+A library is named by a hash of its source and flags, so an edited source
+rebuilds and an unchanged one is reused.  Nothing here runs when the
+module is imported: the first launch builds.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Iterable, List
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    """``nvcc`` on PATH, else under ``$CUDA_HOME`` or /usr/local/cuda."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on first "
+                       "use and need the CUDA toolkit (set CUDA_HOME)")
+
+
+def library_path(name: str) -> Path:
+    """Where ``csrc/<name>.cu`` builds to, keyed by source and flags."""
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+
+
+def _nvcc_command(name: str, out: Path) -> List[str]:
+    return [nvcc_path(), *NVCC_FLAGS, "-o", str(out),
+            str(CSRC / f"{name}.cu")]
+
+
+def build(names: Iterable[str]) -> Dict[str, Path]:
+    """Compile every named source that has no up-to-date library, one
+    ``nvcc`` process per source, all started together.  Returns the
+    library paths; raises with the compiler's output on any failure."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    paths = {n: library_path(n) for n in names}
+    procs = {}
+    for name, path in paths.items():
+        if path.exists():
+            continue
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        procs[name] = (subprocess.Popen(
+            _nvcc_command(name, tmp), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True), tmp)
+    errors = []
+    for name, (proc, tmp) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed for {name}.cu:\n{log}")
+            continue
+        os.replace(tmp, paths[name])    # atomic: no half-written library
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return paths
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    lib = _libs.get(name)
+    if lib is None:
+        path = build([name])[name]
+        lib = ctypes.CDLL(str(path))
+        _libs[name] = lib
+    return lib
+
+
+def sources() -> List[str]:
+    """Names of every kernel source in ``csrc/``."""
+    return sorted(p.stem for p in CSRC.glob("*.cu"))

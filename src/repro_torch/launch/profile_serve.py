@@ -1,0 +1,133 @@
+"""Where a serving step's time goes on the card:
+``python -m repro_torch.launch.profile_serve``.
+
+Serves the shared-prefix gemma-7b fleet of ``chip_smoke.py`` (published
+width, random bf16 weights from a seed) through the default
+``PagedDecodeEngine`` twice: a warm-up drain, then a drain under
+``torch.profiler``.  Prints the wall time per step, the device's busy
+share of the profiled window (union of kernel intervals over the wall),
+the device time of the attention kernel, the GEMMs and everything else,
+and the top device kernels by total time.  Needs a CUDA card.
+"""
+from __future__ import annotations
+
+import json
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.models.api import build_model
+from repro_torch.serving.engine import PagedDecodeEngine
+
+TOP = 25          # kernels listed by total device time
+
+
+def shared_prefix_fleet(vocab: int, seed: int = 0):
+    """(first, others): a 128-token prompt whose first 64 tokens are a
+    system prompt, its exact repeat (a copy-on-write fork once the first
+    is cached), and six prompts of 64-256 tokens sharing the system
+    prompt."""
+    rng = np.random.default_rng(seed)
+    system = rng.integers(0, vocab, 64).astype(np.int32)
+    first = np.concatenate([system, rng.integers(0, vocab, 64)
+                            .astype(np.int32)])
+    others = [first.copy()] + [
+        np.concatenate([system, rng.integers(
+            0, vocab, int(rng.integers(0, 193))).astype(np.int32)])
+        for _ in range(6)]
+    return first, others
+
+
+def serve_fleet(api, params, *, max_new: int = 32, seed: int = 0,
+                device="cuda"):
+    """Drain the fleet through a fresh default engine; returns (engine,
+    finished requests, wall seconds)."""
+    first, others = shared_prefix_fleet(api.cfg.vocab_size, seed)
+    eng = PagedDecodeEngine(api, params, n_slots=8, cache_len=512,
+                            window=api.effective_window(512), device=device)
+    if eng.device.type == "cuda":
+        torch.cuda.synchronize(eng.device)
+    t0 = time.perf_counter()
+    eng.submit(first, max_new)
+    while not any(r.generated for r in eng.scheduler.running):
+        eng.step()                   # the system prompt's blocks register
+    for p in others:
+        eng.submit(p, max_new)
+    finished = eng.run_until_drained()
+    if eng.device.type == "cuda":
+        torch.cuda.synchronize(eng.device)
+    return eng, finished, time.perf_counter() - t0
+
+
+def _group(name: str) -> str:
+    """Kernel family of a device kernel name."""
+    if "tiled_paged_attention" in name:
+        return "attention (B1)"
+    if any(k in name for k in ("nvjet", "gemm", "splitKreduce", "cutlass")):
+        return "gemm"
+    return "other"
+
+
+def _busy_us(events) -> float:
+    """Union of device kernel intervals, in microseconds."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    return busy
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_serve needs a CUDA card")
+    cfg = get_config("gemma-7b")
+    api = build_model(cfg)
+    params = api.init(seed=0, device="cuda", dtype=torch.bfloat16)
+    eng, _, wall = serve_fleet(api, params)             # warm-up
+    print(f"warm-up: steps={eng.steps} wall_s={wall:.3f}", flush=True)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        eng, finished, wall = serve_fleet(api, params)
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = _busy_us(kernels) / 1e6
+    print(f"profiled: layers={cfg.n_layers} steps={eng.steps} "
+          f"tokens={eng.tokens_decoded} wall_s={wall:.4f} "
+          f"ms_per_step={wall / eng.steps * 1e3:.3f} "
+          f"device_busy_s={busy:.4f} busy_share={busy / wall:.4f} "
+          f"idle_share={1 - busy / wall:.4f} kernels={len(kernels)}",
+          flush=True)
+    totals = {}
+    groups = {"attention (B1)": 0.0, "gemm": 0.0, "other": 0.0}
+    for e in kernels:
+        t = totals.setdefault(e.name, [0.0, 0])
+        us = e.time_range.end - e.time_range.start
+        t[0] += us
+        t[1] += 1
+        groups[_group(e.name)] += us
+    total_us = sum(groups.values())
+    for g, us in groups.items():
+        print(f"  group {g}: {us / 1e3 / eng.steps:.3f} ms/step, "
+              f"{us / total_us:.4f} of kernel time", flush=True)
+    rows = sorted(totals.items(), key=lambda kv: -kv[1][0])[:TOP]
+    for name, (us, n) in rows:
+        print(f"  {us / 1e3:10.3f} ms  {n:6d} calls  "
+              f"{us / 1e3 / eng.steps:8.3f} ms/step  {name[:90]}")
+    print(json.dumps({"steps": eng.steps, "wall_s": wall,
+                      "device_busy_s": busy, "groups_ms": {
+                          g: us / 1e3 for g, us in groups.items()},
+                      "top": [[n, us / 1e3, c] for n, (us, c) in rows]}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,73 @@
+"""Unified model API of the port: the dense branch of
+``repro/models/api.py::build_model``.
+
+``build_model(cfg)`` returns a :class:`ModelAPI` with:
+  * ``init(seed=0, device="cuda", dtype=torch.bfloat16)`` -> params
+  * ``init_cache(batch, cache_len, **kw)`` / ``decode_step`` — the
+    dense-slot decode path (the oracle of the paged engine);
+  * ``init_paged_cache(n_lanes, **kw)`` / ``ragged_step`` — the paged
+    flat-token serving step.  It returns logits for EVERY row of the
+    stream, the speculative-decode verification contract.
+  * ``effective_window(seq_len)`` -> attention window for a shape
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Optional, Tuple
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import transformer
+
+# full-attention archs switch to their long-context SWA variant above this
+LONG_CONTEXT_THRESHOLD = 65_536
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelAPI:
+    cfg: ArchConfig
+    init: Callable[..., Any]
+    init_cache: Callable[..., Any]
+    decode_step: Callable[..., Tuple[Any, Any]]
+    init_paged_cache: Optional[Callable[..., Any]] = None
+    ragged_step: Optional[Callable[..., Tuple[Any, Any]]] = None
+
+    @property
+    def supports_paged(self) -> bool:
+        return self.init_paged_cache is not None
+
+    @property
+    def supports_ragged(self) -> bool:
+        return self.ragged_step is not None
+
+    @property
+    def supports_spec(self) -> bool:
+        """Speculative decode needs the multi-token step with per-row
+        logits."""
+        return self.ragged_step is not None
+
+    def effective_window(self, seq_len: int) -> int:
+        cfg = self.cfg
+        if cfg.sliding_window:
+            return cfg.sliding_window
+        if cfg.long_context_window and seq_len > LONG_CONTEXT_THRESHOLD:
+            return cfg.long_context_window
+        return 0
+
+
+def build_model(cfg: ArchConfig) -> ModelAPI:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.family} models ({cfg.name}) are not ported yet: MoE, VLM "
+            "and the slot-engine families are ROADMAP item A6")
+    return ModelAPI(
+        cfg=cfg,
+        init=lambda **kw: transformer.init_params(cfg, **kw),
+        init_cache=lambda b, n, **kw: transformer.init_cache(cfg, b, n,
+                                                             **kw),
+        decode_step=lambda p, c, t, **kw: transformer.decode_step(
+            p, c, t, cfg, **kw),
+        init_paged_cache=lambda b, **kw: transformer.init_paged_cache(
+            cfg, b, **kw),
+        ragged_step=lambda p, c, t, **kw: transformer.ragged_step(
+            p, c, t, cfg, **kw),
+    )

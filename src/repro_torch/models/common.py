@@ -1,0 +1,107 @@
+"""Shared model utilities: initializers, norms, activations, RoPE.
+
+The counterpart of ``repro/models/common.py``.  Parameters are plain
+dicts of tensors.  Unlike the reference, which keeps float32 masters and
+casts them on every call, the port stores each weight once in the
+compute dtype; norm scales and biases stay float32, since norms are
+computed in float32 as in the reference.
+"""
+from __future__ import annotations
+
+from typing import Dict, Sequence
+
+import torch
+import torch.nn.functional as F
+
+
+# ---------------------------------------------------------------------------
+# Initializers (same distributions and scales as the reference; the bits
+# differ, since torch and jax generators differ)
+# ---------------------------------------------------------------------------
+def dense_init_(out: torch.Tensor, generator: torch.Generator, *,
+                std: float) -> torch.Tensor:
+    """Fill ``out`` with a truncated normal of ``std`` cut at +-2 std (the
+    reference's ``dense_init``: fan-in std = scale / sqrt(fan_in)),
+    sampled in float32 and stored in ``out``'s dtype."""
+    tmp = torch.empty(out.shape, dtype=torch.float32, device=out.device)
+    torch.nn.init.trunc_normal_(tmp, mean=0.0, std=std, a=-2.0 * std,
+                                b=2.0 * std, generator=generator)
+    return out.copy_(tmp)
+
+
+def fan_in_std(shape: Sequence[int], *, in_axis: int = 0,
+               scale: float = 1.0) -> float:
+    """The reference's variance-scaling std: ``scale / sqrt(fan_in)``."""
+    return scale / (shape[in_axis] ** 0.5)
+
+
+def embed_init_(out: torch.Tensor, generator: torch.Generator
+                ) -> torch.Tensor:
+    """Normal(0, 0.02), as the reference's ``embed_init``."""
+    tmp = torch.empty(out.shape, dtype=torch.float32, device=out.device)
+    tmp.normal_(0.0, 0.02, generator=generator)
+    return out.copy_(tmp)
+
+
+def norm_params(kind: str, d: int, use_bias: bool, *, n: int,
+                device) -> Dict[str, torch.Tensor]:
+    """``n`` stacked norms (ones scale, zero bias for layernorm), float32."""
+    p = {"scale": torch.ones((n, d), dtype=torch.float32, device=device)}
+    if kind != "rmsnorm" and use_bias:
+        p["bias"] = torch.zeros((n, d), dtype=torch.float32, device=device)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+def apply_norm(kind: str, p: Dict[str, torch.Tensor], x: torch.Tensor,
+               eps: float = 1e-6) -> torch.Tensor:
+    """Normalize in float32, return in ``x.dtype``."""
+    xf = x.to(torch.float32)
+    if kind == "rmsnorm":
+        var = torch.mean(xf * xf, dim=-1, keepdim=True)
+        out = xf * torch.rsqrt(var + eps) * p["scale"]
+    else:
+        mu = torch.mean(xf, dim=-1, keepdim=True)
+        var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+        out = (xf - mu) * torch.rsqrt(var + eps) * p["scale"]
+        if "bias" in p:
+            out = out + p["bias"]
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Activations
+# ---------------------------------------------------------------------------
+def activation(name: str, x: torch.Tensor) -> torch.Tensor:
+    """``gelu`` is the tanh approximation, as ``jax.nn.gelu`` defaults."""
+    if name == "gelu":
+        return F.gelu(x, approximate="tanh")
+    if name == "silu":
+        return F.silu(x)
+    if name == "relu":
+        return F.relu(x)
+    raise ValueError(name)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings (half-split)
+# ---------------------------------------------------------------------------
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    half = head_dim // 2
+    exps = torch.arange(0, half, dtype=torch.float32, device=device) / half
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., S, H, D) with positions (..., S) or (S,)."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, device=x.device)            # (D/2,)
+    angles = positions[..., None].to(torch.float32) * freqs  # (..., S, D/2)
+    cos = torch.cos(angles)[..., None, :]                    # (..., S, 1, D/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)

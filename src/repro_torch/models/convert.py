@@ -1,0 +1,40 @@
+"""Parameters of the reference package in the port's layout.
+
+jax and torch generators give different numbers from the same seed, so
+the tests that compare the two packages make parameters with the
+reference's ``init``, turn its pytree into nested dicts of numpy float32
+arrays, and convert them here.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+
+
+def from_reference_params(tree: Dict[str, Any], *, device="cuda",
+                          dtype: torch.dtype = torch.float32
+                          ) -> Dict[str, Any]:
+    """Convert the reference's parameter pytree (nested dicts of numpy
+    arrays) into tensors on ``device``.  Weights and biases take ``dtype``
+    (the compute dtype); norm parameters (any key ending in ``norm`` or
+    ``norm_scale``) stay float32, as the port's own ``init_params`` keeps them.
+    The layer-stacked ``blocks`` layout (leading layer axis) is kept."""
+    if "head_blocks" in tree:
+        raise NotImplementedError(
+            "unstacked leading dense blocks belong to the MoE family "
+            "(ROADMAP item A6)")
+    dev = resolve_device(device)
+
+    def conv(node, is_norm: bool):
+        if isinstance(node, dict):
+            return {k: conv(v, is_norm or k.endswith(("norm", "norm_scale")))
+                    for k, v in node.items()}
+        arr = np.asarray(node)
+        return torch.from_numpy(np.array(arr, copy=True)).to(
+            device=dev, dtype=torch.float32 if is_norm else dtype)
+
+    return conv(tree, False)

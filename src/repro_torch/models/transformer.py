@@ -1,0 +1,314 @@
+"""Decoder-only transformer LM (dense family): parameters, the dense-slot
+decode step and the ragged paged serving step.
+
+The counterpart of ``repro/models/transformer.py``.  Parameters keep the
+reference's layer-stacked layout (every leaf of ``params["blocks"]`` has a
+leading layer axis), but the port runs eagerly: a Python loop over layers
+takes the place of ``lax.scan``, and the KV pools are one
+``(L, num_blocks, bs, Hkv, D)`` tensor per leaf, updated in place through
+per-layer views instead of being rebuilt and donated every step.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import layers
+from repro_torch.models.common import (apply_norm, dense_init_, embed_init_,
+                                       fan_in_std, norm_params)
+
+
+# ---------------------------------------------------------------------------
+# Parameter init
+# ---------------------------------------------------------------------------
+def _check_family(cfg: ArchConfig) -> None:
+    if cfg.moe is not None or cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: the port serves the dense transformer family; MoE "
+            "and the other families are ROADMAP item A6")
+
+
+def init_params(cfg: ArchConfig, *, seed: int = 0, device="cuda",
+                dtype: torch.dtype = torch.bfloat16) -> Dict:
+    """Random parameters with the reference's shapes and init scales, from
+    a ``torch.Generator`` seeded with ``seed`` on ``device``.  Weights are
+    stored in ``dtype`` (the compute dtype); norms stay float32."""
+    _check_family(cfg)
+    dev = resolve_device(device)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    L, d, V = cfg.n_layers, cfg.d_model, cfg.vocab_size
+    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    attn = {"wq": empty(L, d, H, D), "wk": empty(L, d, Hkv, D),
+            "wv": empty(L, d, Hkv, D), "wo": empty(L, H, D, d)}
+    # reference: dense_init((H, D, d), in_axis=0, scale=1/sqrt(2L)) then
+    # rescaled by sqrt(D) / sqrt(H * D), i.e. std = 1 / (sqrt(2L) * H)
+    wo_std = (fan_in_std((H, D, d), scale=1.0 / (2 * L) ** 0.5)
+              * D ** 0.5 / (H * D) ** 0.5)
+    for l in range(L):
+        dense_init_(attn["wq"][l], g, std=fan_in_std((d,)))
+        dense_init_(attn["wk"][l], g, std=fan_in_std((d,)))
+        dense_init_(attn["wv"][l], g, std=fan_in_std((d,)))
+        dense_init_(attn["wo"][l], g, std=wo_std)
+    if cfg.use_bias:
+        attn.update(bq=zeros(L, H, D), bk=zeros(L, Hkv, D),
+                    bv=zeros(L, Hkv, D), bo=zeros(L, d))
+    if cfg.qk_norm:
+        attn["q_norm_scale"] = torch.ones((L, D), device=dev)
+        attn["k_norm_scale"] = torch.ones((L, D), device=dev)
+
+    ff = cfg.d_ff
+    gated = cfg.mlp_type in ("swiglu", "geglu")
+    mlp = {"w_up": empty(L, d, ff), "w_down": empty(L, ff, d)}
+    if gated:
+        mlp["w_gate"] = empty(L, d, ff)
+    for l in range(L):
+        if gated:
+            dense_init_(mlp["w_gate"][l], g, std=fan_in_std((d,)))
+        dense_init_(mlp["w_up"][l], g, std=fan_in_std((d,)))
+        dense_init_(mlp["w_down"][l], g, std=fan_in_std((ff,)))
+    if cfg.use_bias:
+        mlp.update(b_up=zeros(L, ff), b_down=zeros(L, d))
+
+    blocks = {"attn_norm": norm_params(cfg.norm_type, d, cfg.use_bias, n=L,
+                                       device=dev),
+              "attn": attn, "mlp": mlp}
+    if not cfg.parallel_block:
+        blocks["mlp_norm"] = norm_params(cfg.norm_type, d, cfg.use_bias,
+                                         n=L, device=dev)
+    final = norm_params(cfg.norm_type, d, cfg.use_bias, n=1, device=dev)
+    p = {"embed": {"embedding": embed_init_(empty(V, d), g)},
+         "final_norm": {k: v[0] for k, v in final.items()},
+         "blocks": blocks}
+    if not cfg.tie_embeddings:
+        p["head"] = {"w": dense_init_(empty(d, V), g, std=fan_in_std((d,)))}
+    return p
+
+
+def layer_params(blocks: Dict, l: int) -> Dict:
+    """Layer ``l``'s parameters: views into the stacked leaves."""
+    return {k: layer_params(v, l) if isinstance(v, dict) else v[l]
+            for k, v in blocks.items()}
+
+
+def _embed(params: Dict, tokens: torch.Tensor,
+           cfg: ArchConfig) -> torch.Tensor:
+    x = layers.embed_tokens(params["embed"], tokens.long())
+    if cfg.scale_embeddings:
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
+                             device=x.device)
+    return x
+
+
+def _finish(params: Dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    x = apply_norm(cfg.norm_type, params["final_norm"], x)
+    return layers.lm_logits(params.get("head"), params["embed"], x,
+                            cfg.tie_embeddings)
+
+
+def _mlp_residual(bp: Dict, x: torch.Tensor, xn: torch.Tensor,
+                  attn: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    if cfg.parallel_block:
+        return x + attn + layers.apply_mlp(bp["mlp"], xn, cfg)
+    x = x + attn
+    xm = apply_norm(cfg.norm_type, bp["mlp_norm"], x)
+    return x + layers.apply_mlp(bp["mlp"], xm, cfg)
+
+
+# ---------------------------------------------------------------------------
+# int8 paged-pool quantization
+# ---------------------------------------------------------------------------
+def _quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 quantization of K/V vectors with one scale per
+    (token, kv-head), ``amax(|x|, axis=-1) / 127``, as the reference."""
+    xf = x.to(torch.float32)
+    amax = torch.amax(torch.abs(xf), dim=-1)
+    scale = torch.clamp_min(amax, 1e-12) / 127.0
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127.0, 127.0)
+    return q.to(torch.int8), scale
+
+
+def _write_kv_pool(cache_l: Dict, k: torch.Tensor, v: torch.Tensor,
+                   blk: torch.Tensor, off: torch.Tensor) -> None:
+    """Scatter K/V (T, Hkv, D) into one layer's pools at ``(blk, off)``, in
+    place.  int8 pools (marked by ``k_scale``) quantize on write and
+    scatter the scales through the same indices.  Padding tokens all
+    target slot 0 of the null block, which nothing reads, so their
+    duplicate indices are harmless."""
+    if "k_scale" in cache_l:
+        qk, ks = _quantize_kv(k)
+        qv, vs = _quantize_kv(v)
+        cache_l["k"][blk, off] = qk
+        cache_l["v"][blk, off] = qv
+        cache_l["k_scale"][blk, off] = ks
+        cache_l["v_scale"][blk, off] = vs
+        return
+    cache_l["k"][blk, off] = k.to(cache_l["k"].dtype)
+    cache_l["v"][blk, off] = v.to(cache_l["v"].dtype)
+
+
+def _pool_scales(cache_l: Dict) -> Dict:
+    if "k_scale" in cache_l:
+        return {"k_scale": cache_l["k_scale"], "v_scale": cache_l["v_scale"]}
+    return {}
+
+
+# ---------------------------------------------------------------------------
+# Block application
+# ---------------------------------------------------------------------------
+def _apply_block_ragged(bp: Dict, x: torch.Tensor, cache_l: Dict,
+                        token_pos: torch.Tensor, slot_mapping: torch.Tensor,
+                        tile_spec, cfg: ArchConfig, *, window: int,
+                        use_kernel: Optional[bool] = None) -> torch.Tensor:
+    """One layer over the flat stream x (T, d): norm -> QKV (RoPE at
+    ``token_pos``) -> K/V scattered to ``slot_mapping`` -> the tiled paged
+    attention read -> out projection -> MLP."""
+    from repro_torch.kernels import ops as kernel_ops
+    bs = cache_l["k"].shape[1]
+    xn = apply_norm(cfg.norm_type, bp["attn_norm"], x)
+    q, k, v = layers.project_qkv(bp["attn"], xn, token_pos, cfg)
+    slots = slot_mapping.long()
+    _write_kv_pool(cache_l, k, v, slots // bs, slots % bs)
+    tables, tile_meta, row_tile, tile = tile_spec
+    attn = kernel_ops.paged_attention_ragged_tiled(
+        q, cache_l["k"], cache_l["v"], tables, tile_meta, row_tile,
+        tile=tile, window=window, use_kernel=use_kernel,
+        **_pool_scales(cache_l))
+    attn = layers.project_out(bp["attn"], attn, cfg)
+    return _mlp_residual(bp, x, xn, attn, cfg)
+
+
+def _apply_block_decode(bp: Dict, x: torch.Tensor, cache_l: Dict,
+                        slot_positions: torch.Tensor, pos: torch.Tensor,
+                        cfg: ArchConfig, *, window: int) -> torch.Tensor:
+    """Decode one token per lane through one block; cache_l {"k","v"}
+    (B, S, Hkv, D) views, written in place at slot ``pos % S``."""
+    B = x.shape[0]
+    xn = apply_norm(cfg.norm_type, bp["attn_norm"], x)
+    q, k, v = layers.project_qkv(bp["attn"], xn, pos[:, None], cfg)
+    slot = pos.long() % cache_l["k"].shape[1]
+    bidx = torch.arange(B, device=x.device)
+    cache_l["k"][bidx, slot] = k[:, 0].to(cache_l["k"].dtype)
+    cache_l["v"][bidx, slot] = v[:, 0].to(cache_l["v"].dtype)
+    attn = layers.decode_attention(q, cache_l["k"], cache_l["v"],
+                                   slot_positions, pos, window=window)
+    attn = layers.project_out(bp["attn"], attn, cfg)
+    return _mlp_residual(bp, x, xn, attn, cfg)
+
+
+# ---------------------------------------------------------------------------
+# Decode
+# ---------------------------------------------------------------------------
+def init_cache(cfg: ArchConfig, batch: int, cache_len: int, *,
+               window: int = 0, dtype: torch.dtype = torch.bfloat16,
+               device="cuda") -> Dict:
+    """Dense per-lane KV cache; with a sliding window a rolling buffer of
+    ``min(window, cache_len)`` slots."""
+    _check_family(cfg)
+    dev = resolve_device(device)
+    n_slots = min(window, cache_len) if window else cache_len
+    shape = (cfg.n_layers, batch, n_slots, cfg.n_kv_heads,
+             cfg.resolved_head_dim)
+    return {
+        "scan": {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                 "v": torch.zeros(shape, dtype=dtype, device=dev)},
+        "slot_positions": -torch.ones((batch, n_slots), dtype=torch.int32,
+                                      device=dev),
+        "pos": torch.zeros((batch,), dtype=torch.int32, device=dev),
+    }
+
+
+def decode_step(params: Dict, cache: Dict, tokens: torch.Tensor,
+                cfg: ArchConfig, *, window: int = 0,
+                compute_dtype: Optional[torch.dtype] = None
+                ) -> Tuple[torch.Tensor, Dict]:
+    """tokens (B, 1) -> (logits (B, 1, V) float32, cache), the cache
+    updated in place (``pos`` advances by one for every lane)."""
+    _check_compute_dtype(params, compute_dtype)
+    B = tokens.shape[0]
+    pos = cache["pos"]
+    x = _embed(params, tokens, cfg)
+    n_slots = cache["scan"]["k"].shape[2]
+    bidx = torch.arange(B, device=tokens.device)
+    cache["slot_positions"][bidx, pos.long() % n_slots] = pos
+    for l in range(cfg.n_layers):
+        cl = {name: arr[l] for name, arr in cache["scan"].items()}
+        x = _apply_block_decode(layer_params(params["blocks"], l), x, cl,
+                                cache["slot_positions"], pos, cfg,
+                                window=window)
+    cache["pos"] = pos + 1
+    return _finish(params, x, cfg), cache
+
+
+def init_paged_cache(cfg: ArchConfig, n_lanes: int, *, num_blocks: int,
+                     block_size: int, max_blocks_per_lane: int,
+                     dtype: torch.dtype = torch.bfloat16,
+                     device="cuda") -> Dict:
+    """Paged KV pools shared by all lanes, one (L, num_blocks, bs, Hkv, D)
+    tensor per leaf; block 0 is the engine's reserved null block.
+    ``dtype=torch.int8`` stores quantized pools with float32
+    ``k_scale``/``v_scale`` pools of shape (L, num_blocks, bs, Hkv)."""
+    _check_family(cfg)
+    dev = resolve_device(device)
+    shape = (cfg.n_layers, num_blocks, block_size, cfg.n_kv_heads,
+             cfg.resolved_head_dim)
+    pool = {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+    if not dtype.is_floating_point:
+        pool["k_scale"] = torch.zeros(shape[:-1], dtype=torch.float32,
+                                      device=dev)
+        pool["v_scale"] = torch.zeros(shape[:-1], dtype=torch.float32,
+                                      device=dev)
+    return {
+        "scan": pool,
+        "block_tables": torch.zeros((n_lanes, max_blocks_per_lane),
+                                    dtype=torch.int32, device=dev),
+    }
+
+
+def _check_compute_dtype(params: Dict, compute_dtype) -> None:
+    have = params["embed"]["embedding"].dtype
+    if compute_dtype is not None and compute_dtype != have:
+        raise ValueError(f"parameters are stored in {have}; the port casts "
+                         f"weights once, so compute_dtype={compute_dtype} "
+                         "needs parameters made in that dtype")
+
+
+def ragged_step(params: Dict, cache: Dict, tokens: torch.Tensor,
+                cfg: ArchConfig, *, window: int = 0, tile: int = 16,
+                compute_dtype: Optional[torch.dtype] = None,
+                use_kernel: Optional[bool] = None
+                ) -> Tuple[torch.Tensor, Dict]:
+    """tokens (T,) -> (logits (T, V) float32, cache): the ragged
+    flat-token serving step.  The engine writes the per-step metadata
+    into the cache first: ``token_pos`` and ``slot_mapping`` (T,),
+    ``block_tables`` (n_lanes, max_blocks) and the TileMap arrays
+    ``tile_meta`` (5, n_tiles) and ``row_tile`` (T,).  The KV pools are
+    updated in place.  Logits cover every row of the stream (the
+    speculative-decode verification contract), so a draft segment yields
+    the model's greedy continuation at every draft slot."""
+    _check_compute_dtype(params, compute_dtype)
+    if "tile_meta" not in cache:
+        raise NotImplementedError(
+            "the per-token paged attention grid (tiled=False) is the next "
+            "slice's kernel B2 (ROADMAP queue B); pass the TileMap arrays")
+    tile_spec = (cache["block_tables"], cache["tile_meta"],
+                 cache["row_tile"], tile)
+    x = _embed(params, tokens, cfg)
+    for l in range(cfg.n_layers):
+        cl = {name: arr[l] for name, arr in cache["scan"].items()}
+        x = _apply_block_ragged(layer_params(params["blocks"], l), x, cl,
+                                cache["token_pos"], cache["slot_mapping"],
+                                tile_spec, cfg, window=window,
+                                use_kernel=use_kernel)
+    return _finish(params, x, cfg), cache

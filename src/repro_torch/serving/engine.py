@@ -1,0 +1,681 @@
+"""Autoregressive LM serving engines of the port.
+
+The counterpart of ``repro/serving/engine.py``:
+
+  * :class:`PagedDecodeEngine` — continuous batching over a paged KV pool
+    with the reference's defaults: the ragged flat-token batch, the
+    segment-tiled attention read (the Hopper kernel on CUDA tensors),
+    n-gram speculative decode, the prefix cache with copy-on-write, the
+    host swap tier, int8 pools, cancellation, clocks and ``stats()``.
+  * :class:`SlotDecodeEngine` — the dense per-lane oracle over
+    ``decode_step``.
+  * :func:`DecodeEngine` — the facade picking between them.
+
+The host side (scheduler, block manager, proposer, batch builders) is the
+reference's numpy code, copied.  The device side runs eagerly: the KV
+pools are updated in place (the reference donates them to a jitted step),
+CoW copies are one gather-scatter per pool leaf, and each step reads back
+its greedy tokens with a single device-to-host copy.
+
+Left for later slices, each raising ``NotImplementedError``: ``mesh=`` and
+:class:`ShardedDecodeEngine` (ROADMAP A9), the KV transfer and
+prefix-cache persistence methods (A5), and ``ragged=False`` /
+``tiled=False``, whose attention reads are kernels B3 and B2.
+"""
+from __future__ import annotations
+
+import time
+from collections import OrderedDict
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.serving.batch import RaggedBatch
+from repro_torch.serving.blocks import KVCacheManager
+from repro_torch.serving.scheduler import (Request, RequestState, Scheduler,
+                                           SchedulerConfig, StepDecision)
+from repro_torch.serving.spec import NgramProposer, Proposer
+
+
+def _emit_token(engine, req: "Request", tok: int) -> bool:
+    """The shared step-completion emission: append the token, stamp the
+    latency marks from the engine's clock, fire ``on_token``.  Returns
+    True when the request just finished (max new tokens or EOS)."""
+    req.generated.append(tok)
+    req.feed.append(tok)
+    engine.tokens_decoded += 1
+    if req.t_first_token == 0.0:
+        req.t_first_token = engine._now()
+    finished = (len(req.generated) >= req.max_new_tokens
+                or tok == engine.eos)
+    if finished:
+        req.t_done = engine._now()
+    if engine.on_token is not None:
+        engine.on_token(req.request_id, tok, finished)
+    return finished
+
+
+def _not_ported(what: str, item: str):
+    return NotImplementedError(
+        f"{what} is not ported to repro_torch yet (ROADMAP {item})")
+
+
+def DecodeEngine(model_api, params, *, paged: Optional[bool] = None,
+                 mesh=None, **kw):
+    """Facade: the paged engine when the model family supports it, the
+    dense-slot engine otherwise.  ``paged=True/False`` forces the choice."""
+    if mesh is not None:
+        raise _not_ported("mesh serving", "A9")
+    if paged is None:
+        paged = getattr(model_api, "supports_paged", False)
+    cls = PagedDecodeEngine if paged else SlotDecodeEngine
+    return cls(model_api, params, **kw)
+
+
+class ShardedDecodeEngine:
+    """Data-parallel front over per-slice paged engines (ROADMAP A9)."""
+
+    def __init__(self, *args, **kwargs) -> None:
+        raise _not_ported("ShardedDecodeEngine", "A9")
+
+
+# ---------------------------------------------------------------------------
+class PagedDecodeEngine:
+    """Continuous-batching decode over a block-paged KV pool.
+
+    ``n_slots`` lanes share one physical pool; ``cache_len`` caps one
+    request's KV length, and ``num_blocks`` defaults to the dense
+    equivalent (``n_slots`` full sequences plus the null block).  Every
+    step flattens its scheduled tokens into one stream (``RaggedBatch``),
+    cuts it into segment tiles (``TileMap``) and runs
+    ``model_api.ragged_step``; speculative drafts ride as ``1 + k`` token
+    segments and are verified by the step's own per-row argmax.  Greedy
+    outputs do not depend on the schedule, so the engine is
+    token-identical to :class:`SlotDecodeEngine` under prefix sharing,
+    preemption, swap and cancellation.
+
+    ``device`` defaults to ``"cuda"``; the parameters must already live
+    there.  ``cache_dtype`` defaults to the parameters' dtype
+    (``torch.int8`` stores quantized pools with per-(block, slot, head)
+    scales).  ``compute_dtype`` is the parameters' dtype: the port casts
+    weights once, so passing another one raises.
+    """
+
+    def __init__(self, model_api, params, *, n_slots: int, cache_len: int,
+                 eos_token: int = -1, window: int = 0,
+                 block_size: int = 16, num_blocks: Optional[int] = None,
+                 token_budget: int = 0, chunk_tokens: int = 16,
+                 prefix_cache: bool = True, ragged: Optional[bool] = None,
+                 tiled: Optional[bool] = None, tile: int = 16,
+                 spec: bool = True, draft_k: int = 4,
+                 proposer: Optional[Proposer] = None,
+                 host_swap: bool = True,
+                 host_swap_blocks: Optional[int] = None,
+                 ttft_target: float = 0.0, tpot_target: float = 0.0,
+                 clock=None, mesh=None, cache_dtype=None,
+                 compute_dtype=None, device="cuda") -> None:
+        """Build the paged engine: block pool, scheduler, device pools."""
+        if not getattr(model_api, "supports_paged", False):
+            raise ValueError(
+                f"{model_api.cfg.family} models have no paged-KV decode "
+                "path; use DecodeEngine (it falls back to dense slots)")
+        if mesh is not None:
+            raise _not_ported("mesh serving", "A9")
+        if ragged is False:
+            raise _not_ported("the rectangular paged step (ragged=False, "
+                              "kernel B3)", "A4/B3")
+        if tiled is False:
+            raise _not_ported("the per-token attention grid (tiled=False, "
+                              "kernel B2)", "A4/B2")
+        self.device = resolve_device(device)
+        self.api = model_api
+        self.params = params
+        emb = params["embed"]["embedding"]
+        if emb.device != self.device:
+            raise ValueError(f"parameters live on {emb.device}, the engine "
+                             f"runs on {self.device}")
+        if compute_dtype is not None and compute_dtype != emb.dtype:
+            raise ValueError(f"compute_dtype {compute_dtype} differs from the "
+                             f"parameters' {emb.dtype}; make or convert the "
+                             "parameters in the compute dtype")
+        self.n_slots = n_slots
+        self.cache_len = cache_len
+        self.eos = eos_token
+        self.window = window
+        self.block_size = block_size
+        if chunk_tokens < 1:
+            raise ValueError("chunk_tokens must be >= 1 "
+                             "(1 = one-token-per-step prefill)")
+        self.ragged = True
+        if tile < 1 or tile & (tile - 1):
+            raise ValueError(f"tile must be a positive power of two, "
+                             f"got {tile}")
+        self.tiled = True
+        self.tile = tile
+        self.chunk_tokens = chunk_tokens
+        if draft_k < 0:
+            raise ValueError(f"draft_k must be >= 0, got {draft_k}")
+        self.spec = bool(spec) and draft_k > 0
+        self.draft_k = draft_k if self.spec else 0
+        if self.spec and proposer is None:
+            proposer = NgramProposer()
+        self.proposer = proposer if self.spec else None
+        self.max_blocks = -(-cache_len // block_size)
+        if num_blocks is None:
+            num_blocks = n_slots * self.max_blocks + 1   # +1: null block
+        self.num_blocks = num_blocks
+        self.kv = KVCacheManager(num_blocks, block_size,
+                                 max_blocks_per_seq=self.max_blocks,
+                                 enable_prefix_cache=prefix_cache)
+        # device->host swap tier: digest -> {"parent", "tokens", "payload"},
+        # LRU-ordered; payloads are CPU tensors (numpy has no bfloat16)
+        self.host_swap = bool(host_swap) and prefix_cache
+        self.host_swap_blocks = host_swap_blocks
+        self._host_tier: "OrderedDict[str, Dict[str, Any]]" = OrderedDict()
+        self.host_swap_outs = 0
+        self.host_swap_ins = 0
+        self.host_swap_drops = 0
+        if self.host_swap:
+            self.kv.host_has = self._host_tier.__contains__
+            self.kv.on_swap_out = self._swap_out_block
+        self.scheduler = Scheduler(
+            SchedulerConfig(n_lanes=n_slots, token_budget=token_budget,
+                            chunk_tokens=self.chunk_tokens,
+                            fill_to_bucket=True,
+                            draft_k=self.draft_k, proposer=self.proposer,
+                            ttft_target=ttft_target,
+                            tpot_target=tpot_target),
+            self.kv)
+        self.clock = None
+        self.set_clock(clock)
+        self.on_token = None
+        self.cache = model_api.init_paged_cache(
+            n_slots, num_blocks=num_blocks, block_size=block_size,
+            max_blocks_per_lane=self.max_blocks,
+            dtype=cache_dtype if cache_dtype is not None else emb.dtype,
+            device=self.device)
+        self._step_kw = {"window": window, "tile": tile}
+        self._finished: List[Request] = []
+        self._next_id = 0
+        self.tokens_decoded = 0
+        self.tokens_prefilled = 0
+        self.cancelled = 0
+        self.shed = 0
+        self.host_purged = 0
+        self.cow_block_copies = 0
+        self.steps = 0
+        self.scheduled_tokens = 0
+        self.padded_tokens = 0
+        self.tokens_drafted = 0
+        self.draft_tokens_accepted = 0
+        self.spec_verifications = 0
+        self.spec_tokens_emitted = 0
+
+    # ------------------------------------------------------------------
+    def _put(self, x: np.ndarray) -> torch.Tensor:
+        """A host-built int32 metadata array on the engine's device."""
+        return torch.from_numpy(np.ascontiguousarray(x, np.int32)).to(
+            self.device)
+
+    def set_clock(self, clock) -> None:
+        """Install a virtual clock (any object with ``.now``) as the source
+        of every latency stamp; ``None`` restores wall time."""
+        self.clock = clock
+        self.scheduler.now_fn = self._now
+
+    def _now(self) -> float:
+        return self.clock.now if self.clock is not None \
+            else time.perf_counter()
+
+    def submit(self, prompt: np.ndarray, max_new_tokens: int,
+               priority: int = 0) -> int:
+        """Queue a request; returns its id.  Rejects requests whose total
+        length can never fit the pool."""
+        prompt = np.asarray(prompt, np.int32)
+        total = len(prompt) + max_new_tokens
+        usable = min(self.max_blocks, self.num_blocks - 1)
+        if self.kv.blocks_needed(total) > usable:
+            raise ValueError(
+                f"request of {total} tokens needs "
+                f"{self.kv.blocks_needed(total)} blocks; engine can serve "
+                f"at most {usable} per request")
+        rid = self._next_id
+        self._next_id += 1
+        req = Request(rid, prompt, max_new_tokens, priority=priority)
+        req.t_submit = self._now()
+        self.scheduler.add(req)
+        return rid
+
+    def cancel(self, request_id: int) -> bool:
+        """Abort a queued or mid-flight request between steps, freeing its
+        lane, its KV blocks, the prefix-cache registrations no other live
+        sequence shares and their host-tier payloads.  Returns False when
+        the id is unknown or already finished."""
+        req = next((r for r in self.scheduler.running
+                    if r.request_id == request_id), None)
+        if req is None:
+            req = next((r for r in self.scheduler.waiting
+                        if r.request_id == request_id), None)
+        if req is None:
+            return False
+        feed = req.feed if req.state is RequestState.RUNNING and req.feed \
+            else [int(t) for t in req.prompt] + list(req.generated)
+        self.scheduler.abort(req)
+        purge: List[str] = []
+        if self.kv.has_seq(request_id):
+            purge += self.kv.release_seq(request_id)
+        purge += self.kv.release_chain(feed)
+        for d in purge:
+            if self._host_tier.pop(d, None) is not None:
+                self.host_purged += 1
+        req.t_done = self._now()
+        self._finished.append(req)
+        self.cancelled += 1
+        return True
+
+    # ------------------------------------------------------------------
+    def _apply_copies(self, copies: List[Tuple[int, int]]) -> None:
+        """Copy-on-write: pool[:, dst] = pool[:, src] for every pool leaf
+        (K, V and int8 scale planes).  The gather on the right makes a
+        copy, so overlapping src and dst are safe."""
+        src = torch.tensor([s for s, _ in copies], device=self.device)
+        dst = torch.tensor([d for _, d in copies], device=self.device)
+        for _, arr in self.cache["scan"].items():
+            arr[:, dst] = arr[:, src]
+
+    def _run_ragged(self, decision: StepDecision):
+        """The flat-token step.  Returns ``greedy(req, j)``, the step's
+        argmax token at row ``j`` of ``req``'s segment."""
+        batch = RaggedBatch.build(decision, self.kv, self.n_slots,
+                                  self.block_size,
+                                  cap=self.scheduler._budget())
+        tables = np.zeros((self.n_slots, self.max_blocks), np.int32)
+        for r in self.scheduler.running:
+            tables[r.lane] = self.kv.padded_table(r.request_id)
+        tiles = batch.tiles(self.n_slots, self.tile)
+        self.cache["block_tables"] = self._put(tables)
+        self.cache["token_pos"] = self._put(batch.token_pos)
+        self.cache["slot_mapping"] = self._put(batch.slot_mapping)
+        self.cache["tile_meta"] = self._put(tiles.meta)
+        self.cache["row_tile"] = self._put(tiles.row_tile)
+        logits, self.cache = self.api.ragged_step(
+            self.params, self.cache, self._put(batch.tokens),
+            **self._step_kw)
+        self.scheduled_tokens += batch.total_tokens
+        self.padded_tokens += batch.padded_tokens
+        # argmax only the rows that can emit (each lane's last row, or a
+        # draft segment's verification window), then one readback
+        offsets: Dict[int, int] = {}
+        rows: List[int] = []
+        for r in decision.scheduled:
+            n = decision.num_scheduled[r.request_id]
+            first = n - 1 - len(decision.drafts.get(r.request_id, ()))
+            offsets[r.request_id] = len(rows) - first
+            start = batch.q_starts[r.request_id]
+            rows.extend(range(start + first, start + n))
+        if not rows:
+            return lambda r, j: 0
+        idx = torch.tensor(rows, device=self.device)
+        toks = torch.argmax(logits[idx], dim=-1).cpu().numpy()
+        return lambda r, j: int(toks[offsets[r.request_id] + j])
+
+    def step(self) -> StepDecision:
+        """One engine iteration: schedule, swap in, apply CoW copies, run
+        the ragged step, then accept each lane's longest matching draft
+        prefix plus one bonus token and rewind the rejected KV slots."""
+        t0 = time.perf_counter()
+        emitted = 0
+        decision = self.scheduler.schedule()
+        # swap-ins first: a CoW copy may read a block just swapped in
+        if self.host_swap:
+            swapins = self.kv.take_swap_ins()
+            if swapins:
+                self._apply_swap_ins(swapins)
+            if self.host_swap_blocks is not None:
+                while len(self._host_tier) > self.host_swap_blocks:
+                    self._host_tier.popitem(last=False)
+                    self.host_swap_drops += 1
+        copies = self.kv.take_copy_ops()
+        if copies:
+            self._apply_copies(copies)
+            self.cow_block_copies += len(copies)
+
+        greedy = self._run_ragged(decision)
+        self.steps += 1
+
+        for r in list(decision.scheduled):
+            n = decision.num_scheduled[r.request_id]
+            drafts = decision.drafts.get(r.request_id, [])
+            base = n - len(drafts)              # fed (non-draft) tokens
+            emitting = r.cursor + base == len(r.feed)
+            if not emitting:
+                r.cursor += n                   # mid-prompt prefill chunk
+                self.tokens_prefilled += n
+                continue
+            self.tokens_prefilled += base - 1
+            m = 0
+            while m < len(drafts) and greedy(r, base - 1 + m) == drafts[m]:
+                m += 1
+            new_toks = [int(t) for t in drafts[:m]] + [greedy(r, base - 1 + m)]
+            if drafts:
+                self.tokens_drafted += len(drafts)
+                self.draft_tokens_accepted += m
+                self.spec_verifications += 1
+            kept = 0
+            finished = False
+            for tok in new_toks:
+                kept += 1
+                finished = _emit_token(self, r, tok)
+                if finished:
+                    break
+            emitted += kept
+            if drafts:
+                self.spec_tokens_emitted += kept
+            r.cursor += base + min(kept, m)
+            if finished:
+                self.scheduler.finish(r)
+                self._finished.append(r)
+            elif len(drafts) > m:
+                self.kv.rewind(r.request_id, r.cursor)
+        shed = self.scheduler.take_shed()
+        if shed:
+            self._finished.extend(shed)
+            self.shed += len(shed)
+        self.scheduler.observe_step(time.perf_counter() - t0, emitted)
+        return decision
+
+    def has_work(self) -> bool:
+        """True while requests are queued or running."""
+        return self.scheduler.has_work()
+
+    def run_until_drained(self, max_steps: int = 100_000) -> List[Request]:
+        """Step until no work remains; returns the requests finished since
+        the last call."""
+        for _ in range(max_steps):
+            if not self.scheduler.has_work():
+                break
+            decision = self.step()
+            if not decision.scheduled and self.scheduler.waiting:
+                raise RuntimeError(
+                    "serving stalled: waiting requests cannot be admitted "
+                    f"({self.kv.num_free_blocks} free blocks)")
+        return self.take_finished()
+
+    def take_finished(self) -> List[Request]:
+        """Hand off (and clear) the requests finished since the last call."""
+        out, self._finished = self._finished, []
+        return out
+
+    # ------------------------------------------------------------------
+    # device->host swap tier
+    # ------------------------------------------------------------------
+    def _read_block_payload(self, blk: int) -> Dict:
+        """One physical block's slice of every pool leaf, copied into CPU
+        tensors (``part -> {"k", "v", ...}``, each (L, bs, Hkv[, D]))."""
+        return {"scan": {name: arr[:, blk].to("cpu", copy=True)
+                         for name, arr in self.cache["scan"].items()}}
+
+    def _write_block_payloads(self, blocks: List[int],
+                              payloads: List[Dict]) -> None:
+        """Scatter host block payloads into the device pools at
+        ``blocks`` (block axis 1 of every pool leaf)."""
+        idx = torch.tensor(blocks, device=self.device)
+        for name, arr in self.cache["scan"].items():
+            want = arr.shape[:1] + arr.shape[2:]
+            for p in payloads:
+                if p["scan"][name].shape != want:
+                    raise ValueError(
+                        f"payload KV geometry mismatch on 'scan/{name}': "
+                        f"got {tuple(p['scan'][name].shape)}, engine pool "
+                        f"expects {tuple(want)}")
+            stack = torch.stack([p["scan"][name] for p in payloads], dim=1)
+            arr[:, idx] = stack.to(device=self.device, dtype=arr.dtype)
+
+    def _swap_out_block(self, digest: str, blk: int, parent: str,
+                        tokens) -> None:
+        """Eviction hook: park an evicted registered block's payload in
+        the host tier (skipping digests it already holds: full blocks are
+        immutable once registered)."""
+        if digest in self._host_tier:
+            self._host_tier.move_to_end(digest)
+            return
+        self._host_tier[digest] = {"parent": parent,
+                                   "tokens": tuple(int(t) for t in tokens),
+                                   "payload": self._read_block_payload(blk)}
+        self.host_swap_outs += 1
+
+    def _apply_swap_ins(self, ops: List[Tuple[str, int]]) -> None:
+        """Write queued host->device swap-ins into the pools; an op whose
+        target block was re-registered since planning is dropped."""
+        blocks: List[int] = []
+        payloads: List[Dict] = []
+        for digest, blk in ops:
+            if self.kv.digest_block(digest) != blk:
+                continue
+            ent = self._host_tier.get(digest)
+            if ent is None:
+                raise RuntimeError(
+                    f"swap-in payload for block digest {digest[:12]} "
+                    "missing from the host tier")
+            self._host_tier.move_to_end(digest)
+            blocks.append(blk)
+            payloads.append(ent["payload"])
+        if not blocks:
+            return
+        self._write_block_payloads(blocks, payloads)
+        self.host_swap_ins += len(blocks)
+
+    # ------------------------------------------------------------------
+    # KV transfer / persistence: ROADMAP A5
+    # ------------------------------------------------------------------
+    def cached_digests(self) -> frozenset:
+        """Chain digests of every full block the prefix cache holds."""
+        return self.kv.cached_digests()
+
+    def export_kv_prefix(self, feed):
+        """KV shipment export (reference ``serving/transfer.py``)."""
+        raise _not_ported("export_kv_prefix", "A5")
+
+    def import_kv_shipment(self, shipment):
+        """KV shipment import (reference ``serving/transfer.py``)."""
+        raise _not_ported("import_kv_shipment", "A5")
+
+    def save_prefix_cache(self, path: str):
+        """Prefix-cache persistence in the wire format."""
+        raise _not_ported("save_prefix_cache", "A5")
+
+    def load_prefix_cache(self, path: str):
+        """Prefix-cache restore from the wire format."""
+        raise _not_ported("load_prefix_cache", "A5")
+
+    # ------------------------------------------------------------------
+    def stats(self) -> Dict[str, float]:
+        """Counters: token throughput, padding efficiency, prefix cache,
+        speculation, swap tier and cancellation (the reference's keys)."""
+        return {
+            "steps": self.steps,
+            "tokens_decoded": self.tokens_decoded,
+            "tokens_prefilled": self.tokens_prefilled,
+            "active": len(self.scheduler.running),
+            "waiting": len(self.scheduler.waiting),
+            "preemptions": self.scheduler.total_preemptions,
+            "block_utilization": self.kv.utilization(),
+            "prefix_hits": self.kv.prefix_hits,
+            "prefix_tokens_reused": self.kv.prefix_tokens_reused,
+            "cow_copies": self.kv.cow_copies,
+            "cache_evictions": self.kv.evictions,
+            "ragged": int(self.ragged),
+            "tiled": int(self.tiled),
+            "padding_efficiency": (self.scheduled_tokens
+                                   / max(self.padded_tokens, 1)),
+            "spec": int(self.spec),
+            "kv_rewinds": self.kv.rewinds,
+            "kv_tokens_rewound": self.kv.tokens_rewound,
+            "tokens_drafted": self.tokens_drafted,
+            "draft_tokens_accepted": self.draft_tokens_accepted,
+            "spec_verifications": self.spec_verifications,
+            "accepted_per_spec_step": (self.spec_tokens_emitted
+                                       / max(self.spec_verifications, 1)),
+            "draft_acceptance_rate": (self.draft_tokens_accepted
+                                      / max(self.tokens_drafted, 1)),
+            "host_swap": int(self.host_swap),
+            "swap_outs": self.host_swap_outs,
+            "swap_ins": self.host_swap_ins,
+            "swapped_in_tokens": self.kv.swapped_in_tokens,
+            "host_tier_blocks": len(self._host_tier),
+            "host_swap_drops": self.host_swap_drops,
+            "preempt_swap_outs": self.scheduler.total_swap_outs,
+            "cancelled": self.cancelled,
+            "shed": self.shed,
+            "released_seqs": self.kv.released_seqs,
+            "swap_ins_dropped": self.kv.swap_ins_dropped,
+            "host_purged": self.host_purged,
+        }
+
+
+# ---------------------------------------------------------------------------
+class SlotDecodeEngine:
+    """Continuous-batching decode over a fixed dense slot grid: ``n_slots``
+    lanes of ``cache_len`` tokens, one token per active lane per step,
+    prompts fed token by token.  The oracle of the paged engine."""
+
+    def __init__(self, model_api, params, *, n_slots: int, cache_len: int,
+                 eos_token: int = -1, window: int = 0, cache_dtype=None,
+                 compute_dtype=None, device="cuda", **_paged_opts) -> None:
+        """Build the dense-slot engine (paged-only options are ignored)."""
+        self.device = resolve_device(device)
+        self.api = model_api
+        self.params = params
+        emb = params["embed"]["embedding"]
+        self.n_slots = n_slots
+        self.cache_len = cache_len
+        self.eos = eos_token
+        self.window = window
+        self.cache = model_api.init_cache(
+            n_slots, cache_len, window=window,
+            dtype=cache_dtype if cache_dtype is not None else emb.dtype,
+            device=self.device)
+        self._step_kw = {"window": window, "compute_dtype": compute_dtype}
+        self.active: List[Optional[Request]] = [None] * n_slots
+        self.queue: List[Request] = []
+        self._finished: List[Request] = []
+        self._slots_per_lane = min(window, cache_len) if window else cache_len
+        self._next_id = 0
+        self.tokens_decoded = 0
+        self.steps = 0
+        self.scheduled_tokens = 0
+        self.padded_tokens = 0
+        self.cancelled = 0
+        self.clock = None
+        self.on_token = None
+
+    def set_clock(self, clock) -> None:
+        """Install a virtual clock for latency stamps (None = wall clock)."""
+        self.clock = clock
+
+    def _now(self) -> float:
+        return self.clock.now if self.clock is not None \
+            else time.perf_counter()
+
+    def submit(self, prompt: np.ndarray, max_new_tokens: int,
+               priority: int = 0) -> int:
+        """Queue a request; returns its id (the slot queue stays FIFO)."""
+        rid = self._next_id
+        self._next_id += 1
+        req = Request(rid, np.asarray(prompt, np.int32), max_new_tokens,
+                      priority=priority)
+        req.t_submit = self._now()
+        self.queue.append(req)
+        return rid
+
+    def cancel(self, request_id: int) -> bool:
+        """Abort a queued or active request, freeing its slot."""
+        for i, req in enumerate(self.queue):
+            if req.request_id == request_id:
+                del self.queue[i]
+                break
+        else:
+            for slot, req in enumerate(self.active):
+                if req is not None and req.request_id == request_id:
+                    self.active[slot] = None
+                    break
+            else:
+                return False
+        req.done = True
+        req.cancelled = True
+        req.t_done = self._now()
+        self._finished.append(req)
+        self.cancelled += 1
+        return True
+
+    def _admit(self) -> None:
+        for slot in range(self.n_slots):
+            if self.active[slot] is None and self.queue:
+                req = self.queue.pop(0)
+                req.begin_run(slot)
+                self.active[slot] = req
+                # a new occupant starts at position 0 and never sees its
+                # predecessor's KV
+                self.cache["slot_positions"][slot] = -1
+                self.cache["pos"][slot] = 0
+
+    def step(self) -> None:
+        """One engine iteration: one token per active slot."""
+        self._admit()
+        tokens = np.zeros((self.n_slots, 1), np.int32)
+        for slot, req in enumerate(self.active):
+            if req is not None:
+                tokens[slot, 0] = req.feed[req.cursor]
+        self.scheduled_tokens += sum(1 for a in self.active if a is not None)
+        self.padded_tokens += self.n_slots
+        logits, self.cache = self.api.decode_step(
+            self.params, self.cache,
+            torch.from_numpy(tokens).to(self.device), **self._step_kw)
+        next_tokens = torch.argmax(logits[:, -1], dim=-1).cpu().numpy()
+        self.steps += 1
+        for slot, req in enumerate(self.active):
+            if req is None:
+                continue
+            emitting = req.cursor >= len(req.feed) - 1
+            req.cursor += 1
+            if emitting:
+                if _emit_token(self, req, int(next_tokens[slot])):
+                    req.done = True
+                    self.active[slot] = None
+                    self._finished.append(req)
+
+    def has_work(self) -> bool:
+        """True while requests are queued or occupy a slot."""
+        return bool(self.queue) or any(a is not None for a in self.active)
+
+    def run_until_drained(self, max_steps: int = 100_000) -> List[Request]:
+        """Step until no work remains; returns the finished requests."""
+        for _ in range(max_steps):
+            if not self.has_work():
+                break
+            self.step()
+        return self.take_finished()
+
+    def take_finished(self) -> List[Request]:
+        """Hand off (and clear) the requests finished since the last call."""
+        out, self._finished = self._finished, []
+        return out
+
+    def stats(self) -> Dict[str, float]:
+        """Engine counters: steps, tokens, occupancy, padding efficiency."""
+        n_active = sum(1 for a in self.active if a is not None)
+        used = sum(min(r.cursor, self._slots_per_lane)
+                   for r in self.active if r is not None)
+        return {
+            "steps": self.steps,
+            "tokens_decoded": self.tokens_decoded,
+            "active": n_active,
+            "waiting": len(self.queue),
+            "preemptions": 0,
+            "block_utilization": used / max(
+                self.n_slots * self._slots_per_lane, 1),
+            "padding_efficiency": (self.scheduled_tokens
+                                   / max(self.padded_tokens, 1)),
+        }

@@ -1,0 +1,199 @@
+"""The port's serving engines, in float32 on the CPU.
+
+Across frameworks: the port's ``PagedDecodeEngine`` with its defaults
+(ragged, tiled, spec, prefix cache/CoW, host swap) emits the same greedy
+tokens as the reference's, from parameters converted from the
+reference's ``init`` (the reference engine built with float32 cache AND
+compute dtypes).  Inside the port: the paged engine is token-identical
+to the dense ``SlotDecodeEngine`` under CoW, host swap and cancel.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jax_get_config
+from repro.models import build_model as jax_build_model
+from repro.serving import PagedDecodeEngine as JaxPagedEngine
+from repro_torch.configs import get_config
+from repro_torch.models.api import build_model
+from repro_torch.models.convert import from_reference_params
+from repro_torch.serving.engine import (DecodeEngine, PagedDecodeEngine,
+                                        SlotDecodeEngine)
+
+PORT = dict(cache_dtype=torch.float32, device="cpu")
+
+
+@pytest.fixture(scope="module", params=["gemma-7b", "starcoder2-7b"])
+def model(request):
+    arch = request.param
+    jcfg = jax_get_config(arch).smoke_variant()
+    japi = jax_build_model(jcfg)
+    jparams = japi.init(jax.random.PRNGKey(0))
+    tparams = from_reference_params(jax.tree.map(np.asarray, jparams),
+                                    device="cpu", dtype=torch.float32)
+    api = build_model(get_config(arch).smoke_variant())
+    return arch, japi, jparams, api, tparams
+
+
+def _prompts(vocab, n, lo, hi, seed, shared=0):
+    rng = np.random.default_rng(seed)
+    pre = rng.integers(0, vocab, shared).astype(np.int32)
+    return [np.concatenate([pre, rng.integers(
+        0, vocab, int(rng.integers(lo, hi))).astype(np.int32)])
+        for _ in range(n)]
+
+
+def _drain(eng, prompts, max_new):
+    for p in prompts:
+        eng.submit(p, max_new)
+    return {r.request_id: list(r.generated)
+            for r in eng.run_until_drained()}
+
+
+def test_paged_engine_matches_reference_engine(model):
+    """Greedy tokens equal the reference engine's, defaults on both
+    sides; starcoder2's requests run past its 64-token smoke window."""
+    arch, japi, jparams, api, tparams = model
+    window = api.effective_window(128)
+    long_run = bool(window)
+    prompts = _prompts(api.cfg.vocab_size, 3, 30 if long_run else 4,
+                       40 if long_run else 12, seed=7, shared=8)
+    max_new = 40 if long_run else 10
+    kw = dict(n_slots=3, cache_len=128, window=window)
+    ref = _drain(JaxPagedEngine(japi, jparams, cache_dtype=jnp.float32,
+                                compute_dtype=jnp.float32, **kw),
+                 prompts, max_new)
+    eng = PagedDecodeEngine(api, tparams, **PORT, **kw)
+    got = _drain(eng, prompts, max_new)
+    assert got == ref
+    if long_run:
+        assert max(len(p) for p in prompts) + max_new > window
+    s = eng.stats()
+    assert s["ragged"] == s["tiled"] == s["spec"] == s["host_swap"] == 1
+    assert s["spec_verifications"] > 0
+
+
+def test_paged_engine_matches_slot_engine_under_cow(model):
+    """A shared-prefix fleet (block-aligned exact repeats fork their tail
+    block copy-on-write) against the dense oracle."""
+    arch, _, _, api, tparams = model
+    window = api.effective_window(128)
+    rng = np.random.default_rng(3)
+    shared = rng.integers(0, api.cfg.vocab_size, 8).astype(np.int32)
+    prompts = [shared, shared.copy()] + _prompts(
+        api.cfg.vocab_size, 3, 2, 7, seed=4, shared=0)
+    prompts[2:] = [np.concatenate([shared, p]) for p in prompts[2:]]
+    kw = dict(n_slots=3, cache_len=64, window=window, **PORT)
+    paged = PagedDecodeEngine(api, tparams, block_size=4, chunk_tokens=8,
+                              **kw)
+    slot = SlotDecodeEngine(api, tparams, **kw)
+    paged.submit(prompts[0], 8)
+    paged.step()
+    paged.step()                 # the preamble's blocks are registered
+    got = _drain(paged, prompts[1:], 8)
+    got.update({r.request_id: list(r.generated)
+                for r in paged.take_finished()})
+    assert got == _drain(slot, prompts, 8)
+    assert paged.kv.cow_copies > 0 and paged.cow_block_copies > 0
+    assert paged.kv.prefix_hits > 0
+
+
+def test_paged_engine_matches_slot_engine_under_host_swap(model):
+    """A pool well under the concurrent working set: preempted chains
+    come back from the host tier, tokens unchanged."""
+    arch, _, _, api, tparams = model
+    window = api.effective_window(128)
+    prompts = _prompts(api.cfg.vocab_size, 6, 8, 16, seed=37, shared=4)
+    need = max(-(-(len(p) + 8) // 4) for p in prompts)
+    kw = dict(n_slots=3, cache_len=64, window=window, **PORT)
+    paged = PagedDecodeEngine(api, tparams, block_size=4, chunk_tokens=8,
+                              num_blocks=max(need + 1, (3 * need) // 2),
+                              **kw)
+    slot = SlotDecodeEngine(api, tparams, **kw)
+    got = _drain(paged, prompts, 8)
+    assert got == _drain(slot, prompts, 8)
+    s = paged.stats()
+    assert s["preemptions"] > 0
+    assert s["swap_outs"] > 0 and s["swap_ins"] > 0
+
+
+def test_cancel_mid_flight_matches_slot_engine_and_empties_pool(model):
+    """Cancel one request mid-flight: the survivors match the dense
+    oracle; cancelling the rest leaves the pool, the prefix cache and the
+    host tier empty."""
+    arch, _, _, api, tparams = model
+    window = api.effective_window(128)
+    prompts = _prompts(api.cfg.vocab_size, 3, 6, 12, seed=43, shared=8)
+    kw = dict(n_slots=3, cache_len=64, window=window, **PORT)
+    paged = PagedDecodeEngine(api, tparams, block_size=4, chunk_tokens=8,
+                              **kw)
+    for p in prompts:
+        paged.submit(p, 10)
+    for _ in range(40):
+        paged.step()
+        victim = next((r for r in paged.scheduler.running
+                       if r.request_id == 0), None)
+        if victim is not None and victim.generated:
+            break
+    assert paged.cancel(0)
+    got = {r.request_id: list(r.generated)
+           for r in paged.run_until_drained() if not r.cancelled}
+    slot = SlotDecodeEngine(api, tparams, **kw)
+    ref = _drain(slot, prompts, 10)
+    assert set(got) == {1, 2} and all(got[k] == ref[k] for k in got)
+
+    # the leak wall: cancel everything mid-flight
+    eng = PagedDecodeEngine(api, tparams, block_size=4, chunk_tokens=8,
+                            num_blocks=12, **kw)
+    long_prompts = _prompts(api.cfg.vocab_size, 4, 6, 10, seed=53, shared=8)
+    for p in long_prompts:
+        eng.submit(p, 24)
+    for _ in range(5):
+        eng.step()
+    for rid in range(len(long_prompts)):
+        eng.cancel(rid)
+    assert not eng.has_work()
+    assert eng.kv.allocator.num_allocated == 0
+    assert eng.kv.num_free_blocks == eng.num_blocks - 1
+    assert len(eng._host_tier) == 0
+    assert eng.cancelled == len(long_prompts)
+
+
+def test_int8_pools_serve(model):
+    """int8 pools (quantized on write, dequantized in the read) serve
+    every request; the reference's int8 engine emits the same tokens."""
+    arch, japi, jparams, api, tparams = model
+    window = api.effective_window(128)
+    prompts = _prompts(api.cfg.vocab_size, 3, 4, 12, seed=9, shared=4)
+    kw = dict(n_slots=3, cache_len=64, window=window)
+    ref = _drain(JaxPagedEngine(japi, jparams, cache_dtype=jnp.int8,
+                                compute_dtype=jnp.float32, **kw),
+                 prompts, 6)
+    eng = PagedDecodeEngine(api, tparams, cache_dtype=torch.int8,
+                            device="cpu", **kw)
+    assert _drain(eng, prompts, 6) == ref
+    assert eng.cache["scan"]["k"].dtype == torch.int8
+
+
+def test_facade_and_unported_options(model):
+    """The facade picks the paged engine; options a later slice ports
+    raise ``NotImplementedError``; a mismatched compute dtype raises."""
+    arch, _, _, api, tparams = model
+    kw = dict(n_slots=2, cache_len=32, **PORT)
+    assert isinstance(DecodeEngine(api, tparams, **kw), PagedDecodeEngine)
+    assert isinstance(DecodeEngine(api, tparams, paged=False, **kw),
+                      SlotDecodeEngine)
+    for bad in ({"ragged": False}, {"tiled": False}, {"mesh": object()}):
+        with pytest.raises(NotImplementedError):
+            PagedDecodeEngine(api, tparams, **kw, **bad)
+    eng = PagedDecodeEngine(api, tparams, **kw)
+    for call in (lambda: eng.export_kv_prefix(np.zeros(4, np.int32)),
+                 lambda: eng.import_kv_shipment(None),
+                 lambda: eng.save_prefix_cache("x"),
+                 lambda: eng.load_prefix_cache("x")):
+        with pytest.raises(NotImplementedError):
+            call()
+    with pytest.raises(ValueError):
+        PagedDecodeEngine(api, tparams, compute_dtype=torch.bfloat16, **kw)

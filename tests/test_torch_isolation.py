@@ -1,0 +1,96 @@
+"""The port stands alone: it imports neither JAX nor the reference
+package, and its entry points default to the card instead of quietly
+running on the CPU."""
+import ast
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+
+def _port_modules():
+    import repro_torch
+    return sorted(m.name for m in pkgutil.walk_packages(
+        repro_torch.__path__, "repro_torch."))
+
+
+def test_importing_every_port_module_loads_no_jax_and_no_repro():
+    mods = _port_modules()
+    assert "repro_torch.serving.engine" in mods
+    code = ("import sys\n"
+            f"for m in {mods!r}:\n"
+            "    __import__(m)\n"
+            "bad = sorted(k for k in sys.modules if k == 'jax' or "
+            "k.startswith('jax.') or k == 'repro' or k.startswith('repro.'))\n"
+            "print(','.join(bad))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"},
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "", out.stdout
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", sorted(
+    [p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py")]
+    + ["chip_smoke.py"]))
+def test_source_imports_no_jax_and_no_repro(path):
+    """No ``import jax`` / ``from repro.`` / ``import repro`` anywhere in
+    the port or in chip_smoke.py (``repro_torch`` is the port itself)."""
+    for name in _imports(ROOT / path):
+        top = name.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro"), (path, name)
+
+
+def test_default_device_is_the_card():
+    """Built with the default device on a machine without CUDA, the
+    engine, the model init and the caches raise instead of running on
+    the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device works")
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+    from repro_torch.serving.engine import PagedDecodeEngine
+    api = build_model(get_config("gemma-7b").smoke_variant())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        api.init(seed=0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        api.init_paged_cache(2, num_blocks=5, block_size=4,
+                             max_blocks_per_lane=2)
+    params = api.init(seed=0, device="cpu", dtype=torch.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PagedDecodeEngine(api, params, n_slots=2, cache_len=16)
+
+
+def test_kernel_build_needs_nvcc_and_is_keyed_by_source(monkeypatch,
+                                                       tmp_path):
+    """A build without the CUDA toolkit fails with a clear error; the
+    library is named by its source and flags, so an edit rebuilds."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import paged_attention as pa
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.nvcc_path()
+    path = _build.library_path(pa.KERNEL)
+    assert path.parent == _build.BUILD_DIR and path.suffix == ".so"
+    assert path.name.startswith(pa.KERNEL + "-")
+    monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-G",))
+    assert _build.library_path(pa.KERNEL) != path
+    assert pa.KERNEL in _build.sources()
