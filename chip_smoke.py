@@ -11,14 +11,21 @@ printing its own line(s):
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: every kernel of the port from the sources in the checkout;
 3. each kernel against its plain PyTorch version on the card, at the
-   main path's shapes (gemma-7b bf16 and int8 pools, starcoder2-7b GQA
-   with a sliding window), with its time, the plain version's, one
-   PyTorch library call's and the least time the card could take;
-4. the main path: ``PagedDecodeEngine`` with its defaults serving
-   gemma-7b at its published width (all 28 layers, random bf16 weights
-   from a seed) on requests that share a system prompt; every step must
-   have gone through the kernel (launches == layers x steps);
-5. one full-width ``ragged_step`` with the kernel against the same step
+   main paths' shapes (gemma-7b bf16 and int8 pools, starcoder2-7b GQA
+   with a sliding window): the segment-tiled read (B1) and the per-token
+   read (B2) on one mixed flat stream, the rectangular read (B3) on the
+   same segments as a (lanes, chunk) batch and as one decode call; each
+   with its time, the plain version's, one PyTorch library call's and
+   the least time the card could take;
+4. the main paths: ``PagedDecodeEngine`` serving gemma-7b at its
+   published width (all 28 layers, random bf16 weights from a seed) on
+   requests that share a system prompt, three times from the same
+   weights: with its defaults (segment-tiled), ``tiled=False``
+   (per-token) and ``ragged=False`` (rectangular); on each, every step
+   must have gone through that path's kernel (launches == layers x
+   steps) and through no other attention kernel;
+5. one full-width ``ragged_step`` (tiled and per-token) and one
+   full-width ``paged_step``, each with the kernel against the same step
    on the plain path, on the same pools.
 
 Then one JSON line of per-kernel numbers, and last
@@ -112,56 +119,92 @@ def _mixed_stream(*, Hkv, G, D, bs, tile, pool_dtype, window, seed):
     else:
         k = torch.randn(shape, generator=g, device=dev).to(pool_dtype)
         v = torch.randn(shape, generator=g, device=dev).to(pool_dtype)
+    token_lane = np.zeros((T_pad,), np.int32)
+    token_pos = np.zeros((T_pad,), np.int32)
+    for lane, (start, n) in enumerate(segments):
+        token_lane[offs[lane]:offs[lane] + n] = lane
+        token_pos[offs[lane]:offs[lane] + n] = start + np.arange(n)
+    token_tables = tables[token_lane]
+    token_tables[T:] = 0           # padding tokens read the null block
     t32 = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
     return dict(q=q, k=k, v=v, scales=scales, tables=t32(tables),
                 meta=t32(tm.meta), row_tile=t32(tm.row_tile), tile=tile,
-                window=window, T=T, segments=segments, bs=bs,
-                tables_np=tables, meta_np=tm.meta)
+                window=window, T=T, segments=segments, bs=bs, offs=offs,
+                tables_np=tables, meta_np=tm.meta,
+                token_tables=t32(token_tables), token_pos=t32(token_pos),
+                token_tables_np=token_tables)
 
 
-def _bound(s) -> tuple:
-    """Least time for the work this stream needs: each needed K/V block
-    (and scale) read once, q read and the real rows written once, plus
-    the metadata, over the memory rate; QK and PV FLOPs over the valid
-    keys of every real row at the bf16 peak.  Returns (ms, bound_by)."""
+def _rect_batch(s):
+    """The stream's segments as the rectangular step lays them out: q
+    (lanes, C, H, D) with C the pow2 above the longest segment, q_starts
+    and q_lens per lane; and the same lanes' next decode (one token at
+    each lane's context end, q (lanes, H, D) and ctx_lens)."""
     import numpy as np
+    import torch
+    segs = s["segments"]
+    q = s["q"]
+    C = 1 << (max(n for _, n in segs) - 1).bit_length()
+    B = len(segs)
+    qr = torch.zeros((B, C) + tuple(q.shape[1:]), dtype=q.dtype,
+                     device=q.device)
+    for b, (start, n) in enumerate(segs):
+        qr[b, :n] = q[s["offs"][b]:s["offs"][b] + n]
+    dev = q.device
+    t32 = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=dev)
+    starts = [st for st, _ in segs]
+    lens = [n for _, n in segs]
+    last = [s["offs"][b] + n - 1 for b, (_, n) in enumerate(segs)]
+    return dict(q=qr, q_starts=t32(starts), q_lens=t32(lens),
+                q_dec=q[last].contiguous(),
+                ctx_lens=t32([st + n for st, n in segs]),
+                dec_segments=[(st + n - 1, 1) for st, n in segs])
+
+
+def _bound(s, segments, meta_bytes) -> tuple:
+    """Least time for the work these segments need (segment ``lane`` of
+    ``segments`` is (start, n) of that lane): each needed K/V block (and
+    scale) read once, q read and the real rows written once, plus
+    ``meta_bytes`` of metadata, over the memory rate; QK and PV FLOPs
+    over the valid keys of every real row at the bf16 peak.  Returns
+    (ms, bound_by)."""
     q, k = s["q"], s["k"]
     Hkv, D = k.shape[2], k.shape[3]
-    H = q.shape[1]
+    H = q.shape[-2]
     bs, window = s["bs"], s["window"]
     needed = set()
     flops = 0
-    for lane, (start, n) in enumerate(s["segments"]):
+    rows = 0
+    for lane, (start, n) in enumerate(segments):
         first_key = max(0, start - window + 1) if window else 0
         for j in range(first_key // bs, (start + n - 1) // bs + 1):
             needed.add(int(s["tables_np"][lane, j]))
         for p in range(start, start + n):
             keys = min(p + 1, window) if window else p + 1
             flops += 4 * D * keys * H
+        rows += n
     elem = k.element_size()
     kv_bytes = len(needed) * bs * Hkv * (D * elem + (4 if s["scales"]
                                                      else 0)) * 2
-    qo_bytes = 2 * s["T"] * H * D * q.element_size()
-    meta_bytes = s["tables_np"].nbytes + s["meta_np"].nbytes
+    qo_bytes = 2 * rows * H * D * q.element_size()
     byte_ms = (kv_bytes + qo_bytes + meta_bytes) / HBM_BYTES_PER_S * 1e3
     flop_ms = flops / BF16_FLOPS * 1e3
     return (byte_ms, "bytes") if byte_ms >= flop_ms else (flop_ms,
                                                           "operations")
 
 
-def _library_call(s):
-    """``scaled_dot_product_attention`` over the same stream, one call:
-    each segment's q rows against its lane's gathered span, padded to
-    the longest segment and deepest span, with a causal/window mask.
-    Built once here; only the call is timed (a yardstick, never used by
-    the port)."""
+def _library_call(s, segs, q):
+    """``scaled_dot_product_attention`` over the same work, one call:
+    each segment's q rows (back to back in ``q``) against its lane's
+    gathered span, padded to the longest segment and deepest span, with
+    a causal/window mask.  Built once here; only the call is timed (a
+    yardstick, never used by the port)."""
     import torch
     import torch.nn.functional as F
-    q, k, v = s["q"], s["k"], s["v"]
+    k, v = s["k"], s["v"]
     Hkv, D = k.shape[2], k.shape[3]
     H = q.shape[1]
     bs = s["bs"]
-    segs = s["segments"]
     Lq = max(n for _, n in segs)
     S = max(-(-(st + n) // bs) for st, n in segs) * bs
     B = len(segs)
@@ -199,11 +242,38 @@ def _library_call(s):
                                                   attn_mask=mask)
 
 
+def _check_kernel(label, kernel, plain, rows, tol, lib, bound):
+    """Run ``kernel()`` and ``plain()`` once, compare ``rows(out)`` (the
+    real rows), time the kernel, the plain version and ``lib``; print one
+    line and return the numbers.  Raises on disagreement."""
+    import torch
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    a, b = rows(got), rows(want)
+    err = (a.float() - b.float()).abs().max().item()
+    finite = bool(torch.isfinite(a).all())
+    ms = _median_ms(kernel, reps=20)
+    plain_ms = _median_ms(plain, reps=5)
+    library_ms = _median_ms(lib, reps=10)
+    bound_ms, bound_by = bound
+    print(f"kernel check [{label}]: max_abs_err={err:.3e} (tol {tol:g}) "
+          f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
+          f"bound_ms={bound_ms:.4f} ({bound_by})", flush=True)
+    if not finite or not err <= tol:
+        raise AssertionError(f"kernel disagrees with its plain version "
+                             f"[{label}]: max_abs_err={err} tol={tol} "
+                             f"finite={finite}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
 def phase_kernel_checks():
-    """B1 against its plain version at three configurations.  Returns
-    the per-config results; raises if any disagrees."""
+    """B1, B2 and B3 against their plain versions at three
+    configurations.  Returns {kernel: {config: numbers}}; raises if any
+    disagrees."""
     import torch
     from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import ref as kref
     configs = [
         # name, Hkv, G, D, pool dtype, window, tolerance on max |err|
@@ -211,84 +281,134 @@ def phase_kernel_checks():
         ("gemma-7b int8", 16, 1, 256, torch.int8, 0, 5e-2),
         ("starcoder2-7b bf16 window", 4, 9, 128, torch.bfloat16, 256, 5e-2),
     ]
-    results = {}
+    results = {pa.TILED: {}, pa.RAGGED: {}, pa.ROWS: {},
+               pa.ROWS + " decode": {}}
     for name, Hkv, G, D, pdt, window, tol in configs:
         s = _mixed_stream(Hkv=Hkv, G=G, D=D, bs=16, tile=16, pool_dtype=pdt,
                           window=window, seed=SEED)
+        T, segs = s["T"], s["segments"]
+        n_tiles = int((s["meta"][2] > s["meta"][1]).sum())
+        print(f"kernel inputs [{name}]: T={T} (padded {s['q'].shape[0]}) "
+              f"tiles={n_tiles}/{s['meta'].shape[1]} Hkv={Hkv} G={G} D={D} "
+              f"bs=16 tile=16 window={window} pool={str(pdt)[6:]}",
+              flush=True)
+        sc = s["scales"]
+        lib = _library_call(s, segs, s["q"][:T])
+        real = lambda out: out[:T]
+
+        # B1: segment-tiled read of the stream
         args = (s["q"], s["k"], s["v"], s["tables"], s["meta"],
                 s["row_tile"])
-        kw = dict(tile=s["tile"], window=window, **s["scales"])
-        got = ops.paged_attention_ragged_tiled(*args, use_kernel=True, **kw)
-        want = kref.paged_attention_ragged_tiled_reference(*args, **kw)
-        torch.cuda.synchronize()
-        T = s["T"]
-        err = (got[:T].float() - want[:T].float()).abs().max().item()
-        finite = bool(torch.isfinite(got[:T]).all())
-        ms = _median_ms(lambda: ops.paged_attention_ragged_tiled(
-            *args, use_kernel=True, **kw), reps=20)
-        plain_ms = _median_ms(lambda: ops.paged_attention_ragged_tiled(
-            *args, use_kernel=False, **kw), reps=5)
-        lib = _library_call(s)
-        library_ms = _median_ms(lib, reps=10)
-        bound_ms, bound_by = _bound(s)
-        n_tiles = int((s["meta"][2] > s["meta"][1]).sum())
-        print(f"kernel check [{name}]: T={T} (padded {s['q'].shape[0]}) "
-              f"tiles={n_tiles}/{s['meta'].shape[1]} Hkv={Hkv} G={G} D={D} "
-              f"bs=16 tile=16 window={window} pool={str(pdt)[6:]} "
-              f"max_abs_err={err:.3e} (tol {tol:g}) ms={ms:.4f} "
-              f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
-              f"bound_ms={bound_ms:.4f} ({bound_by})", flush=True)
-        if not finite or not err <= tol:
-            raise AssertionError(f"kernel disagrees with its plain version "
-                                 f"[{name}]: max_abs_err={err} tol={tol} "
-                                 f"finite={finite}")
-        results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                             library_ms=library_ms, bound_ms=bound_ms,
-                             bound_by=bound_by)
+        kw = dict(tile=s["tile"], window=window, **sc)
+        results[pa.TILED][name] = _check_kernel(
+            f"{pa.TILED} {name}",
+            lambda: ops.paged_attention_ragged_tiled(*args, use_kernel=True,
+                                                     **kw),
+            lambda: ops.paged_attention_ragged_tiled(*args, use_kernel=False,
+                                                     **kw),
+            real, tol, lib,
+            _bound(s, segs, s["tables_np"].nbytes + s["meta_np"].nbytes))
+
+        # B2: per-token read of the same stream
+        pargs = (s["q"], s["k"], s["v"], s["token_tables"], s["token_pos"])
+        pkw = dict(window=window, **sc)
+        results[pa.RAGGED][name] = _check_kernel(
+            f"{pa.RAGGED} {name}",
+            lambda: ops.paged_attention_ragged(*pargs, use_kernel=True,
+                                               **pkw),
+            lambda: ops.paged_attention_ragged(*pargs, use_kernel=False,
+                                               **pkw),
+            real, tol, lib,
+            _bound(s, segs, s["token_tables_np"].nbytes
+                   + s["token_pos"].numel() * 4))
+
+        # B3: the same segments as a (lanes, chunk) batch, then one decode
+        r = _rect_batch(s)
+        C = r["q"].shape[1]
+        rargs = (r["q"], s["k"], s["v"], s["tables"], r["q_starts"],
+                 r["q_lens"])
+        rreal = lambda out: torch.cat([out[b, :n] for b, (_, n)
+                                       in enumerate(segs)])
+        rect_meta = s["tables_np"].nbytes + 2 * 4 * len(segs)
+        results[pa.ROWS][name] = _check_kernel(
+            f"{pa.ROWS} chunk C={C} {name}",
+            lambda: ops.paged_attention_chunk(*rargs, use_kernel=True,
+                                              **pkw),
+            lambda: ops.paged_attention_chunk(*rargs, use_kernel=False,
+                                              **pkw),
+            rreal, tol, lib, _bound(s, segs, rect_meta))
+        dargs = (r["q_dec"], s["k"], s["v"], s["tables"], r["ctx_lens"])
+        results[pa.ROWS + " decode"][name] = _check_kernel(
+            f"{pa.ROWS} decode C=1 {name}",
+            lambda: ops.paged_attention(*dargs, use_kernel=True, **pkw),
+            lambda: ops.paged_attention(*dargs, use_kernel=False, **pkw),
+            lambda out: out, tol,
+            _library_call(s, r["dec_segments"], r["q_dec"]),
+            _bound(s, r["dec_segments"], s["tables_np"].nbytes
+                   + 4 * len(segs)))
+        del s, r
+        torch.cuda.empty_cache()
     return results
 
 
 # ---------------------------------------------------------------------------
-# phase 4: the main path at full width
+# phase 4: the main paths at full width
 # ---------------------------------------------------------------------------
-def phase_main_path(api, params):
-    """Serve gemma-7b requests through the default paged engine; returns
-    (engine, launches during the run)."""
+# (label, engine options, the kernel that path's attention read launches)
+PATHS = [("default (segment-tiled)", {}, "paged_attention_tiled"),
+         ("tiled=False (per-token)", {"tiled": False},
+          "paged_attention_ragged"),
+         ("ragged=False (rectangular)", {"ragged": False},
+          "paged_attention_rows")]
+
+
+def phase_main_path(api, params, label, engine_kw, kernel):
+    """Serve gemma-7b requests through the paged engine with
+    ``engine_kw``; every step must launch ``kernel`` once per layer and
+    no other attention kernel.  Returns that kernel's launches."""
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.launch.profile_serve import serve_fleet
     cfg = api.cfg
     max_new = 32
     pa.reset_launch_counts()
     eng, finished, wall = serve_fleet(api, params, max_new=max_new,
-                                      seed=SEED, device=DEVICE)
-    launches = pa.launch_counts[pa.KERNEL]
+                                      seed=SEED, device=DEVICE, **engine_kw)
+    launches = dict(pa.launch_counts)
     s = eng.stats()
-    print(f"main path: gemma-7b full width (d_model={cfg.d_model}, "
+    print(f"main path [{label}]: gemma-7b full width (d_model={cfg.d_model}, "
           f"{cfg.n_heads}x{cfg.resolved_head_dim} heads, d_ff={cfg.d_ff}, "
           f"vocab={cfg.vocab_size}, layers={cfg.n_layers}) "
           f"requests={len(finished)} steps={eng.steps} "
           f"tokens={eng.tokens_decoded} prefilled={eng.tokens_prefilled} "
           f"wall_s={wall:.3f} tok_per_s={eng.tokens_decoded / wall:.2f} "
           f"ms_per_step={wall / eng.steps * 1e3:.2f} "
-          f"kernel_launches={launches}", flush=True)
-    print(f"main path stats: {json.dumps(s)}", flush=True)
+          f"padding_efficiency={s['padding_efficiency']:.4f} "
+          f"kernel_launches={json.dumps(launches)}", flush=True)
+    print(f"main path [{label}] stats: {json.dumps(s)}", flush=True)
     if len(finished) != 8:
         raise AssertionError(f"{len(finished)} of 8 requests finished")
     if not all(len(r.generated) == max_new for r in finished):
         raise AssertionError("a request finished without its tokens")
-    if launches != cfg.n_layers * eng.steps:
-        raise AssertionError(f"kernel launches {launches} != layers x "
-                             f"steps {cfg.n_layers * eng.steps}")
+    want = {k: (cfg.n_layers * eng.steps if k == kernel else 0)
+            for k in launches}
+    if launches != want:
+        raise AssertionError(f"[{label}] kernel launches {launches} != "
+                             f"{want} (layers x steps on its own kernel)")
     if not (s["prefix_hits"] > 0 and s["cow_copies"] > 0
             and s["spec_verifications"] > 0):
-        raise AssertionError("prefix cache, CoW or speculation did not run")
-    return eng, launches
+        raise AssertionError(f"[{label}] prefix cache, CoW or speculation "
+                             "did not run")
+    return launches[kernel]
 
 
 # ---------------------------------------------------------------------------
-# phase 5: one full-width step, kernel against plain path
+# phase 5: full-width steps, kernel against plain path
 # ---------------------------------------------------------------------------
 def phase_step_vs_plain(api, params):
+    """One mixed batch through ``ragged_step`` (segment-tiled, then
+    per-token) and through ``paged_step`` (the same segments as a
+    rectangle), each with the kernel and on the plain path from the same
+    pools; logits must agree."""
     import numpy as np
     import torch
     from repro_torch.serving.batch import build_tile_map
@@ -299,7 +419,7 @@ def phase_step_vs_plain(api, params):
     rng = np.random.default_rng(SEED + 1)
     tables = np.zeros((n_lanes, max_blocks), np.int32)
     free = list(rng.permutation(np.arange(1, n_lanes * max_blocks + 1)))
-    tokens, pos, slots = [], [], []
+    tokens, pos, slots, token_lane = [], [], [], []
     offs, lens, lanes, pos0 = [], [], [], []
     for lane, (start, n) in enumerate(segments):
         for j in range(-(-(start + n) // bs)):
@@ -309,6 +429,7 @@ def phase_step_vs_plain(api, params):
         for p in range(start, start + n):
             tokens.append(int(rng.integers(0, cfg.vocab_size)))
             pos.append(p)
+            token_lane.append(lane)
             slots.append(int(tables[lane, p // bs]) * bs + p % bs)
     T = len(tokens)
     T_pad = 1 << (T - 1).bit_length()
@@ -324,36 +445,67 @@ def phase_step_vs_plain(api, params):
         pool.normal_(0.0, 1.0, generator=g)
     dev = torch.device(DEVICE)
     t32 = lambda a: torch.as_tensor(np.asarray(a, np.int32)).to(dev)
-    cache.update(block_tables=t32(tables), token_pos=t32(pos + pad),
-                 slot_mapping=t32(slots + pad), tile_meta=t32(tm.meta),
-                 row_tile=t32(tm.row_tile))
     saved = {k: v.clone() for k, v in cache["scan"].items()}
-    toks = t32(tokens + pad)
-    logits_k, _ = api.ragged_step(params, cache, toks, tile=tile,
-                                  use_kernel=True)
-    for k, v in saved.items():
-        cache["scan"][k].copy_(v)
-    logits_p, _ = api.ragged_step(params, cache, toks, tile=tile,
-                                  use_kernel=False)
-    _sync()
-    a, b = logits_k[:T], logits_p[:T]
-    err = (a - b).abs().max().item()
-    scale = b.abs().max().item()
-    agree = (a.argmax(-1) == b.argmax(-1)).float().mean().item()
-    finite = bool(torch.isfinite(a).all())
-    print(f"step vs plain: T={T} logits {tuple(a.shape)} "
-          f"max_abs_err={err:.4f} max_abs_logit={scale:.4f} "
-          f"argmax_agreement={agree:.4f} (tol: err <= 0.05 * max_abs_logit,"
-          f" agreement >= 0.9)", flush=True)
-    if not finite or err > 0.05 * scale or agree < 0.9:
-        raise AssertionError("full-width step disagrees with the plain "
-                             "path")
+    flat = dict(block_tables=t32(tables), token_pos=t32(pos + pad),
+                slot_mapping=t32(slots + pad))
+    tiled = dict(flat, tile_meta=t32(tm.meta), row_tile=t32(tm.row_tile))
+    per_token = dict(flat, token_lane=t32(token_lane + pad))
+    C = 1 << (max(lens) - 1).bit_length()
+    rect_tokens = np.zeros((n_lanes, C), np.int32)
+    for lane, (off, n) in enumerate(zip(offs, lens)):
+        rect_tokens[lane, :n] = tokens[off:off + n]
+    rect = dict(block_tables=t32(tables), pos=t32(pos0), q_lens=t32(lens))
+
+    def real_rows(logits):
+        if logits.dim() == 2:
+            return logits[:T]
+        return torch.cat([logits[b, :n] for b, n in enumerate(lens)])
+
+    for label, meta, step, toks, kw in (
+            ("ragged_step tiled", tiled, api.ragged_step,
+             t32(tokens + pad), {"tile": tile}),
+            ("ragged_step per-token", per_token, api.ragged_step,
+             t32(tokens + pad), {}),
+            (f"paged_step rectangular C={C}", rect, api.paged_step,
+             t32(rect_tokens), {})):
+        out = {}
+        for use_kernel in (True, False):
+            for k, v in saved.items():
+                cache["scan"][k].copy_(v)
+            cache.update(meta)
+            logits, _ = step(params, cache, toks, use_kernel=use_kernel,
+                             **kw)
+            out[use_kernel] = real_rows(logits)
+            for k in ("tile_meta", "row_tile", "token_lane", "token_pos",
+                      "slot_mapping", "q_lens"):
+                cache.pop(k, None)
+        _sync()
+        a, b = out[True], out[False]
+        err = (a - b).abs().max().item()
+        scale = b.abs().max().item()
+        agree = (a.argmax(-1) == b.argmax(-1)).float().mean().item()
+        finite = bool(torch.isfinite(a).all())
+        print(f"step vs plain [{label}]: T={T} logits {tuple(a.shape)} "
+              f"max_abs_err={err:.4f} max_abs_logit={scale:.4f} "
+              f"argmax_agreement={agree:.4f} (tol: err <= 0.05 * "
+              f"max_abs_logit, agreement >= 0.9)", flush=True)
+        if not finite or err > 0.05 * scale or agree < 0.9:
+            raise AssertionError(f"full-width {label} disagrees with the "
+                                 "plain path")
+        del out, a, b
+        torch.cuda.empty_cache()
 
 
 def _sync() -> None:
     import torch
     if DEVICE == "cuda":
         torch.cuda.synchronize()
+
+
+# each kernel (csrc/<name>.cu) and the line of the TPU kernel it replaces
+# in src/repro/kernels/paged_attention.py
+KERNELS = [("paged_attention_tiled", 373), ("paged_attention_ragged", 242),
+           ("paged_attention_rows", 109)]
 
 
 def main() -> None:
@@ -364,7 +516,6 @@ def main() -> None:
         sys.exit(2)
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
-    from repro_torch.kernels import paged_attention as pa
     from repro_torch.models.api import build_model
 
     # 1. device
@@ -388,7 +539,7 @@ def main() -> None:
     # 3. kernels against their plain versions
     checks = phase_kernel_checks()
 
-    # 4. main path at full width
+    # 4. main paths at full width, one set of weights
     cfg = get_config("gemma-7b")
     api = build_model(cfg)
     t0 = time.perf_counter()
@@ -399,25 +550,29 @@ def main() -> None:
           f"{time.perf_counter() - t0:.1f} s, "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card",
           flush=True)
-    _, launches = phase_main_path(api, params)
+    launches = {kernel: phase_main_path(api, params, label, kw, kernel)
+                for label, kw, kernel in PATHS}
 
-    # 5. one full-width step against the plain path
+    # 5. full-width steps against the plain path
     phase_step_vs_plain(api, params)
 
-    main_cfg = checks["gemma-7b bf16"]
-    print(json.dumps({"kernels": [{
-        "name": pa.KERNEL,
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/paged_attention_tiled.cu",
-        "replaces": "src/repro/kernels/paged_attention.py:373",
-        "launches": launches,
-        "max_abs_err": main_cfg["max_abs_err"],
-        "ms": main_cfg["ms"],
-        "plain_ms": main_cfg["plain_ms"],
-        "bound_ms": main_cfg["bound_ms"],
-        "bound_by": main_cfg["bound_by"],
-        "library_ms": main_cfg["library_ms"],
-    }]}), flush=True)
+    rows = []
+    for name, line in KERNELS:
+        main_cfg = checks[name]["gemma-7b bf16"]
+        rows.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": f"src/repro/kernels/paged_attention.py:{line}",
+            "launches": launches[name],
+            "max_abs_err": main_cfg["max_abs_err"],
+            "ms": main_cfg["ms"],
+            "plain_ms": main_cfg["plain_ms"],
+            "bound_ms": main_cfg["bound_ms"],
+            "bound_by": main_cfg["bound_by"],
+            "library_ms": main_cfg["library_ms"],
+        })
+    print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

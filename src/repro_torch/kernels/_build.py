@@ -3,9 +3,10 @@
 Every source in ``kernels/csrc/`` is compiled by ``nvcc`` for ``sm_90a``
 into its own shared library with a plain C interface, under
 ``kernels/build/`` (listed in ``.gitignore``), and loaded with ``ctypes``.
-A library is named by a hash of its source and flags, so an edited source
-rebuilds and an unchanged one is reused.  Nothing here runs when the
-module is imported: the first launch builds.
+A library is named by a hash of its source, every header in ``csrc/``
+and the flags, so an edited source or shared header rebuilds and an
+unchanged one is reused.  Nothing here runs when the module is imported:
+the first launch builds.
 """
 from __future__ import annotations
 
@@ -39,10 +40,13 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to, keyed by source and flags."""
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    """Where ``csrc/<name>.cu`` builds to, keyed by the source, the
+    headers it may include and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")) + sorted(CSRC.glob("*.h")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def _nvcc_command(name: str, out: Path) -> List[str]:

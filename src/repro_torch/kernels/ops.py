@@ -1,6 +1,6 @@
 """Dispatch between the port's kernels and their plain versions.
 
-The counterpart of the paged-tiled half of ``repro/kernels/ops.py``.
+The counterpart of the paged-attention half of ``repro/kernels/ops.py``.
 With ``use_kernel=None`` the device of ``q`` decides: the CUDA kernel for
 CUDA tensors, the plain PyTorch version for CPU tensors.
 ``use_kernel=False`` pins the plain version on either device (the
@@ -51,3 +51,77 @@ def paged_attention_ragged_tiled(q: torch.Tensor, k_pool: torch.Tensor,
     return _ref.paged_attention_ragged_tiled_reference(
         q, k_pool, v_pool, block_tables, tile_meta, row_tile, tile=tile,
         window=window, k_scale=k_scale, v_scale=v_scale)
+
+
+def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                    v_pool: torch.Tensor, block_tables: torch.Tensor,
+                    ctx_lens: torch.Tensor, *, window: int = 0,
+                    use_kernel: Optional[bool] = None,
+                    k_scale: Optional[torch.Tensor] = None,
+                    v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Decode-time paged attention read: q (B, 1, H, D) or (B, H, D), one
+    token per lane at position ``ctx_lens - 1``, against the pools through
+    per-lane ``block_tables``.  Returns q's shape."""
+    squeeze = q.dim() == 4
+    if squeeze:
+        q = q[:, 0]
+    if _resolve(q, use_kernel):
+        B, H, D = q.shape
+        Hkv = k_pool.shape[2]
+        out = _pa.paged_attention(
+            q.reshape(B, Hkv, H // Hkv, D), k_pool, v_pool, block_tables,
+            ctx_lens, window=window, k_scale=k_scale,
+            v_scale=v_scale).reshape(B, H, D)
+    else:
+        out = _ref.paged_attention_reference(
+            q, k_pool, v_pool, block_tables, ctx_lens, window=window,
+            k_scale=k_scale, v_scale=v_scale)
+    return out[:, None] if squeeze else out
+
+
+def paged_attention_chunk(q: torch.Tensor, k_pool: torch.Tensor,
+                          v_pool: torch.Tensor, block_tables: torch.Tensor,
+                          q_starts: torch.Tensor, q_lens: torch.Tensor, *,
+                          window: int = 0,
+                          use_kernel: Optional[bool] = None,
+                          k_scale: Optional[torch.Tensor] = None,
+                          v_scale: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """Chunked paged attention read: q (B, C, H, D), C query tokens per
+    lane from absolute position ``q_starts[b]``, of which ``q_lens[b]``
+    are real (padded rows are ignored by callers), causal inside the
+    chunk.  Returns (B, C, H, D)."""
+    if _resolve(q, use_kernel):
+        B, C, H, D = q.shape
+        Hkv = k_pool.shape[2]
+        out = _pa.paged_attention_chunk(
+            q.reshape(B, C, Hkv, H // Hkv, D), k_pool, v_pool, block_tables,
+            q_starts, q_starts + q_lens, window=window, k_scale=k_scale,
+            v_scale=v_scale)
+        return out.reshape(B, C, H, D)
+    return _ref.paged_attention_chunk_reference(
+        q, k_pool, v_pool, block_tables, q_starts, window=window,
+        k_scale=k_scale, v_scale=v_scale)
+
+
+def paged_attention_ragged(q: torch.Tensor, k_pool: torch.Tensor,
+                           v_pool: torch.Tensor, token_tables: torch.Tensor,
+                           token_pos: torch.Tensor, *, window: int = 0,
+                           use_kernel: Optional[bool] = None,
+                           k_scale: Optional[torch.Tensor] = None,
+                           v_scale: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """Per-token flat-stream paged attention read: q (T, H, D) against the
+    pools, ``token_tables`` (T, max_blocks) each token's lane's
+    block-table row and ``token_pos`` (T,) its position (the causal
+    bound).  Returns (T, H, D)."""
+    if _resolve(q, use_kernel):
+        T, H, D = q.shape
+        Hkv = k_pool.shape[2]
+        out = _pa.paged_attention_ragged(
+            q.reshape(T, Hkv, H // Hkv, D), k_pool, v_pool, token_tables,
+            token_pos, window=window, k_scale=k_scale, v_scale=v_scale)
+        return out.reshape(T, H, D)
+    return _ref.paged_attention_ragged_reference(
+        q, k_pool, v_pool, token_tables, token_pos, window=window,
+        k_scale=k_scale, v_scale=v_scale)

@@ -1,13 +1,23 @@
-"""Segment-tiled flat-stream paged attention: the wrapper of the Hopper
-kernel ``csrc/paged_attention_tiled.cu``.
+"""Paged attention: the wrappers of the port's three Hopper kernels.
 
-It replaces the TPU kernel ``repro/kernels/paged_attention.py::
-paged_attention_ragged_tiled``.  For CUDA tensors the wrapper checks its
-inputs, allocates the output and launches the kernel on the current
-stream, or raises: there is no fallback.  For CPU tensors it runs the
-plain version, ``ref.paged_attention_ragged_tiled_reference``.
-``launch_counts`` counts kernel launches, so a run can show that its
-main path went through the kernel.
+Each replaces one TPU kernel of ``repro/kernels/paged_attention.py``:
+
+  * :func:`paged_attention_ragged_tiled` (``csrc/paged_attention_tiled.cu``)
+    — ``paged_attention_ragged_tiled``, the segment-tiled flat-stream read
+    of the default paged step;
+  * :func:`paged_attention_ragged` (``csrc/paged_attention_ragged.cu``) —
+    ``paged_attention_ragged``, the per-token flat-stream read of the
+    ``tiled=False`` step;
+  * :func:`paged_attention_chunk` and :func:`paged_attention`
+    (``csrc/paged_attention_rows.cu``) — ``_paged_attention_rows`` behind
+    ``paged_attention_chunk`` and ``paged_attention``, the rectangular read
+    of the ``ragged=False`` step (C = 1 is decode).
+
+For CUDA tensors a wrapper checks its inputs, allocates the output and
+launches its kernel on the current stream, or raises: there is no
+fallback.  For CPU tensors it runs the kernel's plain version in
+``ref.py``.  ``launch_counts`` counts kernel launches by kernel name, so a
+run can show that its path went through the kernel.
 """
 from __future__ import annotations
 
@@ -19,31 +29,37 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
 
-KERNEL = "paged_attention_tiled"
+TILED = "paged_attention_tiled"
+RAGGED = "paged_attention_ragged"
+ROWS = "paged_attention_rows"
 HEAD_DIMS = (64, 128, 256)
 SMEM_LIMIT = 232_448          # opt-in dynamic shared memory per block, H100
+ROW_GROUP = 32                # q rows per thread block of the rows kernel
 _Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _POOL_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+# pointer and int arguments of each C launch function, before the float
+# scale and the stream
+_ARITY = {TILED: (8, 10), RAGGED: (8, 9), ROWS: (9, 11)}
 
-launch_counts: Dict[str, int] = {KERNEL: 0}
-_fn = None
-_smem_fn = None
+launch_counts: Dict[str, int] = {name: 0 for name in _ARITY}
+_fns: Dict[str, tuple] = {}
 
 
-def _kernel():
-    """The C entry points, built and bound on first use."""
-    global _fn, _smem_fn
-    if _fn is None:
-        lib = _build.load(KERNEL)
-        fn = lib.paged_attention_tiled_launch
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
+def _kernel(name: str):
+    """(launch, smem_bytes): the C entry points of ``csrc/<name>.cu``,
+    built and bound on first use."""
+    if name not in _fns:
+        lib = _build.load(name)
+        n_ptr, n_int = _ARITY[name]
+        fn = getattr(lib, f"{name}_launch")
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        smem = lib.paged_attention_tiled_smem_bytes
-        smem.argtypes = [ctypes.c_int] * 4
+        smem = getattr(lib, f"{name}_smem_bytes")
+        smem.argtypes = [ctypes.c_int] * 3
         smem.restype = ctypes.c_size_t
-        _fn, _smem_fn = fn, smem
-    return _fn, _smem_fn
+        _fns[name] = (fn, smem)
+    return _fns[name]
 
 
 def reset_launch_counts() -> None:
@@ -64,6 +80,68 @@ def _check(name: str, t: torch.Tensor, device: torch.device, dtypes,
         raise ValueError(f"{name} must be contiguous")
     if t.data_ptr() % 16:
         raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def _check_pools(q: torch.Tensor, k_pool: torch.Tensor,
+                 v_pool: torch.Tensor, k_scale: Optional[torch.Tensor],
+                 v_scale: Optional[torch.Tensor]) -> None:
+    """The checks every kernel makes of q (..., Hkv, G, D), the pools and
+    the int8 scales."""
+    dev = q.device
+    _check("q", q, dev, _Q_CODES, q.dim())
+    _check("k_pool", k_pool, dev, _POOL_CODES, 4)
+    _check("v_pool", v_pool, dev, (k_pool.dtype,), 4)
+    num_blocks, bs, hkv_pool, d_pool = k_pool.shape
+    Hkv, D = q.shape[-3], q.shape[-1]
+    if v_pool.shape != k_pool.shape:
+        raise ValueError(f"v_pool {tuple(v_pool.shape)} != k_pool "
+                         f"{tuple(k_pool.shape)}")
+    if (hkv_pool, d_pool) != (Hkv, D):
+        raise ValueError(f"pool heads/dim {(hkv_pool, d_pool)} != q's "
+                         f"{(Hkv, D)}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head dim {D} not built; the kernels take "
+                         f"{HEAD_DIMS}")
+    if bs < 1 or bs & (bs - 1):
+        raise ValueError(f"block size {bs} must be a power of two")
+    quantized = k_pool.dtype == torch.int8
+    if quantized != (k_scale is not None) or (k_scale is None) != (
+            v_scale is None):
+        raise ValueError("int8 pools need k_scale and v_scale; other pools "
+                         "take neither")
+    if quantized:
+        for name, sc in (("k_scale", k_scale), ("v_scale", v_scale)):
+            _check(name, sc, dev, (torch.float32,), 3)
+            if sc.shape != (num_blocks, bs, Hkv):
+                raise ValueError(f"{name} must be {(num_blocks, bs, Hkv)}, "
+                                 f"got {tuple(sc.shape)}")
+
+
+def _launch(name: str, rows: int, q: torch.Tensor, k_pool: torch.Tensor,
+            v_pool: torch.Tensor, k_scale: Optional[torch.Tensor],
+            v_scale: Optional[torch.Tensor], ptrs, ints, out: torch.Tensor
+            ) -> torch.Tensor:
+    """Launch kernel ``name`` whose blocks hold ``rows`` q rows: the
+    pointers are q, the pools, the scales, ``ptrs`` (metadata) and out;
+    the ints are the dtype codes, D and ``ints``."""
+    fn, smem_fn = _kernel(name)
+    D, bs = q.shape[-1], k_pool.shape[1]
+    smem = smem_fn(rows, D, bs)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"{rows} q rows of head dim {D} need {smem} bytes "
+                         f"of shared memory per block, the card allows "
+                         f"{SMEM_LIMIT}")
+    quantized = k_scale is not None
+    err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+             k_scale.data_ptr() if quantized else None,
+             v_scale.data_ptr() if quantized else None,
+             *(p.data_ptr() for p in ptrs), out.data_ptr(),
+             _Q_CODES[q.dtype], _POOL_CODES[k_pool.dtype], D, *ints,
+             1.0 / (D ** 0.5), torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    launch_counts[name] += 1
+    return out
 
 
 def paged_attention_ragged_tiled(q: torch.Tensor, k_pool: torch.Tensor,
@@ -90,56 +168,102 @@ def paged_attention_ragged_tiled(q: torch.Tensor, k_pool: torch.Tensor,
             tile_meta, row_tile, tile=tile, window=window, k_scale=k_scale,
             v_scale=v_scale)
         return out.reshape(T, Hkv, G, D)
-
-    dev = q.device
-    _check("q", q, dev, _Q_CODES, 4)
-    _check("k_pool", k_pool, dev, _POOL_CODES, 4)
-    _check("v_pool", v_pool, dev, (k_pool.dtype,), 4)
-    _check("block_tables", block_tables, dev, (torch.int32,), 2)
-    _check("tile_meta", tile_meta, dev, (torch.int32,), 2)
-    num_blocks, bs, hkv_pool, d_pool = k_pool.shape
-    if v_pool.shape != k_pool.shape:
-        raise ValueError(f"v_pool {tuple(v_pool.shape)} != k_pool "
-                         f"{tuple(k_pool.shape)}")
-    if (hkv_pool, d_pool) != (Hkv, D):
-        raise ValueError(f"pool heads/dim {(hkv_pool, d_pool)} != q's "
-                         f"{(Hkv, D)}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head dim {D} not built; the kernel takes "
-                         f"{HEAD_DIMS}")
-    if bs < 1 or bs & (bs - 1):
-        raise ValueError(f"block size {bs} must be a power of two")
+    _check_pools(q, k_pool, v_pool, k_scale, v_scale)
+    _check("block_tables", block_tables, q.device, (torch.int32,), 2)
+    _check("tile_meta", tile_meta, q.device, (torch.int32,), 2)
     if tile < 1 or tile & (tile - 1):
         raise ValueError(f"tile {tile} must be a power of two")
     if tile_meta.shape[0] != 5:
         raise ValueError(f"tile_meta must be (5, n_tiles), got "
                          f"{tuple(tile_meta.shape)}")
-    quantized = k_pool.dtype == torch.int8
-    if quantized != (k_scale is not None) or (k_scale is None) != (
-            v_scale is None):
-        raise ValueError("int8 pools need k_scale and v_scale; other pools "
-                         "take neither")
-    if quantized:
-        for name, sc in (("k_scale", k_scale), ("v_scale", v_scale)):
-            _check(name, sc, dev, (torch.float32,), 3)
-            if sc.shape != (num_blocks, bs, Hkv):
-                raise ValueError(f"{name} must be {(num_blocks, bs, Hkv)}, "
-                                 f"got {tuple(sc.shape)}")
-    fn, smem_fn = _kernel()
-    smem = smem_fn(tile, G, D, bs)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"tile*G*D too large: {smem} bytes of shared "
-                         f"memory per block, the card allows {SMEM_LIMIT}")
-    out = torch.zeros_like(q)
-    n_tiles = tile_meta.shape[1]
-    err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-             k_scale.data_ptr() if quantized else None,
-             v_scale.data_ptr() if quantized else None,
-             block_tables.data_ptr(), tile_meta.data_ptr(), out.data_ptr(),
-             _Q_CODES[q.dtype], _POOL_CODES[k_pool.dtype], D, n_tiles, Hkv,
-             G, bs, block_tables.shape[1], tile, window,
-             1.0 / (D ** 0.5), torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{KERNEL} launch failed: CUDA error {err}")
-    launch_counts[KERNEL] += 1
-    return out
+    return _launch(TILED, tile * G, q, k_pool, v_pool, k_scale, v_scale,
+                   (block_tables, tile_meta), (
+                       tile_meta.shape[1], Hkv, G, k_pool.shape[1],
+                       block_tables.shape[1], tile, window),
+                   torch.zeros_like(q))
+
+
+def paged_attention_ragged(q: torch.Tensor, k_pool: torch.Tensor,
+                           v_pool: torch.Tensor, token_tables: torch.Tensor,
+                           token_pos: torch.Tensor, *, window: int = 0,
+                           k_scale: Optional[torch.Tensor] = None,
+                           v_scale: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """q (T, Hkv, G, D) flat token stream; pools and scales as in
+    :func:`paged_attention_ragged_tiled`; ``token_tables`` (T, max_blocks)
+    int32, row t the block-table row of token t's lane; ``token_pos`` (T,)
+    int32 its absolute position.  Returns (T, Hkv, G, D) in ``q.dtype``;
+    padding tokens (zero table row, position 0) give finite values."""
+    T, Hkv, G, D = q.shape
+    if not q.is_cuda:
+        out = _ref.paged_attention_ragged_reference(
+            q.reshape(T, Hkv * G, D), k_pool, v_pool, token_tables,
+            token_pos, window=window, k_scale=k_scale, v_scale=v_scale)
+        return out.reshape(T, Hkv, G, D)
+    _check_pools(q, k_pool, v_pool, k_scale, v_scale)
+    _check("token_tables", token_tables, q.device, (torch.int32,), 2)
+    _check("token_pos", token_pos, q.device, (torch.int32,), 1)
+    if token_tables.shape[0] != T or token_pos.shape[0] != T:
+        raise ValueError(f"token_tables {tuple(token_tables.shape)} and "
+                         f"token_pos {tuple(token_pos.shape)} must have "
+                         f"T = {T} rows")
+    return _launch(RAGGED, G, q, k_pool, v_pool, k_scale, v_scale,
+                   (token_tables, token_pos), (
+                       T, Hkv, G, k_pool.shape[1], token_tables.shape[1],
+                       window),
+                   torch.empty_like(q))
+
+
+def paged_attention_chunk(q: torch.Tensor, k_pool: torch.Tensor,
+                          v_pool: torch.Tensor, block_tables: torch.Tensor,
+                          q_starts: torch.Tensor, ctx_lens: torch.Tensor, *,
+                          window: int = 0,
+                          k_scale: Optional[torch.Tensor] = None,
+                          v_scale: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """Chunked prefill/decode: q (B, C, Hkv, G, D), C query tokens per
+    lane (the model's (B, C, H, D) layout, viewed), token c at absolute
+    position ``q_starts[b] + c``; ``block_tables`` (B, max_blocks) int32;
+    ``ctx_lens`` (B,) int32, each lane's valid KV length after the chunk
+    (``q_starts + q_lens``).  Returns (B, C, Hkv, G, D) in ``q.dtype``.
+    Chunk rows at or past ``ctx_lens`` are padding: the kernel leaves them
+    zero, the plain version computes finite values; callers ignore them."""
+    B, C, Hkv, G, D = q.shape
+    if not q.is_cuda:
+        out = _ref.paged_attention_chunk_reference(
+            q.reshape(B, C, Hkv * G, D), k_pool, v_pool, block_tables,
+            q_starts, window=window, k_scale=k_scale, v_scale=v_scale)
+        return out.reshape(B, C, Hkv, G, D)
+    _check_pools(q, k_pool, v_pool, k_scale, v_scale)
+    _check("block_tables", block_tables, q.device, (torch.int32,), 2)
+    _check("q_starts", q_starts, q.device, (torch.int32,), 1)
+    _check("ctx_lens", ctx_lens, q.device, (torch.int32,), 1)
+    if (block_tables.shape[0], q_starts.shape[0], ctx_lens.shape[0]) != (
+            B, B, B):
+        raise ValueError(f"block_tables, q_starts and ctx_lens must have "
+                         f"B = {B} rows")
+    group_tokens = max(1, ROW_GROUP // G)
+    return _launch(ROWS, group_tokens * G, q, k_pool, v_pool, k_scale,
+                   v_scale, (block_tables, ctx_lens, q_starts), (
+                       B, C, Hkv, G, group_tokens, k_pool.shape[1],
+                       block_tables.shape[1], window),
+                   torch.zeros_like(q))
+
+
+def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                    v_pool: torch.Tensor, block_tables: torch.Tensor,
+                    ctx_lens: torch.Tensor, *, window: int = 0,
+                    k_scale: Optional[torch.Tensor] = None,
+                    v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Decode: q (B, Hkv, G, D), one token per lane at position
+    ``ctx_lens - 1``, through the rows kernel with C = 1.  Returns
+    (B, Hkv, G, D) in ``q.dtype``."""
+    if not q.is_cuda:
+        B, Hkv, G, D = q.shape
+        out = _ref.paged_attention_reference(
+            q.reshape(B, Hkv * G, D), k_pool, v_pool, block_tables,
+            ctx_lens, window=window, k_scale=k_scale, v_scale=v_scale)
+        return out.reshape(B, Hkv, G, D)
+    return paged_attention_chunk(q[:, None], k_pool, v_pool, block_tables,
+                                 ctx_lens - 1, ctx_lens, window=window,
+                                 k_scale=k_scale, v_scale=v_scale)[:, 0]

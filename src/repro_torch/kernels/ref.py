@@ -51,6 +51,100 @@ def _einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.einsum(eq, a.to(dt), b.to(dt))
 
 
+def _masked_attention(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      valid: torch.Tensor, eq_s: str, eq_o: str
+                      ) -> torch.Tensor:
+    """Scores of ``qg`` against gathered spans ``k`` by ``eq_s`` in the
+    input dtype, cast to float32 and scaled, masked to -1e30 outside
+    ``valid`` (broadcast against the scores), softmax, weights cast back
+    to ``qg.dtype``, then ``eq_o`` against ``v`` -- the reference's
+    dtype choices."""
+    s = _einsum(eq_s, qg, k).to(torch.float32) / (qg.shape[-1] ** 0.5)
+    s = torch.where(valid, s, torch.tensor(NEG_INF, dtype=s.dtype,
+                                           device=s.device))
+    w = torch.softmax(s, dim=-1).to(qg.dtype)
+    return _einsum(eq_o, w, v)
+
+
+def paged_attention_chunk_reference(
+        q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+        block_tables: torch.Tensor, q_starts: torch.Tensor, *,
+        window: int = 0, k_scale: Optional[torch.Tensor] = None,
+        v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q (B, C, H, D), a chunk of C query tokens per lane, token c at
+    absolute position ``q_starts[b] + c``; ``block_tables`` (B,
+    max_blocks).  Returns (B, C, H, D) in ``q.dtype``.
+
+    Logical kv position t of lane b lives in block ``block_tables[b, t //
+    bs]`` at offset ``t % bs``; query c masks kv positions past
+    ``q_starts[b] + c`` (and outside the sliding window), so causality
+    holds inside the chunk.  Padded queries give finite values that
+    callers ignore."""
+    B, C, H, D = q.shape
+    Hkv = k_pool.shape[2]
+    tables = block_tables.long()
+    k = _gather_block_spans(k_pool, tables)           # (B, S, Hkv, D)
+    v = _gather_block_spans(v_pool, tables)
+    if k_scale is not None:
+        k = _apply_block_scales(k, k_scale, tables)
+        v = _apply_block_scales(v, v_scale, tables)
+    qpos = q_starts.long()[:, None] + torch.arange(C, device=q.device)
+    kpos = torch.arange(k.shape[1], device=q.device)[None, None, :]
+    valid = kpos <= qpos[:, :, None]                   # (B, C, S)
+    if window:
+        valid &= (qpos[:, :, None] - kpos) < window
+    out = _masked_attention(q.reshape(B, C, Hkv, H // Hkv, D), k, v,
+                            valid[:, :, None, None, :],
+                            "bckgd,bskd->bckgs", "bckgs,bskd->bckgd")
+    return out.reshape(B, C, H, D).to(q.dtype)
+
+
+def paged_attention_reference(
+        q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+        block_tables: torch.Tensor, ctx_lens: torch.Tensor, *,
+        window: int = 0, k_scale: Optional[torch.Tensor] = None,
+        v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q (B, H, D), one query token per lane at position ``ctx_lens - 1``:
+    the decode case of :func:`paged_attention_chunk_reference`.  Returns
+    (B, H, D) in ``q.dtype``."""
+    return paged_attention_chunk_reference(
+        q[:, None], k_pool, v_pool, block_tables, ctx_lens - 1,
+        window=window, k_scale=k_scale, v_scale=v_scale)[:, 0]
+
+
+def paged_attention_ragged_reference(
+        q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+        token_tables: torch.Tensor, token_pos: torch.Tensor, *,
+        window: int = 0, k_scale: Optional[torch.Tensor] = None,
+        v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q (T, H, D), one flat stream of query tokens from many lanes;
+    ``token_tables`` (T, max_blocks), row t the block-table row of token
+    t's lane; ``token_pos`` (T,) its absolute position.  Returns (T, H, D)
+    in ``q.dtype``.
+
+    Token t attends to kv positions ``<= token_pos[t]`` of its own lane's
+    blocks (and inside the sliding window), one span gather per token.
+    Padding tokens (zero tables, position 0) give finite values that
+    callers ignore."""
+    T, H, D = q.shape
+    Hkv = k_pool.shape[2]
+    tables = token_tables.long()
+    k = _gather_block_spans(k_pool, tables)           # (T, S, Hkv, D)
+    v = _gather_block_spans(v_pool, tables)
+    if k_scale is not None:
+        k = _apply_block_scales(k, k_scale, tables)
+        v = _apply_block_scales(v, v_scale, tables)
+    pos = token_pos.long()[:, None]
+    kpos = torch.arange(k.shape[1], device=q.device)[None, :]
+    valid = kpos <= pos                                # (T, S)
+    if window:
+        valid &= (pos - kpos) < window
+    out = _masked_attention(q.reshape(T, Hkv, H // Hkv, D), k, v,
+                            valid[:, None, None, :],
+                            "tkgd,tskd->tkgs", "tkgs,tskd->tkgd")
+    return out.reshape(T, H, D).to(q.dtype)
+
+
 def paged_attention_ragged_tiled_reference(
         q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
         tables: torch.Tensor, tile_meta: torch.Tensor,
@@ -88,8 +182,6 @@ def paged_attention_ragged_tiled_reference(
     qt = qw[win]                                   # (n_tiles, tile, Hkv, G, D)
     kt = k_lanes[lane]                             # (n_tiles, S, Hkv, D)
     vt = v_lanes[lane]
-    s = _einsum("ntkgd,nskd->ntkgs", qt, kt).to(torch.float32)
-    s = s / (D ** 0.5)
     dev = q.device
     rows = win[:, None] * tile + torch.arange(tile, device=dev)[None, :]
     qpos = pos0[:, None] + rows - lo[:, None]
@@ -98,10 +190,9 @@ def paged_attention_ragged_tiled_reference(
     valid = rowvalid[:, :, None] & (kpos <= qpos[:, :, None])
     if window:
         valid &= (qpos[:, :, None] - kpos) < window
-    s = torch.where(valid[:, :, None, None, :], s,
-                    torch.tensor(NEG_INF, dtype=s.dtype, device=dev))
-    w = torch.softmax(s, dim=-1).to(q.dtype)
-    ot = _einsum("ntkgs,nskd->ntkgd", w, vt)      # (n_tiles, tile, Hkv, G, D)
+    ot = _masked_attention(qt, kt, vt, valid[:, :, None, None, :],
+                           "ntkgd,nskd->ntkgs",
+                           "ntkgs,nskd->ntkgd")   # (n_tiles, tile, Hkv, G, D)
     r = torch.arange(T, device=dev)
     t_idx = row_tile[:T].long()
     off = torch.clamp(r - win[t_idx] * tile, 0, tile - 1)

@@ -2,16 +2,23 @@
 ``python -m repro_torch.launch.profile_serve``.
 
 Serves the shared-prefix gemma-7b fleet of ``chip_smoke.py`` (published
-width, random bf16 weights from a seed) through the default
-``PagedDecodeEngine`` twice: a warm-up drain, then a drain under
-``torch.profiler``.  Prints the wall time per step, the device's busy
-share of the profiled window (union of kernel intervals over the wall),
-the device time of the attention kernel, the GEMMs and everything else,
-and the top device kernels by total time.  Needs a CUDA card.
+width, random bf16 weights from a seed) through ``PagedDecodeEngine`` in
+each of its three layouts -- the default (segment-tiled), ``tiled=False``
+(per-token) and ``ragged=False`` (rectangular) -- twice per layout: a
+warm-up drain, then a drain under ``torch.profiler``.  Prints, per
+layout, the wall time per step, the device's busy share of the profiled
+window (union of kernel intervals over the wall), the device time of the
+attention kernel, the GEMMs and everything else, and the top device
+kernels by total time.  Then it drains the fleet unprofiled
+``ROUNDS`` times per layout, rotating which layout goes first, and
+prints each layout's wall ms/step and their median (the host clock of a
+shared host varies between drains, so one drain per layout is not a
+comparison).  Needs a CUDA card.
 """
 from __future__ import annotations
 
 import json
+import statistics
 import time
 
 import numpy as np
@@ -21,7 +28,10 @@ from repro_torch.configs import get_config
 from repro_torch.models.api import build_model
 from repro_torch.serving.engine import PagedDecodeEngine
 
-TOP = 25          # kernels listed by total device time
+TOP = 12          # kernels listed by total device time, per layout
+ROUNDS = 3        # unprofiled drains per layout
+LAYOUTS = [("default", {}), ("tiled=False", {"tiled": False}),
+           ("ragged=False", {"ragged": False})]
 
 
 def shared_prefix_fleet(vocab: int, seed: int = 0):
@@ -41,12 +51,14 @@ def shared_prefix_fleet(vocab: int, seed: int = 0):
 
 
 def serve_fleet(api, params, *, max_new: int = 32, seed: int = 0,
-                device="cuda"):
-    """Drain the fleet through a fresh default engine; returns (engine,
-    finished requests, wall seconds)."""
+                device="cuda", **engine_kw):
+    """Drain the fleet through a fresh engine, default but for
+    ``engine_kw`` (e.g. ``ragged=False`` or ``tiled=False``); returns
+    (engine, finished requests, wall seconds)."""
     first, others = shared_prefix_fleet(api.cfg.vocab_size, seed)
     eng = PagedDecodeEngine(api, params, n_slots=8, cache_len=512,
-                            window=api.effective_window(512), device=device)
+                            window=api.effective_window(512), device=device,
+                            **engine_kw)
     if eng.device.type == "cuda":
         torch.cuda.synchronize(eng.device)
     t0 = time.perf_counter()
@@ -63,8 +75,8 @@ def serve_fleet(api, params, *, max_new: int = 32, seed: int = 0,
 
 def _group(name: str) -> str:
     """Kernel family of a device kernel name."""
-    if "tiled_paged_attention" in name:
-        return "attention (B1)"
+    if "paged_attention_kernel" in name:
+        return "attention"
     if any(k in name for k in ("nvjet", "gemm", "splitKreduce", "cutlass")):
         return "gemm"
     return "other"
@@ -86,29 +98,27 @@ def _busy_us(events) -> float:
     return busy
 
 
-def main() -> None:
-    if not torch.cuda.is_available():
-        raise SystemExit("profile_serve needs a CUDA card")
-    cfg = get_config("gemma-7b")
-    api = build_model(cfg)
-    params = api.init(seed=0, device="cuda", dtype=torch.bfloat16)
-    eng, _, wall = serve_fleet(api, params)             # warm-up
-    print(f"warm-up: steps={eng.steps} wall_s={wall:.3f}", flush=True)
+def profile_layout(api, params, label: str, engine_kw) -> dict:
+    """Warm-up drain, then a profiled drain, of the fleet through the
+    engine with ``engine_kw``; prints and returns the breakdown."""
+    eng, _, wall = serve_fleet(api, params, **engine_kw)
+    print(f"[{label}] warm-up: steps={eng.steps} wall_s={wall:.3f}",
+          flush=True)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        eng, finished, wall = serve_fleet(api, params)
+        eng, finished, wall = serve_fleet(api, params, **engine_kw)
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = _busy_us(kernels) / 1e6
-    print(f"profiled: layers={cfg.n_layers} steps={eng.steps} "
+    print(f"[{label}] profiled: layers={api.cfg.n_layers} steps={eng.steps} "
           f"tokens={eng.tokens_decoded} wall_s={wall:.4f} "
           f"ms_per_step={wall / eng.steps * 1e3:.3f} "
           f"device_busy_s={busy:.4f} busy_share={busy / wall:.4f} "
           f"idle_share={1 - busy / wall:.4f} kernels={len(kernels)}",
           flush=True)
     totals = {}
-    groups = {"attention (B1)": 0.0, "gemm": 0.0, "other": 0.0}
+    groups = {"attention": 0.0, "gemm": 0.0, "other": 0.0}
     for e in kernels:
         t = totals.setdefault(e.name, [0.0, 0])
         us = e.time_range.end - e.time_range.start
@@ -123,10 +133,30 @@ def main() -> None:
     for name, (us, n) in rows:
         print(f"  {us / 1e3:10.3f} ms  {n:6d} calls  "
               f"{us / 1e3 / eng.steps:8.3f} ms/step  {name[:90]}")
-    print(json.dumps({"steps": eng.steps, "wall_s": wall,
-                      "device_busy_s": busy, "groups_ms": {
-                          g: us / 1e3 for g, us in groups.items()},
-                      "top": [[n, us / 1e3, c] for n, (us, c) in rows]}))
+    return {"steps": eng.steps, "wall_s": wall, "device_busy_s": busy,
+            "groups_ms": {g: us / 1e3 for g, us in groups.items()},
+            "top": [[n[:90], us / 1e3, c] for n, (us, c) in rows]}
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_serve needs a CUDA card")
+    cfg = get_config("gemma-7b")
+    api = build_model(cfg)
+    params = api.init(seed=0, device="cuda", dtype=torch.bfloat16)
+    out = {label: profile_layout(api, params, label, kw)
+           for label, kw in LAYOUTS}
+    walls = {label: [] for label, _ in LAYOUTS}
+    for r in range(ROUNDS):
+        for label, kw in LAYOUTS[r:] + LAYOUTS[:r]:
+            eng, _, wall = serve_fleet(api, params, **kw)
+            walls[label].append(wall / eng.steps * 1e3)
+    for label, ms in walls.items():
+        out[label]["unprofiled_ms_per_step"] = ms
+        print(f"[{label}] unprofiled ms/step over {ROUNDS} rotated drains: "
+              f"{', '.join(f'{m:.3f}' for m in ms)} "
+              f"(median {statistics.median(ms):.3f})", flush=True)
+    print(json.dumps(out))
 
 
 if __name__ == "__main__":

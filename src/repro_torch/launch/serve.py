@@ -53,12 +53,14 @@ def main(argv=None) -> None:
                     help="share identical prompt prefixes copy-on-write")
     ap.add_argument("--ragged", default=True,
                     action=argparse.BooleanOptionalAction,
-                    help="flat-token serving batch (--no-ragged is not "
-                         "ported yet)")
+                    help="flat-token serving batch (one 1-D stream of all "
+                         "scheduled tokens per step); --no-ragged pins the "
+                         "rectangular (lanes, chunk_width) layout")
     ap.add_argument("--tiled", default=True,
                     action=argparse.BooleanOptionalAction,
-                    help="segment-tiled attention grid (--no-tiled is not "
-                         "ported yet)")
+                    help="segment-tiled attention grid over the flat "
+                         "stream (KV read once per q-tile); --no-tiled "
+                         "pins the per-token (token, head, block) grid")
     ap.add_argument("--tile", type=int, default=16,
                     help="q rows per segment tile window (pow2)")
     ap.add_argument("--spec", default=True,
@@ -91,7 +93,10 @@ def main(argv=None) -> None:
                   token_budget=args.token_budget,
                   chunk_tokens=args.chunk_tokens,
                   prefix_cache=args.prefix_cache,
-                  ragged=args.ragged, tiled=args.tiled, tile=args.tile,
+                  ragged=args.ragged and api.supports_ragged,
+                  tiled=(args.tiled and args.ragged
+                         and api.supports_ragged),
+                  tile=args.tile,
                   spec=args.spec and api.supports_spec,
                   draft_k=args.draft_k,
                   ttft_target=args.slo_ttft_ms / 1e3,

@@ -5,9 +5,11 @@
   * ``init(seed=0, device="cuda", dtype=torch.bfloat16)`` -> params
   * ``init_cache(batch, cache_len, **kw)`` / ``decode_step`` — the
     dense-slot decode path (the oracle of the paged engine);
-  * ``init_paged_cache(n_lanes, **kw)`` / ``ragged_step`` — the paged
-    flat-token serving step.  It returns logits for EVERY row of the
-    stream, the speculative-decode verification contract.
+  * ``init_paged_cache(n_lanes, **kw)`` / ``paged_step`` — the
+    rectangular (lanes, chunk) paged step, with ``paged_decode_step`` its
+    q_len = 1 case — and ``ragged_step``, the flat-token paged step.
+    Both multi-token steps return logits for EVERY row, the
+    speculative-decode verification contract.
   * ``effective_window(seq_len)`` -> attention window for a shape
 """
 from __future__ import annotations
@@ -29,11 +31,14 @@ class ModelAPI:
     init_cache: Callable[..., Any]
     decode_step: Callable[..., Tuple[Any, Any]]
     init_paged_cache: Optional[Callable[..., Any]] = None
+    paged_step: Optional[Callable[..., Tuple[Any, Any]]] = None
+    paged_decode_step: Optional[Callable[..., Tuple[Any, Any]]] = None
     ragged_step: Optional[Callable[..., Tuple[Any, Any]]] = None
 
     @property
     def supports_paged(self) -> bool:
-        return self.init_paged_cache is not None
+        return (self.paged_step is not None
+                or self.paged_decode_step is not None)
 
     @property
     def supports_ragged(self) -> bool:
@@ -41,9 +46,14 @@ class ModelAPI:
 
     @property
     def supports_spec(self) -> bool:
-        """Speculative decode needs the multi-token step with per-row
-        logits."""
-        return self.ragged_step is not None
+        """Speculative decode needs a multi-token step with per-row
+        logits; the q_len = 1 step cannot verify draft chains."""
+        return self.paged_step is not None
+
+    def resolve_paged_step(self):
+        """The chunked step, or the q_len = 1 step when that is all the
+        family provides."""
+        return self.paged_step or self.paged_decode_step
 
     def effective_window(self, seq_len: int) -> int:
         cfg = self.cfg
@@ -68,6 +78,10 @@ def build_model(cfg: ArchConfig) -> ModelAPI:
             p, c, t, cfg, **kw),
         init_paged_cache=lambda b, **kw: transformer.init_paged_cache(
             cfg, b, **kw),
+        paged_step=lambda p, c, t, **kw: transformer.paged_step(
+            p, c, t, cfg, **kw),
+        paged_decode_step=lambda p, c, t, **kw: transformer.paged_decode_step(
+            p, c, t, cfg, **kw),
         ragged_step=lambda p, c, t, **kw: transformer.ragged_step(
             p, c, t, cfg, **kw),
     )

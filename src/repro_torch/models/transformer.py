@@ -1,5 +1,6 @@
 """Decoder-only transformer LM (dense family): parameters, the dense-slot
-decode step and the ragged paged serving step.
+decode step and the paged serving steps (rectangular ``paged_step`` and
+flat-token ``ragged_step``).
 
 The counterpart of ``repro/models/transformer.py``.  Parameters keep the
 reference's layer-stacked layout (every leaf of ``params["blocks"]`` has a
@@ -166,24 +167,62 @@ def _pool_scales(cache_l: Dict) -> Dict:
 # ---------------------------------------------------------------------------
 # Block application
 # ---------------------------------------------------------------------------
+def _apply_block_paged(bp: Dict, x: torch.Tensor, cache_l: Dict,
+                       block_tables: torch.Tensor, pos: torch.Tensor,
+                       q_lens: torch.Tensor, cfg: ArchConfig, *, window: int,
+                       use_kernel: Optional[bool] = None) -> torch.Tensor:
+    """One layer over a chunk of C tokens per lane, x (B, C, d): norm ->
+    QKV (RoPE at ``pos[b] + c``) -> K/V written through ``block_tables``
+    -> the rectangular paged attention read -> out projection -> MLP.
+    Writes past a lane's ``q_lens`` land on slot 0 of the reserved null
+    block, which nothing reads, so padded and paused lanes are
+    harmless."""
+    from repro_torch.kernels import ops as kernel_ops
+    B, C = x.shape[:2]
+    bs = cache_l["k"].shape[1]
+    max_blocks = block_tables.shape[1]
+    xn = apply_norm(cfg.norm_type, bp["attn_norm"], x)
+    offs = torch.arange(C, device=x.device)
+    positions = pos[:, None] + offs[None, :]                  # (B, C)
+    q, k, v = layers.project_qkv(bp["attn"], xn, positions, cfg)
+    valid = offs[None, :] < q_lens[:, None]
+    lblk = torch.clamp(positions.long() // bs, max=max_blocks - 1)
+    blk = torch.where(valid, torch.gather(block_tables.long(), 1, lblk), 0)
+    off = torch.where(valid, positions.long() % bs, 0)
+    _write_kv_pool(cache_l, k, v, blk, off)
+    attn = kernel_ops.paged_attention_chunk(
+        q, cache_l["k"], cache_l["v"], block_tables, pos, q_lens,
+        window=window, use_kernel=use_kernel, **_pool_scales(cache_l))
+    attn = layers.project_out(bp["attn"], attn, cfg)
+    return _mlp_residual(bp, x, xn, attn, cfg)
+
+
 def _apply_block_ragged(bp: Dict, x: torch.Tensor, cache_l: Dict,
+                        token_tables: Optional[torch.Tensor],
                         token_pos: torch.Tensor, slot_mapping: torch.Tensor,
                         tile_spec, cfg: ArchConfig, *, window: int,
                         use_kernel: Optional[bool] = None) -> torch.Tensor:
     """One layer over the flat stream x (T, d): norm -> QKV (RoPE at
-    ``token_pos``) -> K/V scattered to ``slot_mapping`` -> the tiled paged
-    attention read -> out projection -> MLP."""
+    ``token_pos``) -> K/V scattered to ``slot_mapping`` -> the paged
+    attention read -> out projection -> MLP.  The read is segment-tiled
+    with ``tile_spec`` (block_tables, tile_meta, row_tile, tile), else
+    per token through ``token_tables`` (T, max_blocks)."""
     from repro_torch.kernels import ops as kernel_ops
     bs = cache_l["k"].shape[1]
     xn = apply_norm(cfg.norm_type, bp["attn_norm"], x)
     q, k, v = layers.project_qkv(bp["attn"], xn, token_pos, cfg)
     slots = slot_mapping.long()
     _write_kv_pool(cache_l, k, v, slots // bs, slots % bs)
-    tables, tile_meta, row_tile, tile = tile_spec
-    attn = kernel_ops.paged_attention_ragged_tiled(
-        q, cache_l["k"], cache_l["v"], tables, tile_meta, row_tile,
-        tile=tile, window=window, use_kernel=use_kernel,
-        **_pool_scales(cache_l))
+    if tile_spec is not None:
+        tables, tile_meta, row_tile, tile = tile_spec
+        attn = kernel_ops.paged_attention_ragged_tiled(
+            q, cache_l["k"], cache_l["v"], tables, tile_meta, row_tile,
+            tile=tile, window=window, use_kernel=use_kernel,
+            **_pool_scales(cache_l))
+    else:
+        attn = kernel_ops.paged_attention_ragged(
+            q, cache_l["k"], cache_l["v"], token_tables, token_pos,
+            window=window, use_kernel=use_kernel, **_pool_scales(cache_l))
     attn = layers.project_out(bp["attn"], attn, cfg)
     return _mlp_residual(bp, x, xn, attn, cfg)
 
@@ -273,6 +312,7 @@ def init_paged_cache(cfg: ArchConfig, n_lanes: int, *, num_blocks: int,
         "scan": pool,
         "block_tables": torch.zeros((n_lanes, max_blocks_per_lane),
                                     dtype=torch.int32, device=dev),
+        "pos": torch.zeros((n_lanes,), dtype=torch.int32, device=dev),
     }
 
 
@@ -284,6 +324,45 @@ def _check_compute_dtype(params: Dict, compute_dtype) -> None:
                          "needs parameters made in that dtype")
 
 
+def paged_step(params: Dict, cache: Dict, tokens: torch.Tensor,
+               cfg: ArchConfig, *, window: int = 0,
+               compute_dtype: Optional[torch.dtype] = None,
+               use_kernel: Optional[bool] = None
+               ) -> Tuple[torch.Tensor, Dict]:
+    """tokens (B, C) -> (logits (B, C, V) float32, cache): the rectangular
+    prefill/decode step over the paged pools.  A lane's chunk is a
+    prefill slice, a decode token (C = 1), a draft segment or padding.
+    ``cache["pos"]`` (B,) is the position of each lane's first chunk token
+    (the tokens already in its KV); ``cache["q_lens"]`` (B,), if present,
+    the real tokens of each chunk (absent: all C).  The KV pools are
+    updated in place and ``pos`` advances by ``q_lens``.  Logits cover
+    every chunk row (the speculative-decode verification contract)."""
+    _check_compute_dtype(params, compute_dtype)
+    B, C = tokens.shape
+    pos = cache["pos"]
+    q_lens = cache.get("q_lens")
+    if q_lens is None:
+        q_lens = torch.full((B,), C, dtype=torch.int32, device=pos.device)
+    x = _embed(params, tokens, cfg)
+    for l in range(cfg.n_layers):
+        cl = {name: arr[l] for name, arr in cache["scan"].items()}
+        x = _apply_block_paged(layer_params(params["blocks"], l), x, cl,
+                               cache["block_tables"], pos, q_lens, cfg,
+                               window=window, use_kernel=use_kernel)
+    cache["pos"] = pos + q_lens
+    return _finish(params, x, cfg), cache
+
+
+def paged_decode_step(params: Dict, cache: Dict, tokens: torch.Tensor,
+                      cfg: ArchConfig, *, window: int = 0,
+                      compute_dtype: Optional[torch.dtype] = None
+                      ) -> Tuple[torch.Tensor, Dict]:
+    """tokens (B, 1) -> (logits (B, 1, V), cache): the q_len = 1 case of
+    :func:`paged_step`, for the single-sequence debug path."""
+    return paged_step(params, cache, tokens, cfg, window=window,
+                      compute_dtype=compute_dtype)
+
+
 def ragged_step(params: Dict, cache: Dict, tokens: torch.Tensor,
                 cfg: ArchConfig, *, window: int = 0, tile: int = 16,
                 compute_dtype: Optional[torch.dtype] = None,
@@ -292,23 +371,26 @@ def ragged_step(params: Dict, cache: Dict, tokens: torch.Tensor,
     """tokens (T,) -> (logits (T, V) float32, cache): the ragged
     flat-token serving step.  The engine writes the per-step metadata
     into the cache first: ``token_pos`` and ``slot_mapping`` (T,),
-    ``block_tables`` (n_lanes, max_blocks) and the TileMap arrays
-    ``tile_meta`` (5, n_tiles) and ``row_tile`` (T,).  The KV pools are
-    updated in place.  Logits cover every row of the stream (the
-    speculative-decode verification contract), so a draft segment yields
-    the model's greedy continuation at every draft slot."""
+    ``block_tables`` (n_lanes, max_blocks), and either the TileMap arrays
+    ``tile_meta`` (5, n_tiles) and ``row_tile`` (T,), for the
+    segment-tiled read, or ``token_lane`` (T,), for the per-token read
+    through ``block_tables[token_lane]``.  The KV pools are updated in
+    place.  Logits cover every row of the stream (the speculative-decode
+    verification contract), so a draft segment yields the model's greedy
+    continuation at every draft slot."""
     _check_compute_dtype(params, compute_dtype)
-    if "tile_meta" not in cache:
-        raise NotImplementedError(
-            "the per-token paged attention grid (tiled=False) is the next "
-            "slice's kernel B2 (ROADMAP queue B); pass the TileMap arrays")
-    tile_spec = (cache["block_tables"], cache["tile_meta"],
-                 cache["row_tile"], tile)
+    tables = cache["block_tables"]
+    if "tile_meta" in cache:
+        tile_spec = (tables, cache["tile_meta"], cache["row_tile"], tile)
+        token_tables = None
+    else:
+        tile_spec = None
+        token_tables = tables[cache["token_lane"].long()]   # (T, max_blocks)
     x = _embed(params, tokens, cfg)
     for l in range(cfg.n_layers):
         cl = {name: arr[l] for name, arr in cache["scan"].items()}
         x = _apply_block_ragged(layer_params(params["blocks"], l), x, cl,
-                                cache["token_pos"], cache["slot_mapping"],
-                                tile_spec, cfg, window=window,
-                                use_kernel=use_kernel)
+                                token_tables, cache["token_pos"],
+                                cache["slot_mapping"], tile_spec, cfg,
+                                window=window, use_kernel=use_kernel)
     return _finish(params, x, cfg), cache

@@ -6,7 +6,10 @@ The counterpart of ``repro/serving/engine.py``:
     with the reference's defaults: the ragged flat-token batch, the
     segment-tiled attention read (the Hopper kernel on CUDA tensors),
     n-gram speculative decode, the prefix cache with copy-on-write, the
-    host swap tier, int8 pools, cancellation, clocks and ``stats()``.
+    host swap tier, int8 pools, cancellation, clocks and ``stats()``; and
+    the reference's two baselines, the per-token attention read
+    (``tiled=False``) and the rectangular (lanes, chunk) batch
+    (``ragged=False``), each through its own Hopper kernel.
   * :class:`SlotDecodeEngine` — the dense per-lane oracle over
     ``decode_step``.
   * :func:`DecodeEngine` — the facade picking between them.
@@ -18,9 +21,8 @@ CoW copies are one gather-scatter per pool leaf, and each step reads back
 its greedy tokens with a single device-to-host copy.
 
 Left for later slices, each raising ``NotImplementedError``: ``mesh=`` and
-:class:`ShardedDecodeEngine` (ROADMAP A9), the KV transfer and
-prefix-cache persistence methods (A5), and ``ragged=False`` /
-``tiled=False``, whose attention reads are kernels B3 and B2.
+:class:`ShardedDecodeEngine` (ROADMAP A9), and the KV transfer and
+prefix-cache persistence methods (A5).
 """
 from __future__ import annotations
 
@@ -32,7 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.serving.batch import RaggedBatch
+from repro_torch.serving.batch import RaggedBatch, padded_pow2
 from repro_torch.serving.blocks import KVCacheManager
 from repro_torch.serving.scheduler import (Request, RequestState, Scheduler,
                                            SchedulerConfig, StepDecision)
@@ -87,14 +89,17 @@ class PagedDecodeEngine:
 
     ``n_slots`` lanes share one physical pool; ``cache_len`` caps one
     request's KV length, and ``num_blocks`` defaults to the dense
-    equivalent (``n_slots`` full sequences plus the null block).  Every
-    step flattens its scheduled tokens into one stream (``RaggedBatch``),
-    cuts it into segment tiles (``TileMap``) and runs
-    ``model_api.ragged_step``; speculative drafts ride as ``1 + k`` token
-    segments and are verified by the step's own per-row argmax.  Greedy
-    outputs do not depend on the schedule, so the engine is
-    token-identical to :class:`SlotDecodeEngine` under prefix sharing,
-    preemption, swap and cancellation.
+    equivalent (``n_slots`` full sequences plus the null block).  By
+    default every step flattens its scheduled tokens into one stream
+    (``RaggedBatch``), cuts it into segment tiles (``TileMap``) and runs
+    ``model_api.ragged_step``; ``tiled=False`` runs the same stream
+    through the per-token attention read, and ``ragged=False`` pads every
+    lane to the widest chunk and runs ``model_api.paged_step``.
+    Speculative drafts ride as ``1 + k`` token segments and are verified
+    by the step's own per-row argmax.  Greedy outputs do not depend on
+    the schedule or the layout, so the engine is token-identical to
+    :class:`SlotDecodeEngine` under prefix sharing, preemption, swap and
+    cancellation.
 
     ``device`` defaults to ``"cuda"``; the parameters must already live
     there.  ``cache_dtype`` defaults to the parameters' dtype
@@ -123,12 +128,6 @@ class PagedDecodeEngine:
                 "path; use DecodeEngine (it falls back to dense slots)")
         if mesh is not None:
             raise _not_ported("mesh serving", "A9")
-        if ragged is False:
-            raise _not_ported("the rectangular paged step (ragged=False, "
-                              "kernel B3)", "A4/B3")
-        if tiled is False:
-            raise _not_ported("the per-token attention grid (tiled=False, "
-                              "kernel B2)", "A4/B2")
         self.device = resolve_device(device)
         self.api = model_api
         self.params = params
@@ -148,11 +147,27 @@ class PagedDecodeEngine:
         if chunk_tokens < 1:
             raise ValueError("chunk_tokens must be >= 1 "
                              "(1 = one-token-per-step prefill)")
-        self.ragged = True
+        # the flat-token batch is the default where the family has the
+        # flat step; ragged=False pins the rectangular (lanes, chunk) batch
+        ragged_fn = getattr(model_api, "ragged_step", None)
+        if ragged is None:
+            ragged = ragged_fn is not None
+        if ragged and ragged_fn is None:
+            raise ValueError(
+                f"{model_api.cfg.family} models have no ragged_step; "
+                "pass ragged=False for the rectangular paged path")
+        self.ragged = ragged
+        # the segment-tiled read is the flat batch's default; tiled=False
+        # pins the per-token read
+        if tiled is None:
+            tiled = ragged
+        if tiled and not ragged:
+            raise ValueError("tiled=True requires the ragged flat-token "
+                             "layout (pass ragged=True)")
         if tile < 1 or tile & (tile - 1):
             raise ValueError(f"tile must be a positive power of two, "
                              f"got {tile}")
-        self.tiled = True
+        self.tiled = tiled
         self.tile = tile
         self.chunk_tokens = chunk_tokens
         if draft_k < 0:
@@ -183,7 +198,7 @@ class PagedDecodeEngine:
         self.scheduler = Scheduler(
             SchedulerConfig(n_lanes=n_slots, token_budget=token_budget,
                             chunk_tokens=self.chunk_tokens,
-                            fill_to_bucket=True,
+                            fill_to_bucket=self.ragged,
                             draft_k=self.draft_k, proposer=self.proposer,
                             ttft_target=ttft_target,
                             tpot_target=tpot_target),
@@ -196,7 +211,11 @@ class PagedDecodeEngine:
             max_blocks_per_lane=self.max_blocks,
             dtype=cache_dtype if cache_dtype is not None else emb.dtype,
             device=self.device)
-        self._step_kw = {"window": window, "tile": tile}
+        self._step_fn = (ragged_fn if self.ragged
+                         else model_api.resolve_paged_step())
+        self._step_kw = {"window": window}
+        if self.tiled:
+            self._step_kw["tile"] = tile
         self._finished: List[Request] = []
         self._next_id = 0
         self.tokens_decoded = 0
@@ -285,45 +304,90 @@ class PagedDecodeEngine:
         for _, arr in self.cache["scan"].items():
             arr[:, dst] = arr[:, src]
 
-    def _run_ragged(self, decision: StepDecision):
-        """The flat-token step.  Returns ``greedy(req, j)``, the step's
-        argmax token at row ``j`` of ``req``'s segment."""
-        batch = RaggedBatch.build(decision, self.kv, self.n_slots,
-                                  self.block_size,
-                                  cap=self.scheduler._budget())
-        tables = np.zeros((self.n_slots, self.max_blocks), np.int32)
-        for r in self.scheduler.running:
-            tables[r.lane] = self.kv.padded_table(r.request_id)
-        tiles = batch.tiles(self.n_slots, self.tile)
-        self.cache["block_tables"] = self._put(tables)
-        self.cache["token_pos"] = self._put(batch.token_pos)
-        self.cache["slot_mapping"] = self._put(batch.slot_mapping)
-        self.cache["tile_meta"] = self._put(tiles.meta)
-        self.cache["row_tile"] = self._put(tiles.row_tile)
-        logits, self.cache = self.api.ragged_step(
-            self.params, self.cache, self._put(batch.tokens),
-            **self._step_kw)
-        self.scheduled_tokens += batch.total_tokens
-        self.padded_tokens += batch.padded_tokens
-        # argmax only the rows that can emit (each lane's last row, or a
-        # draft segment's verification window), then one readback
+    def _gather_greedy(self, decision: StepDecision,
+                       flat_logits: torch.Tensor, seg_start):
+        """Argmax only the rows that can emit: for each scheduled request,
+        rows ``base-1 .. n-1`` of its segment (a draft segment's
+        verification window, else its last row), with one readback.
+        ``seg_start(req)`` is the segment's first row of ``flat_logits``.
+        Returns ``greedy(req, j)``, the argmax at row ``j`` of the
+        segment."""
         offsets: Dict[int, int] = {}
         rows: List[int] = []
         for r in decision.scheduled:
             n = decision.num_scheduled[r.request_id]
             first = n - 1 - len(decision.drafts.get(r.request_id, ()))
             offsets[r.request_id] = len(rows) - first
-            start = batch.q_starts[r.request_id]
+            start = seg_start(r)
             rows.extend(range(start + first, start + n))
         if not rows:
             return lambda r, j: 0
         idx = torch.tensor(rows, device=self.device)
-        toks = torch.argmax(logits[idx], dim=-1).cpu().numpy()
+        toks = torch.argmax(flat_logits[idx], dim=-1).cpu().numpy()
         return lambda r, j: int(toks[offsets[r.request_id] + j])
+
+    def _run_rect(self, decision: StepDecision):
+        """The rectangular (n_slots, chunk_width) step: every lane padded
+        to the widest scheduled chunk (pow2).  Paused lanes keep
+        ``q_lens = 0``: their writes go to the null block and their rows
+        are never read.  Returns ``greedy(req, j)``."""
+        sched_ids = {r.request_id for r in decision.scheduled}
+        width = padded_pow2(max(
+            [decision.num_scheduled[r.request_id]
+             for r in decision.scheduled] or [1]))
+        tokens = np.zeros((self.n_slots, width), np.int32)
+        pos = np.zeros((self.n_slots,), np.int32)
+        q_lens = np.zeros((self.n_slots,), np.int32)
+        tables = np.zeros((self.n_slots, self.max_blocks), np.int32)
+        for r in self.scheduler.running:
+            pos[r.lane] = r.cursor
+            tables[r.lane] = self.kv.padded_table(r.request_id)
+            if r.request_id in sched_ids:
+                n = decision.num_scheduled[r.request_id]
+                q_lens[r.lane] = n
+                tokens[r.lane, :n] = decision.segment_tokens(r)
+        self.cache["block_tables"] = self._put(tables)
+        self.cache["pos"] = self._put(pos)
+        self.cache["q_lens"] = self._put(q_lens)
+        logits, self.cache = self._step_fn(self.params, self.cache,
+                                           self._put(tokens),
+                                           **self._step_kw)
+        self.scheduled_tokens += int(q_lens.sum())
+        self.padded_tokens += self.n_slots * width
+        return self._gather_greedy(
+            decision, logits.reshape(self.n_slots * width, -1),
+            lambda r: r.lane * width)
+
+    def _run_ragged(self, decision: StepDecision):
+        """The flat-token step: the segment-tiled read through a TileMap,
+        or (``tiled=False``) the per-token read through ``token_lane``.
+        Returns ``greedy(req, j)``."""
+        batch = RaggedBatch.build(decision, self.kv, self.n_slots,
+                                  self.block_size,
+                                  cap=self.scheduler._budget())
+        tables = np.zeros((self.n_slots, self.max_blocks), np.int32)
+        for r in self.scheduler.running:
+            tables[r.lane] = self.kv.padded_table(r.request_id)
+        self.cache["block_tables"] = self._put(tables)
+        self.cache["token_pos"] = self._put(batch.token_pos)
+        self.cache["slot_mapping"] = self._put(batch.slot_mapping)
+        if self.tiled:
+            tiles = batch.tiles(self.n_slots, self.tile)
+            self.cache["tile_meta"] = self._put(tiles.meta)
+            self.cache["row_tile"] = self._put(tiles.row_tile)
+        else:
+            self.cache["token_lane"] = self._put(batch.token_lane)
+        logits, self.cache = self._step_fn(self.params, self.cache,
+                                           self._put(batch.tokens),
+                                           **self._step_kw)
+        self.scheduled_tokens += batch.total_tokens
+        self.padded_tokens += batch.padded_tokens
+        return self._gather_greedy(decision, logits,
+                                   lambda r: batch.q_starts[r.request_id])
 
     def step(self) -> StepDecision:
         """One engine iteration: schedule, swap in, apply CoW copies, run
-        the ragged step, then accept each lane's longest matching draft
+        the ragged or rectangular step, then accept each lane's longest matching draft
         prefix plus one bonus token and rewind the rejected KV slots."""
         t0 = time.perf_counter()
         emitted = 0
@@ -342,7 +406,8 @@ class PagedDecodeEngine:
             self._apply_copies(copies)
             self.cow_block_copies += len(copies)
 
-        greedy = self._run_ragged(decision)
+        greedy = (self._run_ragged(decision) if self.ragged
+                  else self._run_rect(decision))
         self.steps += 1
 
         for r in list(decision.scheduled):

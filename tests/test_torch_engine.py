@@ -1,11 +1,13 @@
 """The port's serving engines, in float32 on the CPU.
 
-Across frameworks: the port's ``PagedDecodeEngine`` with its defaults
-(ragged, tiled, spec, prefix cache/CoW, host swap) emits the same greedy
-tokens as the reference's, from parameters converted from the
-reference's ``init`` (the reference engine built with float32 cache AND
-compute dtypes).  Inside the port: the paged engine is token-identical
-to the dense ``SlotDecodeEngine`` under CoW, host swap and cancel.
+Across frameworks: the port's ``PagedDecodeEngine`` emits the same greedy
+tokens as the reference's with the same flags -- its defaults (ragged,
+tiled, spec, prefix cache/CoW, host swap), the per-token read
+(``tiled=False``) and the rectangular batch (``ragged=False``) -- from
+parameters converted from the reference's ``init`` (the reference engine
+built with float32 cache AND compute dtypes).  Inside the port: the paged
+engine is token-identical to the dense ``SlotDecodeEngine`` under CoW,
+host swap and cancel, in every layout where the test says so.
 """
 import jax
 import jax.numpy as jnp
@@ -23,6 +25,11 @@ from repro_torch.serving.engine import (DecodeEngine, PagedDecodeEngine,
                                         SlotDecodeEngine)
 
 PORT = dict(cache_dtype=torch.float32, device="cpu")
+# the paged engine's three layouts: engine options and the expected
+# (ragged, tiled) flags of its stats
+LAYOUTS = {"default": ({}, (1, 1)),
+           "per_token": ({"tiled": False}, (1, 0)),
+           "rectangular": ({"ragged": False}, (0, 0))}
 
 
 @pytest.fixture(scope="module", params=["gemma-7b", "starcoder2-7b"])
@@ -52,16 +59,18 @@ def _drain(eng, prompts, max_new):
             for r in eng.run_until_drained()}
 
 
-def test_paged_engine_matches_reference_engine(model):
-    """Greedy tokens equal the reference engine's, defaults on both
-    sides; starcoder2's requests run past its 64-token smoke window."""
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+def test_paged_engine_matches_reference_engine(model, layout):
+    """Greedy tokens equal the reference engine's with the same layout
+    flags; starcoder2's requests run past its 64-token smoke window."""
     arch, japi, jparams, api, tparams = model
+    flags, (ragged, tiled) = LAYOUTS[layout]
     window = api.effective_window(128)
     long_run = bool(window)
     prompts = _prompts(api.cfg.vocab_size, 3, 30 if long_run else 4,
                        40 if long_run else 12, seed=7, shared=8)
     max_new = 40 if long_run else 10
-    kw = dict(n_slots=3, cache_len=128, window=window)
+    kw = dict(n_slots=3, cache_len=128, window=window, **flags)
     ref = _drain(JaxPagedEngine(japi, jparams, cache_dtype=jnp.float32,
                                 compute_dtype=jnp.float32, **kw),
                  prompts, max_new)
@@ -71,13 +80,15 @@ def test_paged_engine_matches_reference_engine(model):
     if long_run:
         assert max(len(p) for p in prompts) + max_new > window
     s = eng.stats()
-    assert s["ragged"] == s["tiled"] == s["spec"] == s["host_swap"] == 1
+    assert (s["ragged"], s["tiled"]) == (ragged, tiled)
+    assert s["spec"] == s["host_swap"] == 1
     assert s["spec_verifications"] > 0
 
 
-def test_paged_engine_matches_slot_engine_under_cow(model):
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+def test_paged_engine_matches_slot_engine_under_cow(model, layout):
     """A shared-prefix fleet (block-aligned exact repeats fork their tail
-    block copy-on-write) against the dense oracle."""
+    block copy-on-write) against the dense oracle, in each layout."""
     arch, _, _, api, tparams = model
     window = api.effective_window(128)
     rng = np.random.default_rng(3)
@@ -87,7 +98,7 @@ def test_paged_engine_matches_slot_engine_under_cow(model):
     prompts[2:] = [np.concatenate([shared, p]) for p in prompts[2:]]
     kw = dict(n_slots=3, cache_len=64, window=window, **PORT)
     paged = PagedDecodeEngine(api, tparams, block_size=4, chunk_tokens=8,
-                              **kw)
+                              **LAYOUTS[layout][0], **kw)
     slot = SlotDecodeEngine(api, tparams, **kw)
     paged.submit(prompts[0], 8)
     paged.step()
@@ -161,13 +172,15 @@ def test_cancel_mid_flight_matches_slot_engine_and_empties_pool(model):
     assert eng.cancelled == len(long_prompts)
 
 
-def test_int8_pools_serve(model):
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+def test_int8_pools_serve(model, layout):
     """int8 pools (quantized on write, dequantized in the read) serve
-    every request; the reference's int8 engine emits the same tokens."""
+    every request in each layout; the reference's int8 engine with the
+    same flags emits the same tokens."""
     arch, japi, jparams, api, tparams = model
     window = api.effective_window(128)
     prompts = _prompts(api.cfg.vocab_size, 3, 4, 12, seed=9, shared=4)
-    kw = dict(n_slots=3, cache_len=64, window=window)
+    kw = dict(n_slots=3, cache_len=64, window=window, **LAYOUTS[layout][0])
     ref = _drain(JaxPagedEngine(japi, jparams, cache_dtype=jnp.int8,
                                 compute_dtype=jnp.float32, **kw),
                  prompts, 6)
@@ -178,16 +191,18 @@ def test_int8_pools_serve(model):
 
 
 def test_facade_and_unported_options(model):
-    """The facade picks the paged engine; options a later slice ports
-    raise ``NotImplementedError``; a mismatched compute dtype raises."""
+    """The facade picks the paged engine; ``mesh=``, which a later slice
+    ports, raises ``NotImplementedError``, as do the KV transfer and
+    persistence methods; a mismatched compute dtype raises."""
     arch, _, _, api, tparams = model
     kw = dict(n_slots=2, cache_len=32, **PORT)
     assert isinstance(DecodeEngine(api, tparams, **kw), PagedDecodeEngine)
     assert isinstance(DecodeEngine(api, tparams, paged=False, **kw),
                       SlotDecodeEngine)
-    for bad in ({"ragged": False}, {"tiled": False}, {"mesh": object()}):
-        with pytest.raises(NotImplementedError):
-            PagedDecodeEngine(api, tparams, **kw, **bad)
+    with pytest.raises(NotImplementedError):
+        PagedDecodeEngine(api, tparams, mesh=object(), **kw)
+    with pytest.raises(NotImplementedError):
+        DecodeEngine(api, tparams, mesh=object(), **kw)
     eng = PagedDecodeEngine(api, tparams, **kw)
     for call in (lambda: eng.export_kv_prefix(np.zeros(4, np.int32)),
                  lambda: eng.import_kv_shipment(None),
@@ -197,3 +212,45 @@ def test_facade_and_unported_options(model):
             call()
     with pytest.raises(ValueError):
         PagedDecodeEngine(api, tparams, compute_dtype=torch.bfloat16, **kw)
+
+
+def test_ragged_is_default_paged_layout(model):
+    """The layout pins of the reference: ragged, tiled and spec by
+    default; ``ragged=False`` turns tiling off with it, ``tiled=False``
+    keeps the flat batch; tiling without the flat batch is refused."""
+    arch, _, _, api, tparams = model
+    kw = dict(n_slots=2, cache_len=64, **PORT)
+    eng = DecodeEngine(api, tparams, **kw)
+    assert isinstance(eng, PagedDecodeEngine)
+    assert eng.ragged and eng.tiled and eng.spec
+    rect = PagedDecodeEngine(api, tparams, ragged=False, **kw)
+    assert not rect.ragged and not rect.tiled
+    pertok = PagedDecodeEngine(api, tparams, tiled=False, **kw)
+    assert pertok.ragged and not pertok.tiled
+    with pytest.raises(ValueError):
+        PagedDecodeEngine(api, tparams, ragged=False, tiled=True, **kw)
+    assert not PagedDecodeEngine(api, tparams, draft_k=0, **kw).spec
+
+
+def test_ragged_padding_efficiency_beats_rect_on_mixed_load(model):
+    """On a staggered prefill+decode load the flat stream pads far fewer
+    slots than the rectangle, with the same tokens out."""
+    arch, _, _, api, tparams = model
+    window = api.effective_window(64)
+    prompts = _prompts(api.cfg.vocab_size, 8, 8, 16, seed=13)
+    kw = dict(n_slots=4, cache_len=64, window=window, block_size=4,
+              chunk_tokens=8, **PORT)
+    out = {}
+    for ragged in (True, False):
+        eng = PagedDecodeEngine(api, tparams, ragged=ragged, **kw)
+        pending = list(prompts)
+        while pending or eng.scheduler.has_work():
+            if pending:
+                eng.submit(pending.pop(0), 8)
+            eng.step()
+        out[ragged] = (eng.stats()["padding_efficiency"],
+                       {r.request_id: r.generated
+                        for r in eng.take_finished()})
+    assert out[True][1] == out[False][1]
+    assert out[True][0] > out[False][0]
+    assert out[True][0] >= 0.8

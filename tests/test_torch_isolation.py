@@ -88,9 +88,28 @@ def test_kernel_build_needs_nvcc_and_is_keyed_by_source(monkeypatch,
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.nvcc_path()
-    path = _build.library_path(pa.KERNEL)
+    path = _build.library_path(pa.TILED)
     assert path.parent == _build.BUILD_DIR and path.suffix == ".so"
-    assert path.name.startswith(pa.KERNEL + "-")
+    assert path.name.startswith(pa.TILED + "-")
     monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-G",))
-    assert _build.library_path(pa.KERNEL) != path
-    assert pa.KERNEL in _build.sources()
+    assert _build.library_path(pa.TILED) != path
+    assert set(_build.sources()) == {pa.TILED, pa.RAGGED, pa.ROWS}
+
+
+def test_kernel_build_key_covers_shared_headers(monkeypatch, tmp_path):
+    """Every kernel includes the shared header: editing it changes every
+    library path, so no stale library is reused."""
+    import shutil
+    from repro_torch.kernels import _build
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    names = _build.sources()
+    before = {n: _build.library_path(n) for n in names}
+    headers = sorted(csrc.glob("*.cuh"))
+    assert headers and all(
+        f'#include "{headers[0].name}"' in (csrc / f"{n}.cu").read_text()
+        for n in names)
+    headers[0].write_text(headers[0].read_text() + "\n// edited\n")
+    after = {n: _build.library_path(n) for n in names}
+    assert all(after[n] != before[n] for n in names)

@@ -1,16 +1,17 @@
-"""The port's segment-tiled paged attention against the reference's.
+"""The port's paged attention (segment-tiled, per-token and rectangular
+reads) against the reference's.
 
 Inputs are made with numpy from a seed and fed to both packages: the
-port's plain version (``repro_torch.kernels.ref``) is held to the
-reference's Pallas kernel in interpret mode and to the reference's jnp
-oracle, on real rows only, with ``allclose`` at float32 tolerance (the
+port's plain versions (``repro_torch.kernels.ref``) are held to the
+reference's Pallas kernels in interpret mode and to the reference's jnp
+oracles, on real rows only, with ``allclose`` at float32 tolerance (the
 two oracles differ at rounding level between themselves, so exact
-equality is never asked).  The CUDA kernel itself is held to the plain
-version on the card; that case skips where there is no card.  The JAX
-side is imported by the tests that use it, so that the CUDA case also
-runs on a machine that has no JAX:
+equality is never asked).  The CUDA kernels themselves are held to the
+plain versions on the card; those cases are marked ``cuda`` and skip
+where there is no card.  The JAX side is imported by the tests that use
+it, so that the CUDA cases also run on a machine that has no JAX:
 
-    python -m pytest -q tests/test_torch_paged_attention.py -k cuda
+    python -m pytest -q -m cuda tests/test_torch_paged_attention.py
 """
 import numpy as np
 import pytest
@@ -35,20 +36,65 @@ TILED_MIXES = {
     "segments_larger_than_tile": (4, [(0, 17), (5, 9)], 32),
     "all_decode": (8, [(2, 1), (5, 1), (9, 1), (0, 1)], 8),
 }
+# the per-token mixes of tests/test_kernels_paged_attention.py
+# (SEGMENT_MIXES): all decodes, one prefill among decodes, several
+# prefills, with starts straddling block edges; the stream is padded to a
+# power of two with null-table, position-0 tokens, as the engine pads it
+SEGMENT_MIXES = {
+    "all_decode": [(4, 1), (9, 1), (0, 1), (14, 1)],
+    "one_prefill_plus_decodes": [(3, 1), (0, 9), (7, 1)],
+    "multi_prefill": [(2, 6), (0, 5), (5, 7)],
+}
+# rectangular cases, each (C, q_starts, q_lens) per lane: that file's
+# chunk case (fresh, mid-block and deep lanes, full and padded chunks),
+# one with a paused lane (q_len 0 past its context) and an empty lane
+# (q_len 0, context 0), and its decode case (C = 1 at ctx - 1)
+CHUNK_CASES = {
+    "chunk": (5, [0, 3, 9], [5, 4, 2]),
+    "chunk_paused_and_empty_lanes": (4, [6, 4, 0], [3, 0, 0]),
+    "decode": (1, [0, 8, 25], [1, 1, 1]),
+}
 HKV, D, BS, MAX_BLOCKS = 2, 32, 4, 8
 
 
 @pytest.fixture
 def jax_side():
-    """The reference package's kernel, oracle and tile-map builder."""
+    """The reference package's kernels, oracles and tile-map builder."""
     pytest.importorskip("jax")
     import jax.numpy as jnp
-    from repro.kernels.paged_attention import paged_attention_ragged_tiled
-    from repro.kernels.ref import paged_attention_ragged_tiled_reference
+    from repro.kernels import paged_attention as jpa
+    from repro.kernels import ref as jref
     from repro.serving.batch import build_tile_map as jax_build_tile_map
-    return dict(jnp=jnp, kernel=paged_attention_ragged_tiled,
-                ref=paged_attention_ragged_tiled_reference,
-                build_tile_map=jax_build_tile_map)
+    return dict(jnp=jnp, kernel=jpa.paged_attention_ragged_tiled,
+                ref=jref.paged_attention_ragged_tiled_reference,
+                build_tile_map=jax_build_tile_map, pa=jpa, oracles=jref)
+
+
+def _pools(rng, num_blocks, quantized, dim):
+    """K/V pools (num_blocks, BS, HKV, dim) and, for int8, their scales."""
+    shape = (num_blocks, BS, HKV, dim)
+    if quantized:
+        k = rng.integers(-127, 128, shape).astype(np.int8)
+        v = rng.integers(-127, 128, shape).astype(np.int8)
+        ks = rng.uniform(0.002, 0.02, shape[:3]).astype(np.float32)
+        vs = rng.uniform(0.002, 0.02, shape[:3]).astype(np.float32)
+        return k, v, ks, vs
+    k = rng.standard_normal(shape).astype(np.float32)
+    v = rng.standard_normal(shape).astype(np.float32)
+    return k, v, None, None
+
+
+def _lane_tables(ends, max_blocks=MAX_BLOCKS):
+    """Disjoint block-table rows covering each lane's first ``end``
+    positions, from block 1 up; unused entries point at the null block
+    0."""
+    tables = np.zeros((len(ends), max_blocks), np.int32)
+    free = 1
+    for lane, end in enumerate(ends):
+        for j in range(-(-int(end) // BS)):
+            tables[lane, j] = free
+            free += 1
+    return tables
 
 
 def _setup(mix, G, quantized, seed=0, jax_side=None, dim=D):
@@ -60,23 +106,11 @@ def _setup(mix, G, quantized, seed=0, jax_side=None, dim=D):
     num_blocks = n_lanes * MAX_BLOCKS + 1
     H = HKV * G
     q = rng.standard_normal((T_pad, H, dim)).astype(np.float32)
-    shape = (num_blocks, BS, HKV, dim)
-    if quantized:
-        k = rng.integers(-127, 128, shape).astype(np.int8)
-        v = rng.integers(-127, 128, shape).astype(np.int8)
-        ks = rng.uniform(0.002, 0.02, shape[:3]).astype(np.float32)
-        vs = rng.uniform(0.002, 0.02, shape[:3]).astype(np.float32)
-    else:
-        k = rng.standard_normal(shape).astype(np.float32)
-        v = rng.standard_normal(shape).astype(np.float32)
-        ks = vs = None
-    tables = np.zeros((n_lanes, MAX_BLOCKS), np.int32)
-    free = list(range(1, num_blocks))
+    k, v, ks, vs = _pools(rng, num_blocks, quantized, dim)
+    tables = _lane_tables([start + n for start, n in segments])
     offs, lens, lanes, pos0 = [], [], [], []
     off = 0
     for lane, (start, n) in enumerate(segments):
-        for j in range(-(-(start + n) // BS)):
-            tables[lane, j] = free.pop(0)
         offs.append(off); lens.append(n); lanes.append(lane)
         pos0.append(start)
         off += n
@@ -90,12 +124,15 @@ def _setup(mix, G, quantized, seed=0, jax_side=None, dim=D):
                 row_tile=tm.row_tile, tile=tile, T=off)
 
 
+def _t(a, device="cpu"):
+    """A numpy input as a tensor on ``device`` (None stays None)."""
+    return None if a is None else torch.from_numpy(a).to(device)
+
+
 def _torch_args(d, device="cpu"):
-    t = {name: (None if d[name] is None
-                else torch.from_numpy(d[name]).to(device))
-         for name in ("q", "k", "v", "ks", "vs", "tables", "meta",
-                      "row_tile")}
-    return t
+    return {name: _t(d[name], device)
+            for name in ("q", "k", "v", "ks", "vs", "tables", "meta",
+                         "row_tile")}
 
 
 def _port_ref(d, window):
@@ -175,6 +212,7 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
+@pytest.mark.cuda
 @pytest.mark.parametrize("pool", ["f32", "bf16", "int8"])
 def test_cuda_kernel_matches_plain_version(cuda_device, pool):
     """The Hopper kernel against its plain version on the card, every
@@ -203,3 +241,253 @@ def test_cuda_kernel_matches_plain_version(cuda_device, pool):
                 torch.testing.assert_close(got[:T].float(),
                                            want[:T].float(), atol=tol,
                                            rtol=tol)
+
+
+# ---------------------------------------------------------------------------
+# the per-token read (B2) and the rectangular read (B3)
+# ---------------------------------------------------------------------------
+def _ragged_setup(mix, G, quantized, seed=0, dim=D):
+    """numpy inputs of the per-token read: q (T_pad, H, D), pools, scales,
+    token_tables (T_pad, MAX_BLOCKS) and token_pos (T_pad,)."""
+    segments = SEGMENT_MIXES[mix]
+    rng = np.random.default_rng(seed)
+    T = sum(n for _, n in segments)
+    T_pad = 1 << (T - 1).bit_length()
+    q = rng.standard_normal((T_pad, HKV * G, dim)).astype(np.float32)
+    k, v, ks, vs = _pools(rng, len(segments) * MAX_BLOCKS + 1, quantized,
+                          dim)
+    tables = _lane_tables([s + n for s, n in segments])
+    token_tables = np.zeros((T_pad, MAX_BLOCKS), np.int32)
+    token_pos = np.zeros((T_pad,), np.int32)
+    off = 0
+    for lane, (start, n) in enumerate(segments):
+        token_tables[off:off + n] = tables[lane]
+        token_pos[off:off + n] = start + np.arange(n)
+        off += n
+    return dict(q=q, k=k, v=v, ks=ks, vs=vs, token_tables=token_tables,
+                token_pos=token_pos, T=T)
+
+
+def _chunk_setup(case, G, quantized, seed=0, dim=D, C=None, starts=None,
+                 lens=None, max_blocks=MAX_BLOCKS):
+    """numpy inputs of the rectangular read: q (B, C, H, D), pools,
+    scales, block_tables (B, MAX_BLOCKS), q_starts and q_lens (B,)."""
+    if case is not None:
+        C, starts, lens = CHUNK_CASES[case]
+    starts = np.asarray(starts, np.int32)
+    lens = np.asarray(lens, np.int32)
+    rng = np.random.default_rng(seed)
+    B = len(starts)
+    q = rng.standard_normal((B, C, HKV * G, dim)).astype(np.float32)
+    k, v, ks, vs = _pools(rng, B * max_blocks + 1, quantized, dim)
+    tables = _lane_tables(starts + lens, max_blocks)
+    return dict(q=q, k=k, v=v, ks=ks, vs=vs, tables=tables, starts=starts,
+                lens=lens)
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["f32", "int8"])
+@pytest.mark.parametrize("window", [0, 5])
+@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("mix", sorted(SEGMENT_MIXES))
+def test_per_token_reference_matches_reference_kernel_and_oracle(
+        jax_side, mix, G, window, quantized):
+    """Port ``paged_attention_ragged_reference`` vs the reference's
+    per-token Pallas kernel (interpret mode) and jnp oracle, on every real
+    row of a padded stream; padding rows stay finite."""
+    jnp, jpa, jref = jax_side["jnp"], jax_side["pa"], jax_side["oracles"]
+    d = _ragged_setup(mix, G, quantized)
+    T = d["T"]
+    T_pad, H, _ = d["q"].shape
+    got = tref.paged_attention_ragged_reference(
+        _t(d["q"]), _t(d["k"]), _t(d["v"]), _t(d["token_tables"]),
+        _t(d["token_pos"]), window=window, k_scale=_t(d["ks"]),
+        v_scale=_t(d["vs"])).numpy()
+    assert got.shape == (T_pad, H, D) and np.all(np.isfinite(got))
+    jargs = [jnp.asarray(d[n]) for n in ("k", "v", "token_tables",
+                                         "token_pos")]
+    oracle = np.asarray(jref.paged_attention_ragged_reference(
+        jnp.asarray(d["q"]), *jargs, window=window, **_jax_scales(jnp, d)))
+    np.testing.assert_allclose(got[:T], oracle[:T], atol=ATOL, rtol=RTOL)
+    kern = np.asarray(jpa.paged_attention_ragged(
+        jnp.asarray(d["q"].reshape(T_pad, HKV, G, D)), *jargs,
+        window=window, interpret=True, **_jax_scales(jnp, d)))
+    np.testing.assert_allclose(got[:T], kern.reshape(T_pad, H, D)[:T],
+                               atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["f32", "int8"])
+@pytest.mark.parametrize("window", [0, 5])
+@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("case", sorted(CHUNK_CASES))
+def test_rows_references_match_reference_kernel_and_oracle(
+        jax_side, case, G, window, quantized):
+    """Port ``paged_attention_chunk_reference`` (and, for C = 1,
+    ``paged_attention_reference``) vs the reference's rectangular Pallas
+    kernel (interpret mode, through ``paged_attention_chunk`` and
+    ``paged_attention``) and its jnp oracles, on the real rows of every
+    lane; padded rows stay finite."""
+    jnp, jpa, jref = jax_side["jnp"], jax_side["pa"], jax_side["oracles"]
+    d = _chunk_setup(case, G, quantized)
+    B, C, H, _ = d["q"].shape
+    starts, lens = d["starts"], d["lens"]
+    sc = dict(k_scale=_t(d["ks"]), v_scale=_t(d["vs"]))
+    got = tref.paged_attention_chunk_reference(
+        _t(d["q"]), _t(d["k"]), _t(d["v"]), _t(d["tables"]), _t(starts),
+        window=window, **sc).numpy()
+    assert got.shape == (B, C, H, D) and np.all(np.isfinite(got))
+    jargs = [jnp.asarray(d[n]) for n in ("k", "v", "tables")]
+    oracle = np.asarray(jref.paged_attention_chunk_reference(
+        jnp.asarray(d["q"]), *jargs, jnp.asarray(starts), window=window,
+        **_jax_scales(jnp, d)))
+    q5 = np.transpose(d["q"].reshape(B, C, HKV, G, D), (0, 2, 1, 3, 4))
+    kern = np.asarray(jpa.paged_attention_chunk(
+        jnp.asarray(q5), *jargs, jnp.asarray(starts),
+        jnp.asarray(starts + lens), window=window, interpret=True,
+        **_jax_scales(jnp, d)))
+    kern = np.transpose(kern, (0, 2, 1, 3, 4)).reshape(B, C, H, D)
+    for b in range(B):
+        n = lens[b]
+        np.testing.assert_allclose(got[b, :n], oracle[b, :n], atol=ATOL,
+                                   rtol=RTOL)
+        np.testing.assert_allclose(got[b, :n], kern[b, :n], atol=ATOL,
+                                   rtol=RTOL)
+    if C == 1:
+        ctx = starts + 1
+        dec = tref.paged_attention_reference(
+            _t(d["q"][:, 0]), _t(d["k"]), _t(d["v"]), _t(d["tables"]),
+            _t(ctx), window=window, **sc).numpy()
+        np.testing.assert_array_equal(dec, got[:, 0])
+        jdec = np.asarray(jref.paged_attention_reference(
+            jnp.asarray(d["q"][:, 0]), *jargs, jnp.asarray(ctx),
+            window=window, **_jax_scales(jnp, d)))
+        np.testing.assert_allclose(dec, jdec, atol=ATOL, rtol=RTOL)
+        jkern = np.asarray(jpa.paged_attention(
+            jnp.asarray(d["q"][:, 0].reshape(B, HKV, G, D)), *jargs,
+            jnp.asarray(ctx), window=window, interpret=True,
+            **_jax_scales(jnp, d)))
+        np.testing.assert_allclose(dec, jkern.reshape(B, H, D), atol=ATOL,
+                                   rtol=RTOL)
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["f32", "int8"])
+@pytest.mark.parametrize("read", ["per_token", "chunk", "decode"])
+def test_ops_dispatch_by_device_per_token_and_rows(read, quantized):
+    """The per-token, chunk and decode reads: CPU tensors take the plain
+    version under ``use_kernel=None`` (the kernel wrappers too, without a
+    launch); ``use_kernel=True`` on CPU tensors raises."""
+    if read == "per_token":
+        d = _ragged_setup("one_prefill_plus_decodes", 2, quantized)
+        q = _t(d["q"])
+        meta = (_t(d["token_tables"]), _t(d["token_pos"]))
+        op, plain = ops.paged_attention_ragged, \
+            tref.paged_attention_ragged_reference
+        wrapper, shape = tpa.paged_attention_ragged, q.shape[:1]
+    else:
+        d = _chunk_setup("chunk" if read == "chunk" else "decode", 2,
+                         quantized)
+        q = _t(d["q"])
+        tables, starts = _t(d["tables"]), _t(d["starts"])
+        if read == "chunk":
+            meta = (tables, starts)
+            op = lambda *a, **k: ops.paged_attention_chunk(
+                *a, _t(d["lens"]), **k)
+            plain = tref.paged_attention_chunk_reference
+            wrapper = lambda q4, *a, **k: tpa.paged_attention_chunk(
+                q4, *a, starts + _t(d["lens"]), **k)
+            shape = q.shape[:2]
+        else:
+            q = q[:, 0]
+            meta = (tables, starts + 1)
+            op, plain = ops.paged_attention, tref.paged_attention_reference
+            wrapper, shape = tpa.paged_attention, q.shape[:1]
+    args = (q, _t(d["k"]), _t(d["v"])) + meta
+    kw = dict(window=5, k_scale=_t(d["ks"]), v_scale=_t(d["vs"]))
+    want = plain(*args, **kw)
+    torch.testing.assert_close(op(*args, **kw), want, rtol=0, atol=0)
+    before = dict(tpa.launch_counts)
+    H, Dq = q.shape[-2:]
+    wrapped = wrapper(q.reshape(*shape, HKV, H // HKV, Dq), *args[1:], **kw)
+    torch.testing.assert_close(wrapped.reshape(want.shape), want, rtol=0,
+                               atol=0)
+    assert tpa.launch_counts == before
+    with pytest.raises(ValueError, match="use_kernel=True"):
+        op(*args, use_kernel=True, **kw)
+
+
+def _cuda_pools(d, device, pool):
+    t = {n: _t(d[n], device) for n in ("k", "v", "ks", "vs")}
+    if pool == "bf16":
+        t["k"], t["v"] = t["k"].bfloat16(), t["v"].bfloat16()
+    return t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", ["f32", "bf16", "int8"])
+def test_cuda_per_token_kernel_matches_plain_version(cuda_device, pool):
+    """The per-token Hopper kernel against its plain version on the card,
+    every SEGMENT_MIXES case (padding tokens included), G in {1, 4},
+    window in {0, 5}, head dim 64."""
+    for mix in sorted(SEGMENT_MIXES):
+        for G in (1, 4):
+            for window in (0, 5):
+                d = _ragged_setup(mix, G, pool == "int8", dim=64)
+                p = _cuda_pools(d, cuda_device, pool)
+                q = _t(d["q"], cuda_device)
+                if pool == "bf16":
+                    q = q.bfloat16()
+                args = (q, p["k"], p["v"], _t(d["token_tables"], cuda_device),
+                        _t(d["token_pos"], cuda_device))
+                kw = dict(window=window, k_scale=p["ks"], v_scale=p["vs"])
+                want = tref.paged_attention_ragged_reference(*args, **kw)
+                got = ops.paged_attention_ragged(*args, **kw)
+                torch.cuda.synchronize()
+                assert torch.isfinite(got).all()
+                tol = 5e-2 if pool == "bf16" else 1e-4
+                T = d["T"]
+                torch.testing.assert_close(got[:T].float(), want[:T].float(),
+                                           atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", ["f32", "bf16", "int8"])
+def test_cuda_rows_kernel_matches_plain_version(cuda_device, pool):
+    """The rectangular Hopper kernel against its plain version on the
+    card: every CHUNK_CASES case and a 70-token chunk beside short lanes
+    (several row groups per lane), G in {1, 4}, window in {0, 5}, head
+    dim 64; padded rows come back as zeros; C = 1 through the decode
+    wrapper."""
+    cases = [(c, None) for c in sorted(CHUNK_CASES)]
+    cases.append((None, (70, [3, 0, 20], [70, 5, 1])))
+    for case, custom in cases:
+        for G in (1, 4):
+            for window in (0, 5):
+                if custom is None:
+                    d = _chunk_setup(case, G, pool == "int8", dim=64)
+                else:
+                    C, st, ln = custom
+                    d = _chunk_setup(None, G, pool == "int8", dim=64, C=C,
+                                     starts=st, lens=ln, max_blocks=24)
+                p = _cuda_pools(d, cuda_device, pool)
+                q = _t(d["q"], cuda_device)
+                if pool == "bf16":
+                    q = q.bfloat16()
+                tables = _t(d["tables"], cuda_device)
+                starts = _t(d["starts"], cuda_device)
+                lens = _t(d["lens"], cuda_device)
+                kw = dict(window=window, k_scale=p["ks"], v_scale=p["vs"])
+                want = tref.paged_attention_chunk_reference(
+                    q, p["k"], p["v"], tables, starts, **kw)
+                got = ops.paged_attention_chunk(q, p["k"], p["v"], tables,
+                                                starts, lens, **kw)
+                torch.cuda.synchronize()
+                tol = 5e-2 if pool == "bf16" else 1e-4
+                for b, n in enumerate(d["lens"]):
+                    torch.testing.assert_close(got[b, :n].float(),
+                                               want[b, :n].float(),
+                                               atol=tol, rtol=tol)
+                    assert (got[b, n:] == 0).all()
+                if q.shape[1] == 1:
+                    dec = ops.paged_attention(q[:, 0], p["k"], p["v"],
+                                              tables, starts + 1, **kw)
+                    torch.testing.assert_close(dec, got[:, 0], rtol=0,
+                                               atol=0)

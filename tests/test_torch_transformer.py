@@ -108,13 +108,17 @@ def _mixed_stream(cfg, seed, window):
             num_blocks, bs, max_blocks)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
-def test_ragged_step_matches_reference(arch):
-    """One mixed ragged step: logits on real rows and the written pools
-    agree with the reference's plain (``use_kernel=False``) step."""
+def _check_ragged_step(arch, tiled):
+    """One mixed ragged step through the segment-tiled read (``tiled``)
+    or the per-token read (no TileMap in the cache, ``token_lane``
+    instead): logits on real rows and the written pools agree with the
+    reference's plain (``use_kernel=False``) step given the same
+    metadata."""
     jcfg, japi, jparams, cfg, api, tparams = _models(arch)
     window = api.effective_window(128)
     tokens, pools, meta, T, tile, nb, bs, mb = _mixed_stream(cfg, 3, window)
+    if not tiled:
+        del meta["tile_meta"], meta["row_tile"]
     n_lanes = meta["block_tables"].shape[0]
     jcache = jax_tf.init_paged_cache(jcfg, n_lanes, num_blocks=nb,
                                      block_size=bs, max_blocks_per_lane=mb,
@@ -138,13 +142,123 @@ def test_ragged_step_matches_reference(arch):
     assert tlogits.shape == (len(tokens), cfg.vocab_size)
     np.testing.assert_allclose(tlogits[:T].numpy(), np.asarray(jlogits)[:T],
                                atol=ATOL, rtol=RTOL)
-    real = np.asarray(meta["slot_mapping"][:T])
+    _assert_pools_close(tnew, jnew, pools, meta["slot_mapping"][:T], cfg)
+
+
+def _assert_pools_close(tcache, jcache, pools, slots, cfg):
+    """The K/V written at physical ``slots`` agree between the packages."""
+    real = np.asarray(slots)
     for k in ("k", "v"):
-        got = tnew["scan"][k].numpy().reshape(cfg.n_layers, -1,
-                                              *pools[k].shape[3:])
-        want = np.asarray(jnew["scan"][k]).reshape(got.shape)
+        got = tcache["scan"][k].numpy().reshape(cfg.n_layers, -1,
+                                                *pools[k].shape[3:])
+        want = np.asarray(jcache["scan"][k]).reshape(got.shape)
         np.testing.assert_allclose(got[:, real], want[:, real], atol=ATOL,
                                    rtol=RTOL)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_ragged_step_matches_reference(arch):
+    """The segment-tiled ragged step against the reference's."""
+    _check_ragged_step(arch, tiled=True)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_per_token_ragged_step_matches_reference(arch):
+    """The per-token ragged step (``tiled=False``: the attention read
+    gathers ``block_tables[token_lane]``) against the reference's."""
+    _check_ragged_step(arch, tiled=False)
+
+
+def _rect_chunk(cfg, seed, window):
+    """One rectangular step's batch over pools holding earlier context:
+    lanes (start, q_len) padded to C = 16 -- a fresh 9-token prefill, a
+    decode, a 3-token draft-style chunk, a paused lane (q_len 0, whose
+    writes must go to the null block) and, for a window arch, a chunk
+    past the window."""
+    bs, max_blocks, C = 4, 24, 16
+    segments = [(0, 9), (7, 1), (12, 3), (5, 0)]
+    if window:
+        segments.append((window + 6, 2))
+    n_lanes = len(segments)
+    num_blocks = n_lanes * max_blocks + 1
+    rng = np.random.default_rng(seed)
+    tables = np.zeros((n_lanes, max_blocks), np.int32)
+    free = list(rng.permutation(np.arange(1, num_blocks)))
+    tokens = np.zeros((n_lanes, C), np.int32)
+    slots = []
+    for lane, (start, n) in enumerate(segments):
+        for j in range(-(-(start + n) // bs)):
+            tables[lane, j] = free.pop(0)
+        tokens[lane, :n] = rng.integers(0, cfg.vocab_size, n)
+        slots += [tables[lane, p // bs] * bs + p % bs
+                  for p in range(start, start + n)]
+    L, Hkv, D = cfg.n_layers, cfg.n_kv_heads, cfg.resolved_head_dim
+    pools = {name: rng.standard_normal((L, num_blocks, bs, Hkv, D))
+             .astype(np.float32) for name in ("k", "v")}
+    meta = {"block_tables": tables,
+            "pos": np.array([s for s, _ in segments], np.int32),
+            "q_lens": np.array([n for _, n in segments], np.int32)}
+    return tokens, pools, meta, slots, num_blocks, bs, max_blocks
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_paged_step_matches_reference(arch):
+    """One rectangular ``paged_step``: logits on every lane's real rows,
+    the K/V written at real slots and the advanced ``pos`` agree with the
+    reference's plain step; the paused lane's chunk writes nothing but
+    the null block."""
+    jcfg, japi, jparams, cfg, api, tparams = _models(arch)
+    window = api.effective_window(128)
+    tokens, pools, meta, slots, nb, bs, mb = _rect_chunk(cfg, 5, window)
+    n_lanes = tokens.shape[0]
+    jcache = jax_tf.init_paged_cache(jcfg, n_lanes, num_blocks=nb,
+                                     block_size=bs, max_blocks_per_lane=mb,
+                                     dtype=jnp.float32)
+    jcache["scan"] = {k: jnp.asarray(v) for k, v in pools.items()}
+    jcache.update({k: jnp.asarray(v) for k, v in meta.items()})
+    jlogits, jnew = jax_tf.paged_step(jparams, jcache, jnp.asarray(tokens),
+                                      jcfg, window=window,
+                                      compute_dtype=jnp.float32,
+                                      use_kernel=False)
+    tcache = api.init_paged_cache(n_lanes, num_blocks=nb, block_size=bs,
+                                  max_blocks_per_lane=mb,
+                                  dtype=torch.float32, device="cpu")
+    for k, v in pools.items():
+        tcache["scan"][k].copy_(torch.from_numpy(v))
+    tcache.update({k: torch.from_numpy(v) for k, v in meta.items()})
+    tlogits, tnew = api.paged_step(tparams, tcache,
+                                   torch.from_numpy(tokens), window=window)
+    assert tlogits.shape == tokens.shape + (cfg.vocab_size,)
+    jl = np.asarray(jlogits)
+    for lane, n in enumerate(meta["q_lens"]):
+        np.testing.assert_allclose(tlogits[lane, :n].numpy(), jl[lane, :n],
+                                   atol=ATOL, rtol=RTOL)
+    _assert_pools_close(tnew, jnew, pools, slots, cfg)
+    np.testing.assert_array_equal(tnew["pos"].numpy(), np.asarray(jnew["pos"]))
+    untouched = np.ones(nb * bs, bool)
+    untouched[np.asarray(slots)] = False
+    untouched[0] = False                    # the null block's write target
+    for k in ("k", "v"):
+        got = tnew["scan"][k].numpy().reshape(cfg.n_layers, nb * bs, -1)
+        np.testing.assert_array_equal(
+            got[:, untouched],
+            pools[k].reshape(cfg.n_layers, nb * bs, -1)[:, untouched])
+
+    # the q_len = 1 step without q_lens (every lane real), from the
+    # advanced positions
+    jcache = dict(jnew)
+    jcache.pop("q_lens")
+    tnew.pop("q_lens")
+    dec = tokens[:, :1]
+    jl, _ = jax_tf.paged_decode_step(jparams, jcache, jnp.asarray(dec), jcfg,
+                                     window=window,
+                                     compute_dtype=jnp.float32)
+    tl, tdec = api.paged_decode_step(tparams, tnew, torch.from_numpy(dec),
+                                     window=window)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL,
+                               rtol=RTOL)
+    np.testing.assert_array_equal(tdec["pos"].numpy(),
+                                  np.asarray(jnew["pos"]) + 1)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
