@@ -1,10 +1,15 @@
 """Config registry: importing this package registers the archs the port
-serves (the dense transformer family of the first slice)."""
+serves (the dense transformer family), and exports the configs of the
+paper's own edge models."""
 from repro_torch.configs.base import (  # noqa: F401
     ArchConfig,
     MoEConfig,
     available_archs,
     get_config,
+)
+from repro_torch.configs.paper_models import (  # noqa: F401
+    BraggNNConfig,
+    CookieNetAEConfig,
 )
 
 # registration side-effects

@@ -1,7 +1,8 @@
 """Dispatch between the port's kernels and their plain versions.
 
-The counterpart of the paged-attention half of ``repro/kernels/ops.py``.
-With ``use_kernel=None`` the device of ``q`` decides: the CUDA kernel for
+The counterpart of the paged-attention and pseudo-Voigt parts of
+``repro/kernels/ops.py``.  With ``use_kernel=None`` the device of the
+input (``q``, ``patches``) decides: the CUDA kernel for
 CUDA tensors, the plain PyTorch version for CPU tensors.
 ``use_kernel=False`` pins the plain version on either device (the
 comparison path of ``chip_smoke.py``); ``use_kernel=True`` on CPU tensors
@@ -14,6 +15,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import paged_attention as _pa
+from repro_torch.kernels import pseudo_voigt as _pv
 from repro_torch.kernels import ref as _ref
 
 
@@ -125,3 +127,13 @@ def paged_attention_ragged(q: torch.Tensor, k_pool: torch.Tensor,
     return _ref.paged_attention_ragged_reference(
         q, k_pool, v_pool, token_tables, token_pos, window=window,
         k_scale=k_scale, v_scale=v_scale)
+
+
+def pseudo_voigt_fit(patches: torch.Tensor, *, n_iter: int = 5,
+                     use_kernel: Optional[bool] = None) -> torch.Tensor:
+    """patches (Np, ph, pw) -> (Np, 6) fits (y0, x0, gy, gx, Ay, Ax).  The
+    kernel masks its own ragged tail, so unlike the reference's wrapper
+    this pads nothing; any Np >= 0 is taken."""
+    if _resolve(patches, use_kernel):
+        return _pv.pseudo_voigt_fit(patches, n_iter=n_iter)
+    return _ref.pseudo_voigt_reference(patches, n_iter)

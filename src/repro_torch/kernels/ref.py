@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the port's kernels.
+"""Plain PyTorch versions of the port's kernels: paged attention and the
+pseudo-Voigt Bragg-peak fit.
 
 Each function is the mathematical specification its CUDA kernel must
 match; the port's tests hold it to the reference package's own oracle
@@ -16,7 +17,8 @@ writes it.
 """
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import Optional, Tuple
 
 import torch
 
@@ -197,3 +199,104 @@ def paged_attention_ragged_tiled_reference(
     t_idx = row_tile[:T].long()
     off = torch.clamp(r - win[t_idx] * tile, 0, tile - 1)
     return ot[t_idx, off].reshape(T, H, D).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# pseudo-Voigt: the separable marginal Gauss-Newton fit
+# ---------------------------------------------------------------------------
+_ETA = 0.5                                   # fixed Lorentzian fraction
+_C = 1.0 / math.sqrt(2.0 * math.log(2.0))    # sigma = _C * gamma
+
+
+def pv_profile(u: torch.Tensor, gamma: torch.Tensor) -> torch.Tensor:
+    """Unit-amplitude pseudo-Voigt profile at offsets u."""
+    g2 = gamma * gamma
+    lor = g2 / (u * u + g2)
+    sig = _C * gamma
+    gau = torch.exp(-(u * u) / (2.0 * sig * sig))
+    return _ETA * lor + (1.0 - _ETA) * gau
+
+
+def _pv_grads(u: torch.Tensor, gamma: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The profile and its derivatives by the center and by gamma."""
+    g2 = gamma * gamma
+    lor = g2 / (u * u + g2)
+    sig = _C * gamma
+    gau = torch.exp(-(u * u) / (2.0 * sig * sig))
+    d_lor_dx0 = 2.0 * u * lor * lor / g2
+    d_gau_dx0 = gau * u / (sig * sig)
+    d_lor_dg = 2.0 * u * u * lor * lor / (g2 * gamma)
+    d_gau_dg = gau * u * u / (_C * _C * gamma ** 3)
+    dp_dx0 = _ETA * d_lor_dx0 + (1 - _ETA) * d_gau_dx0
+    dp_dg = _ETA * d_lor_dg + (1 - _ETA) * d_gau_dg
+    p = _ETA * lor + (1 - _ETA) * gau
+    return p, dp_dx0, dp_dg
+
+
+def pv_fit_1d(y: torch.Tensor, n_iter: int = 5
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Fit A * pV(x - x0; gamma) + bg to y (..., n) by Gauss-Newton.
+
+    Returns (x0, gamma, A).  bg is the per-profile min (subtracted, not
+    fit).  Each step solves the regularised 3x3 normal equations in
+    closed form; a determinant below 1e-20 in magnitude is replaced by
+    +1e-20, and A, x0 and gamma are clamped to [1e-12, inf), [0, n - 1]
+    and [0.3, n].
+    """
+    n = y.shape[-1]
+    x = torch.arange(n, dtype=torch.float32, device=y.device)
+    yf = y.to(torch.float32)
+    bg = yf.amin(dim=-1, keepdim=True)
+    yc = yf - bg
+    total = torch.clamp(yc.sum(dim=-1), min=1e-12)
+
+    x0 = (yc * x).sum(dim=-1) / total
+    var = (yc * (x - x0[..., None]) ** 2).sum(dim=-1) / total
+    gamma = torch.sqrt(torch.clamp(var, min=0.25))
+    A = torch.clamp(yc.amax(dim=-1), min=1e-12)
+
+    for _ in range(n_iter):
+        u = x - x0[..., None]
+        p, dp_dx0, dp_dg = _pv_grads(u, gamma[..., None])
+        r = yc - A[..., None] * p
+        # jacobian columns: dA, dx0, dgamma
+        j0 = p
+        j1 = A[..., None] * dp_dx0
+        j2 = A[..., None] * dp_dg
+        a00 = (j0 * j0).sum(-1); a01 = (j0 * j1).sum(-1); a02 = (j0 * j2).sum(-1)
+        a11 = (j1 * j1).sum(-1); a12 = (j1 * j2).sum(-1); a22 = (j2 * j2).sum(-1)
+        b0 = (j0 * r).sum(-1); b1 = (j1 * r).sum(-1); b2 = (j2 * r).sum(-1)
+        lam = 1e-6 * (a00 + a11 + a22) + 1e-12
+        a00 = a00 + lam; a11 = a11 + lam; a22 = a22 + lam
+        det = (a00 * (a11 * a22 - a12 * a12)
+               - a01 * (a01 * a22 - a12 * a02)
+               + a02 * (a01 * a12 - a11 * a02))
+        det = torch.where(det.abs() < 1e-20, 1e-20, det)
+        i00 = a11 * a22 - a12 * a12
+        i01 = a02 * a12 - a01 * a22
+        i02 = a01 * a12 - a02 * a11
+        i11 = a00 * a22 - a02 * a02
+        i12 = a02 * a01 - a00 * a12
+        i22 = a00 * a11 - a01 * a01
+        dA = (i00 * b0 + i01 * b1 + i02 * b2) / det
+        dx0 = (i01 * b0 + i11 * b1 + i12 * b2) / det
+        dg = (i02 * b0 + i12 * b1 + i22 * b2) / det
+        A = torch.clamp(A + dA, min=1e-12)
+        x0 = torch.clamp(x0 + dx0, 0.0, n - 1.0)
+        gamma = torch.clamp(gamma + dg, 0.3, float(n))
+    return x0, gamma, A
+
+
+def pseudo_voigt_reference(patches: torch.Tensor, n_iter: int = 5
+                           ) -> torch.Tensor:
+    """patches (Np, ph, pw) -> (Np, 6) float32: (y0, x0, gy, gx, Ay, Ax).
+
+    Separable fit: pseudo-Voigt Gauss-Newton on the row marginal (the sum
+    over columns, giving the y profile) and the column marginal.
+    """
+    my = patches.sum(dim=2)    # (Np, ph)
+    mx = patches.sum(dim=1)    # (Np, pw)
+    y0, gy, Ay = pv_fit_1d(my, n_iter)
+    x0, gx, Ax = pv_fit_1d(mx, n_iter)
+    return torch.stack([y0, x0, gy, gx, Ay, Ax], dim=-1)

@@ -1,4 +1,6 @@
-"""Parameters of the reference package in the port's layout.
+"""Parameters of the reference package in the port's layout: the dense
+transformer (:func:`from_reference_params`) and BraggNN
+(:func:`braggnn_from_reference_params`).
 
 jax and torch generators give different numbers from the same seed, so
 the tests that compare the two packages make parameters with the
@@ -38,3 +40,20 @@ def from_reference_params(tree: Dict[str, Any], *, device="cuda",
             device=dev, dtype=torch.float32 if is_norm else dtype)
 
     return conv(tree, False)
+
+
+def braggnn_from_reference_params(tree: Dict[str, Any], *, device="cuda",
+                                  dtype: torch.dtype = torch.float32
+                                  ) -> Dict[str, torch.Tensor]:
+    """Convert the reference's BraggNN parameters (a flat dict of numpy
+    arrays) into the port's: conv weights (every 4-D array, the non-local
+    block's 1x1 convs included) go from the reference's HWIO to OIHW;
+    biases and the (in, out) FC weights keep their layout."""
+    dev = resolve_device(device)
+    out = {}
+    for k, v in tree.items():
+        t = torch.from_numpy(np.array(v))
+        if t.dim() == 4:
+            t = t.permute(3, 2, 0, 1).contiguous()
+        out[k] = t.to(device=dev, dtype=dtype)
+    return out

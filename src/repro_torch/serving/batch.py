@@ -1,7 +1,8 @@
-"""Serving batch containers: the flat-token stream and its tile map.
+"""Serving batch containers: the flat-token stream, its tile map, and
+the edge micro-batcher.
 
-The counterpart of ``repro/serving/batch.py`` (``BatchEngine``, the edge
-micro-batcher, is ROADMAP item A8).  Host-only numpy:
+The counterpart of ``repro/serving/batch.py``.  Host-only numpy, but for
+:class:`BatchEngine`:
 
   * :class:`RaggedBatch` — the flat-token serving batch: one 1-D stream of
     *all* tokens an engine step schedules (mixed multi-token prefill
@@ -14,13 +15,19 @@ micro-batcher, is ROADMAP item A8).  Host-only numpy:
     boundaries crossing it, and every resulting (window, segment)
     intersection becomes one *tile* that sweeps exactly one lane's KV
     blocks.
+  * :class:`BatchEngine` — fixed-shape batched inference of a small edge
+    model (BraggNN, the paper's "E" op) with pow2 padding.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+import time
+from typing import Any, Callable, Dict
 
 import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
 
 
 def padded_pow2(n: int, cap: int = 0) -> int:
@@ -226,3 +233,69 @@ def build_tile_map(seg_offsets, seg_lens, seg_lanes, seg_pos0,
             row, t = hi, t + 1
     return TileMap(meta=meta, row_tile=row_tile,
                    cu_seqlens=np.asarray(cu, np.int32), n_tiles=t, tile=tile)
+
+
+@dataclasses.dataclass
+class BatchStats:
+    """Rolling counters for :class:`BatchEngine` (requests, batches, latency)."""
+
+    n_requests: int = 0
+    n_batches: int = 0
+    total_items: int = 0
+    total_latency: float = 0.0
+
+    def summary(self) -> Dict[str, float]:
+        """Counters plus mean per-batch latency, as a plain dict."""
+        return {
+            "requests": self.n_requests,
+            "batches": self.n_batches,
+            "items": self.total_items,
+            "mean_latency_s": self.total_latency / max(self.n_batches, 1),
+        }
+
+
+class BatchEngine:
+    """Fixed-shape batched inference with padding.
+
+    ``apply_fn(params, x) -> y`` runs eagerly under
+    ``torch.inference_mode()`` on the engine's device; a request of any
+    size is cut into chunks of at most ``max_batch`` rows, each padded with
+    zeros to a power of two (so the model sees at most log2(max_batch) + 1
+    shapes, as the reference compiles once per size).
+    """
+
+    def __init__(self, apply_fn: Callable, params: Any, *,
+                 max_batch: int = 1024, device="cuda") -> None:
+        """``params`` must already live on ``device``."""
+        self.params = params
+        self.max_batch = max_batch
+        self.apply_fn = apply_fn
+        self.device = resolve_device(device)
+        self.stats = BatchStats()
+
+    def infer(self, x: np.ndarray) -> np.ndarray:
+        """Process a request of any size by padded fixed-shape batches;
+        returns numpy.  Latency per batch covers the copy in, the model
+        and the copy out."""
+        self.stats.n_requests += 1
+        outs = []
+        i = 0
+        n = x.shape[0]
+        while i < n:
+            take = min(self.max_batch, n - i)
+            size = padded_pow2(take, self.max_batch)
+            chunk = x[i:i + take]
+            if take < size:
+                pad = np.zeros((size - take,) + x.shape[1:], x.dtype)
+                chunk = np.concatenate([chunk, pad])
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                xin = torch.from_numpy(np.ascontiguousarray(chunk)).to(
+                    self.device)
+                y = self.apply_fn(self.params, xin).cpu().numpy()
+            self.stats.total_latency += time.perf_counter() - t0
+            self.stats.n_batches += 1
+            self.stats.total_items += take
+            outs.append(y[:take])
+            i += take
+        return np.concatenate(outs) if len(outs) > 1 else outs[0]
