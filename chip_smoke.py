@@ -37,7 +37,24 @@ printing its own line(s):
    training set through B7 (``label_for_braggnn``), T trains BraggNN at
    its published width for 300 ``adam(1e-3)`` steps at batch 64, E
    estimates the held-out centers through ``BatchEngine``; the labels and
-   the estimates must be near the ground truth.
+   the estimates must be near the ground truth;
+8. LM training through the flash-attention kernels: (a) the forward (B6),
+   the forward with logsumexp (B6f) and the backward (B6b: dq, dk/dv)
+   against their plain versions on the card, from float32 and from
+   bfloat16 copies of the same inputs, at gemma-7b's training shape
+   (S 4096, 16 x 256 heads) and at starcoder2-7b's heads with its sliding
+   window (S 8192, 36 q and 4 kv heads x 128, window 4096), each with its
+   time, the plain version's, ``scaled_dot_product_attention``'s and the
+   least time the card could take; (b) gemma-7b at its published width,
+   depth cut to 4 of 28 layers (float32 AdamW state for 28 does not fit
+   80 GB), float32 masters and bfloat16 compute, trained 10
+   ``make_train_step_fn`` steps on ``TRAIN_4K``'s sequence at batch 1:
+   every step must launch B6f 2 x L times (forward and the checkpointed
+   recompute), dq and dk/dv L times each and no other attention kernel;
+   the loss must fall; the plain path's step (``use_kernel=False``) from
+   the first step's state and batch must agree with the kernel's in bf16,
+   and on the last step's state the two paths must agree in float32; one
+   no-grad eval forward must launch B6 L times.
 
 Then one JSON line of per-kernel numbers, and last
 ``{"ok": true, "device": {...}}``.  Any failed phase raises, so the run
@@ -45,6 +62,7 @@ exits non-zero without that last line.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -65,6 +83,48 @@ PAPER_PEAKS = 800_000
 # fused multiply-adds in the kernel; on an H100 they differ by at most
 # 1.5e-6 on the path's patches (PERF.md)
 PV_TOL = 1e-5
+# B6/B6f/B6b against their plain versions on the same inputs: every
+# element within |kernel - plain| <= rtol * |plain| + atol, and each whole
+# output within ||kernel - plain||_2 <= rel_l2 * ||plain||_2.  Two gates,
+# each limit 3-5x its largest reading over both 8a shapes on an H100
+# (PERF.md; the readings are printed as "atol needed" and "rel_l2"):
+# - float32 inputs (the kernels take them too): the same arithmetic in
+#   another summation order (readings: atol 2.8e-5, rel_l2 3.7e-6, both
+#   dk at G 9), so a dropped key tile, q head or band segment shows at
+#   any element, however small;
+# - bfloat16 inputs, the main path's type.  rtol is one bfloat16 ulp
+#   (2^-7 of the value), the most that two roundings to bfloat16 of nearly
+#   equal float32 values can differ by.  The atol covers the float32
+#   difference before that rounding.  In the backward that is summation
+#   order only (reading 3.7e-6).  In the forward the kernel rounds the
+#   softmax weights to bfloat16 before PV, as the TPU kernel does and the
+#   plain version does not; that error scales with the row (a row
+#   averaging n keys has values and errors ~1/sqrt(n) of |v|), so o's atol
+#   is a share of its row's largest |plain|
+FA_F32_RTOL = 1e-4
+FA_F32_ATOL = 1e-4
+FA_F32_REL_L2 = 2e-5
+FA_BF16_RTOL = 2.0 ** -7
+FA_BF16_O_ROW = 1e-2          # x the row's largest |plain|; reading 3.5e-3
+FA_BF16_GRAD_ATOL = 2e-5      # reading 3.7e-6
+FA_BF16_REL_L2 = {"o": 1e-2, "grad": 5e-4}   # readings 2.2e-3, 1.2e-4
+FA_LSE_ATOL = 1e-5            # float32 logsumexp, either input type:
+FA_LSE_REL_L2 = 2e-7          # readings 1.9e-6, 4.6e-8
+# the kernel and plain training steps from the initial state (bfloat16
+# compute; attention rounds and sums differently on the two paths) must
+# agree to these relative tolerances in loss and gradient norm, about 10x
+# the first card run's readings of 2.5e-6 and 1.1e-5 (PERF.md).  A later
+# state is gated in float32 (TRAIN_F32_RTOL), where the two paths differ
+# only by summation order: on a step-10 state the two bf16 gradient norms
+# read 9 % apart, both ~50 % off the float32 one (an open question,
+# ROADMAP C), which phase 8b prints
+TRAIN_LOSS_RTOL = 3e-5
+TRAIN_GRAD_NORM_RTOL = 1.5e-4
+TRAIN_F32_RTOL = 1e-4
+TRAIN_LAYERS = 4
+TRAIN_STEPS = 10
+TRAIN_LR = 3e-4               # the training launcher's default
+TOP_KERNELS = 12              # device kernels listed from the profiled step
 SEED = 0
 DEVICE = "cuda"
 
@@ -703,17 +763,469 @@ def phase_paper_loop():
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 8a: the flash-attention kernels against their plain versions
+# ---------------------------------------------------------------------------
+def _visible_pairs(S: int, window: int) -> int:
+    """(query, key) pairs inside the causal band (and window) of S."""
+    if not window or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+def _fa_bound(B, H, Hkv, S, D, window, *, flops_per_pair, head_tensors,
+              kv_tensors, f32_rows) -> tuple:
+    """Least time of one flash-attention kernel: ``flops_per_pair`` x D
+    operations for every visible (query, key) pair of every query head at
+    the bf16 peak, against ``head_tensors`` (B, H, S, D) and
+    ``kv_tensors`` (B, Hkv, S, D) bf16 tensors and ``f32_rows`` (B, H, S)
+    float32 rows read or written once, at the memory rate."""
+    flops = flops_per_pair * D * _visible_pairs(S, window) * B * H
+    nbytes = (2 * B * S * D * (head_tensors * H + kv_tensors * Hkv)
+              + 4 * f32_rows * B * H * S)
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    flop_ms = flops / BF16_FLOPS * 1e3
+    return (byte_ms, "bytes") if byte_ms >= flop_ms else (flop_ms,
+                                                          "operations")
+
+
+def _fa_compare(label, outputs) -> float:
+    """Hold each of ``outputs`` ((name, kernel's, plain's, rtol, atol,
+    rel_l2, per_row) each) to its plain version: every element within
+    rtol * |plain| + atol (atol times the row's largest |plain| where
+    ``per_row``) and the whole within rel_l2 in the 2-norm.  Prints the
+    readings the limits are set from: the largest and the median error,
+    the atol each output needs at its rtol (max of |err| - rtol * |plain|,
+    over the row's largest |plain| where ``per_row``) and the relative
+    2-norm error.  Returns the largest error; raises if any output is over
+    a limit or not finite."""
+    import torch
+    errs = []
+    for name, a, b, rtol, atol, rel_l2, per_row in outputs:
+        a, b = a.float(), b.float()
+        diff = (a - b).abs()
+        unit = (b.abs().amax(-1, keepdim=True).clamp_min(1e-30) if per_row
+                else torch.ones((), device=b.device))
+        excess = diff - rtol * b.abs()
+        over = int((excess > atol * unit).sum())
+        need = (excess / unit).max().item()
+        rel = (diff.norm() / b.norm()).item()
+        errs.append(diff.max().item())
+        print(f"kernel check [{label}] {name}: max_abs_err={errs[-1]:.3e} "
+              f"median_abs_err={diff.median().item():.3e} "
+              f"max_abs={b.abs().max().item():.3e} "
+              f"median_abs={b.abs().median().item():.3e} "
+              f"atol needed at rtol {rtol:.3g}="
+              f"{need:.3e}{' x row max |plain|' if per_row else ''} "
+              f"(atol {atol:g}, {over} over) rel_l2={rel:.3e} "
+              f"(limit {rel_l2:g})", flush=True)
+        if over or not rel <= rel_l2 or not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"{label} {name} disagrees with its plain "
+                                 f"version: {over} over tolerance, rel_l2 "
+                                 f"{rel}")
+        del diff, excess
+    return max(errs)
+
+
+def _fa_check_all(label, q, k, v, do, kw, f32: bool):
+    """B6f, B6, dq and dk/dv on (q, k, v, do) against their plain versions
+    with the limits of the inputs' type.  Returns (o, lse) of B6f and the
+    largest error of B6f, B6 and the backward."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref as kref
+    if f32:
+        lim_o = lim_g = (FA_F32_RTOL, FA_F32_ATOL, FA_F32_REL_L2, False)
+    else:
+        lim_o = (FA_BF16_RTOL, FA_BF16_O_ROW, FA_BF16_REL_L2["o"], True)
+        lim_g = (FA_BF16_RTOL, FA_BF16_GRAD_ATOL, FA_BF16_REL_L2["grad"],
+                 False)
+    lim_lse = (0.0, FA_LSE_ATOL, FA_LSE_REL_L2, False)
+    tag = f"{label} {'float32' if f32 else 'bf16'}"
+    # the plain float32 versions first: their scores take ~10 GB
+    want_o, want_lse = kref.attention_lse_reference(q, k, v, **kw)
+    o, lse = fa.flash_attention_lse(q, k, v, **kw)
+    want_b = kref.attention_bwd_reference(q, k, v, o, lse, do, **kw)
+    got_b = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    err_f = _fa_compare(f"{fa.B6F} {tag}", [
+        ("o", o, want_o, *lim_o), ("lse", lse, want_lse, *lim_lse)])
+    err_o = _fa_compare(f"{fa.B6} {tag}", [
+        ("o", fa.flash_attention(q, k, v, **kw), want_o, *lim_o)])
+    err_b = _fa_compare(f"{fa.B6_DQ}/{fa.B6_DKV} {tag}", [
+        (n, a, b, *lim_g)
+        for n, a, b in zip(("dq", "dk", "dv"), got_b, want_b)])
+    del want_o, want_lse, want_b, got_b
+    torch.cuda.empty_cache()
+    return o, lse, err_f, err_o, err_b
+
+
+def phase_flash_kernels():
+    """B6, B6f, dq and dk/dv against their plain versions at gemma-7b's
+    training shape and at starcoder2-7b's heads and window.  Returns
+    {kernel: numbers} at gemma-7b's shape; raises on any disagreement."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref as kref
+    cases = [("gemma-7b S=4096", 1, 16, 16, 4096, 256, 0),
+             ("starcoder2-7b S=8192 window=4096", 1, 36, 4, 8192, 128, 4096)]
+    results = {}
+    for label, B, H, Hkv, S, D, window in cases:
+        g = torch.Generator(device=DEVICE)
+        g.manual_seed(SEED)
+        # the model's (B, S, heads, D) layout, read through transposed
+        # views as the training path reads it
+        mk = lambda h: torch.randn((B, S, h, D), generator=g,
+                                   device=DEVICE).to(torch.bfloat16
+                                                     ).transpose(1, 2)
+        q, k, v, do = mk(H), mk(Hkv), mk(Hkv), mk(H)
+        kw = dict(causal=True, window=window)
+        print(f"flash inputs [{label}]: B={B} H={H} Hkv={Hkv} S={S} D={D} "
+              f"window={window} bf16, visible pairs per head="
+              f"{_visible_pairs(S, window)}", flush=True)
+        # float32 copies of the same values first, then the path's bf16
+        f32 = [t.float() for t in (q, k, v, do)]
+        _fa_check_all(label, *f32, kw, f32=True)
+        del f32
+        o, lse, err_f, err_o, err_b = _fa_check_all(label, q, k, v, do, kw,
+                                                    f32=False)
+
+        # the library yardstick: SDPA on kv expanded to H heads (built
+        # here, outside the timed call), causal, the window as a mask
+        G = H // Hkv
+        kx = k.repeat_interleave(G, dim=1).detach().requires_grad_(True)
+        vx = v.repeat_interleave(G, dim=1).detach().requires_grad_(True)
+        qx = q.detach().requires_grad_(True)
+        if window:
+            pos = torch.arange(S, device=DEVICE)
+            mask = ((pos[None, :] <= pos[:, None])
+                    & (pos[:, None] - pos[None, :] < window))
+            sdpa = lambda: F.scaled_dot_product_attention(qx, kx, vx,
+                                                          attn_mask=mask)
+        else:
+            sdpa = lambda: F.scaled_dot_product_attention(qx, kx, vx,
+                                                          is_causal=True)
+
+        def sdpa_fwd():
+            with torch.no_grad():
+                return sdpa()
+
+        def sdpa_fwd_bwd():
+            return torch.autograd.grad(sdpa(), (qx, kx, vx), do)
+
+        lib_f = _median_ms(sdpa_fwd, reps=5, inner=3, warmup=1)
+        lib_b = _median_ms(sdpa_fwd_bwd, reps=5, inner=3, warmup=1)
+        del kx, vx, qx
+        args = (B, H, Hkv, S, D, window)
+        rows = {
+            fa.B6: (err_o, lambda: fa.flash_attention(q, k, v, **kw),
+                    lambda: kref.attention_reference(q, k, v, **kw), lib_f,
+                    _fa_bound(*args, flops_per_pair=4, head_tensors=2,
+                              kv_tensors=2, f32_rows=0)),
+            fa.B6F: (err_f, lambda: fa.flash_attention_lse(q, k, v, **kw),
+                     lambda: kref.attention_lse_reference(q, k, v, **kw),
+                     lib_f, _fa_bound(*args, flops_per_pair=4,
+                                      head_tensors=2, kv_tensors=2,
+                                      f32_rows=1)),
+        }
+        for name, (err, kern, plain, lib, (bound_ms, bound_by)) in \
+                rows.items():
+            ms = _median_ms(kern, reps=5, inner=3, warmup=1)
+            plain_ms = _median_ms(plain, reps=3, inner=1, warmup=1)
+            results.setdefault(name, {})[label] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib,
+                bound_ms=bound_ms, bound_by=bound_by)
+            torch.cuda.empty_cache()
+        # B6b: the two kernels are timed apart through their C entry
+        # points; their plain version is one function, timed once
+        plain_b = _median_ms(lambda: kref.attention_bwd_reference(
+            q, k, v, o, lse, do, **kw), reps=3, inner=1, warmup=1)
+        for name, n_pairs, heads, kvs in ((fa.B6_DQ, 6, 3, 2),
+                                          (fa.B6_DKV, 8, 2, 4)):
+            bound_ms, bound_by = _fa_bound(*args, flops_per_pair=n_pairs,
+                                           head_tensors=heads,
+                                           kv_tensors=kvs, f32_rows=2)
+            ms = _median_ms(_bwd_kernel_call(name, q, k, v, o, lse, do, kw),
+                            reps=5, inner=3, warmup=1)
+            results.setdefault(name, {})[label] = dict(
+                max_abs_err=err_b, ms=ms, plain_ms=plain_b,
+                library_ms=lib_b, bound_ms=bound_ms, bound_by=bound_by)
+        for name in (fa.B6, fa.B6F, fa.B6_DQ, fa.B6_DKV):
+            r = results[name][label]
+            print(f"kernel check [{name} {label}]: ms={r['ms']:.4f} "
+                  f"plain_ms={r['plain_ms']:.4f} "
+                  f"library_ms={r['library_ms']:.4f} "
+                  f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']})"
+                  + (" (plain and library: the whole backward)"
+                     if name in (fa.B6_DQ, fa.B6_DKV) else ""), flush=True)
+        del q, k, v, do, o, lse
+        torch.cuda.empty_cache()
+    return {name: c[cases[0][0]] for name, c in results.items()}
+
+
+def _bwd_kernel_call(name, q, k, v, o, lse, do, kw):
+    """A call of one backward kernel alone (dq or dk/dv) on the inputs
+    ``flash_attention_bwd`` gives it."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    delta = (do.float() * o.float()).sum(dim=-1).contiguous()
+    grads = tuple(torch.empty_like(t) for t in (q, k, v))
+    which = "dq" if name == fa.B6_DQ else "dkv"
+    return lambda: fa.launch_bwd_kernel(which, q, k, v, do, lse, delta,
+                                        *grads, **kw)
+
+
+# ---------------------------------------------------------------------------
+# phase 8b: LM training at full width through the kernels
+# ---------------------------------------------------------------------------
+def _group_train(name: str) -> str:
+    """Kernel family of a device kernel name in a training step."""
+    if "flash_attention::" in name:
+        return "flash attention"
+    if any(k in name for k in ("nvjet", "gemm", "splitKreduce", "cutlass")):
+        return "gemm"
+    return "other"
+
+
+def _loss_and_grad_norm(loss_fn, params, batch) -> tuple:
+    """The loss of ``params`` on ``batch`` and the global norm of its
+    gradient, as a train step reports them, without the update."""
+    import torch
+    from repro_torch.optim.optimizers import tree_leaves, tree_map
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    it = iter(leaves)
+    loss, _ = loss_fn(tree_map(lambda _: next(it), params), batch)
+    grads = torch.autograd.grad(loss, leaves)
+    norm = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads))
+    return float(loss.detach()), float(norm)
+
+
+def phase_training():
+    """gemma-7b at full width (4 layers) trained 10 steps through the
+    kernels, with the plain path's step on the same state and batch as the
+    first, a float32 kernel-against-plain check on the last state, and one
+    no-grad eval forward; the counts of every kernel are zeroed just
+    before each run and read just after.  Returns the launches of the 10
+    kernel steps together and of the eval forward; raises if a check
+    fails."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import TRAIN_4K
+    from repro_torch.data.synthetic import lm_token_batch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import pseudo_voigt as pv
+    from repro_torch.launch.profile_serve import _busy_us
+    from repro_torch.launch.specs import (make_loss_for_shape,
+                                          make_train_step_fn)
+    from repro_torch.models.api import build_model
+    cfg = dataclasses.replace(get_config("gemma-7b"), n_layers=TRAIN_LAYERS)
+    api = build_model(cfg)
+    L = cfg.n_layers
+    shape = dataclasses.replace(TRAIN_4K, global_batch=1)
+    S = shape.seq_len
+    t0 = time.perf_counter()
+    params = api.init(seed=SEED, device=DEVICE, dtype=torch.float32)
+    step_fn, opt = make_train_step_fn(api, shape, lr=TRAIN_LR)
+    plain_step, _ = make_train_step_fn(api, shape, lr=TRAIN_LR,
+                                       use_kernel=False)
+    opt_state = opt.init(params)
+    gen = torch.Generator()
+    batches = []
+    for step in range(1, TRAIN_STEPS + 1):
+        gen.manual_seed(SEED + step)
+        batches.append(lm_token_batch(gen, shape.global_batch, S,
+                                      cfg.vocab_size, device=DEVICE))
+    _sync()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"training: gemma-7b (d_model={cfg.d_model}, {cfg.n_heads}x"
+          f"{cfg.resolved_head_dim} heads, d_ff={cfg.d_ff}, "
+          f"vocab={cfg.vocab_size}) layers={L} of 28, {n_params / 1e9:.3f} B "
+          f"params float32 masters, bf16 compute, adamw(lr={TRAIN_LR}, "
+          f"grad_clip_norm=1.0), batch {shape.global_batch} x seq {S}, "
+          f"remat per block; set-up {time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card; "
+          f"tf32 matmul={torch.backends.cuda.matmul.allow_tf32}", flush=True)
+
+    def zero_counts():
+        fa.reset_launch_counts()
+        pa.reset_launch_counts()
+        pv.reset_launch_counts()
+
+    def read_counts():
+        out = dict(fa.launch_counts)
+        out.update({k: v for k, v in pa.launch_counts.items() if v})
+        out.update({k: v for k, v in pv.launch_counts.items() if v})
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    # the plain path's step (use_kernel=False: the reference's chunked
+    # attention at S 4096) from the state and batch of the first kernel
+    # step, run first so that only one new state is ever held
+    zero_counts()
+    t0 = time.perf_counter()
+    new_p, new_s, m = plain_step(params, opt_state, batches[0])
+    _sync()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    plain_counts = read_counts()
+    loss_p, norm_p = float(m["loss"]), float(m["grad_norm"])
+    del new_p, new_s, m
+    torch.cuda.empty_cache()
+    if any(plain_counts.values()):
+        raise AssertionError(f"the plain step launched kernels: "
+                             f"{plain_counts}")
+    # the same state and batch in float32 (printed, not gated): how far
+    # the bf16 gradient norm is from the float32 one before any training
+    init_f32 = _loss_and_grad_norm(make_loss_for_shape(
+        api, shape, compute_dtype=torch.float32), params, batches[0])
+    torch.cuda.empty_cache()
+
+    want_step = {fa.B6: 0, fa.B6F: 2 * L, fa.B6_DQ: L, fa.B6_DKV: L}
+    losses, norms, times = [], [], []
+    totals = dict.fromkeys(want_step, 0)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for i, batch in enumerate(batches):
+        last = i == len(batches) - 1
+        if last:
+            prev = (params, opt_state)     # for the float32 check
+        zero_counts()
+        t0 = time.perf_counter()
+        if last:
+            with torch.profiler.profile(activities=acts) as prof:
+                params, opt_state, m = step_fn(params, opt_state, batch)
+                _sync()
+        else:
+            params, opt_state, m = step_fn(params, opt_state, batch)
+            _sync()
+        times.append(time.perf_counter() - t0)
+        counts = read_counts()
+        for k in totals:
+            totals[k] += counts.get(k, 0)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        print(f"training step {i + 1}: loss={losses[-1]:.6f} "
+              f"grad_norm={norms[-1]:.6f} wall_ms={times[-1] * 1e3:.2f}"
+              f"{' (profiled)' if last else ''} "
+              f"kernel_launches={json.dumps(counts)}", flush=True)
+        if counts != want_step:
+            raise AssertionError(f"step {i + 1} launches {counts} != "
+                                 f"{want_step} (2L B6f, L dq, L dk/dv)")
+        if not np.isfinite(losses[-1]):
+            raise AssertionError(f"loss not finite at step {i + 1}")
+    peak = torch.cuda.max_memory_allocated()
+    ms = statistics.median(times[1:-1]) * 1e3   # not the first, profiled
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = _busy_us(kernels) / 1e6
+    groups = {"flash attention": 0.0, "gemm": 0.0, "other": 0.0}
+    by_name = {}
+    for e in kernels:
+        ms_e = (e.time_range.end - e.time_range.start) / 1e3
+        groups[_group_train(e.name)] += ms_e
+        t = by_name.setdefault(e.name, [0.0, 0])
+        t[0] += ms_e
+        t[1] += 1
+    print(f"training: {TRAIN_STEPS} steps, median ms/step over steps "
+          f"2-{TRAIN_STEPS - 1}={ms:.2f} (steps: "
+          f"{', '.join(f'{t * 1e3:.1f}' for t in times)}), tokens/s="
+          f"{shape.global_batch * S / (ms / 1e3):.1f}, peak memory "
+          f"{peak / 2**30:.2f} GiB (max_memory_allocated); loss "
+          f"{losses[0]:.6f} -> {losses[-1]:.6f}", flush=True)
+    print(f"training profile (step {TRAIN_STEPS}): wall_ms="
+          f"{times[-1] * 1e3:.2f} device_busy_ms={busy * 1e3:.2f} "
+          f"idle_share={1 - busy / times[-1]:.4f} (of the profiled step; "
+          f"estimate for the unprofiled steps, this step's busy time over "
+          f"their median wall: {1 - busy * 1e3 / ms:.4f}) "
+          f"kernels={len(kernels)} "
+          + " ".join(f"{g.replace(' ', '_')}_ms={v:.2f}"
+                     for g, v in groups.items()), flush=True)
+    for name, (t_ms, n) in sorted(by_name.items(),
+                                  key=lambda kv: -kv[1][0])[:TOP_KERNELS]:
+        print(f"  {t_ms:9.3f} ms {n:5d} calls  {name[:100]}", flush=True)
+    print(f"training step 1 on the plain path (use_kernel=False): "
+          f"loss={loss_p:.6f} grad_norm={norm_p:.6f} wall_ms={plain_ms:.2f} "
+          f"kernel_launches={json.dumps(plain_counts)}; kernel path "
+          f"loss={losses[0]:.6f} grad_norm={norms[0]:.6f}; relative "
+          f"differences {abs(losses[0] - loss_p) / abs(loss_p):.3e}, "
+          f"{abs(norms[0] - norm_p) / norm_p:.3e} (rtol "
+          f"{TRAIN_LOSS_RTOL:g}, {TRAIN_GRAD_NORM_RTOL:g}); the kernel path "
+          f"in float32 from the same state: loss={init_f32[0]:.6f} "
+          f"grad_norm={init_f32[1]:.6f} (not gated)", flush=True)
+    if not (abs(losses[0] - loss_p) <= TRAIN_LOSS_RTOL * abs(loss_p)
+            and abs(norms[0] - norm_p) <= TRAIN_GRAD_NORM_RTOL * norm_p):
+        raise AssertionError("the kernel step disagrees with the plain one")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses}")
+
+    # the state and batch of the last step again: the kernel path against
+    # the plain path in float32, and the plain path in bf16 beside the
+    # kernel step's own bf16 numbers (printed, not gated: see
+    # TRAIN_F32_RTOL)
+    del params, opt_state, m
+    params, _ = prev
+    del prev
+    torch.cuda.empty_cache()
+    redo = {}
+    for label, kw in (("kernel f32", {"compute_dtype": torch.float32}),
+                      ("plain f32", {"compute_dtype": torch.float32,
+                                     "use_kernel": False}),
+                      ("plain bf16", {"use_kernel": False})):
+        loss_fn = make_loss_for_shape(api, shape, **kw)
+        redo[label] = _loss_and_grad_norm(loss_fn, params, batches[-1])
+        torch.cuda.empty_cache()
+    print(f"training step {TRAIN_STEPS}'s state again: kernel bf16 (the "
+          f"step) loss={losses[-1]:.6f} grad_norm={norms[-1]:.6f}; "
+          + "; ".join(f"{k} loss={lv:.6f} grad_norm={nv:.6f}"
+                      for k, (lv, nv) in redo.items())
+          + f" (float32 paths to rtol {TRAIN_F32_RTOL:g})", flush=True)
+    (lk, nk), (lp, np_) = redo["kernel f32"], redo["plain f32"]
+    if not (abs(lk - lp) <= TRAIN_F32_RTOL * abs(lp)
+            and abs(nk - np_) <= TRAIN_F32_RTOL * np_):
+        raise AssertionError("in float32 the kernel path disagrees with "
+                             "the plain one")
+
+    # one no-grad eval forward: B6 once a layer
+    zero_counts()
+    with torch.no_grad():
+        logits, _ = api.forward(params, batches[-1]["tokens"],
+                                window=api.effective_window(S))
+        _sync()
+    counts = read_counts()
+    ok = (tuple(logits.shape) == (shape.global_batch, S, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()))
+    print(f"eval forward (no grad): logits {tuple(logits.shape)} finite={ok} "
+          f"kernel_launches={json.dumps(counts)}", flush=True)
+    want_eval = {fa.B6: L, fa.B6F: 0, fa.B6_DQ: 0, fa.B6_DKV: 0}
+    if counts != want_eval or not ok:
+        raise AssertionError(f"eval forward: launches {counts} != "
+                             f"{want_eval} or logits not finite")
+    return totals, counts
+
+
 def _sync() -> None:
     import torch
     if DEVICE == "cuda":
         torch.cuda.synchronize()
 
 
-# each kernel (csrc/<name>.cu) and the TPU kernel it replaces
-KERNELS = [("paged_attention_tiled", "paged_attention.py:373"),
-           ("paged_attention_ragged", "paged_attention.py:242"),
-           ("paged_attention_rows", "paged_attention.py:109"),
-           ("pseudo_voigt", "pseudo_voigt.py:81")]
+# each kernel, its source in csrc/ and the TPU kernel it replaces
+KERNELS = [("paged_attention_tiled", "paged_attention_tiled",
+            "paged_attention.py:373"),
+           ("paged_attention_ragged", "paged_attention_ragged",
+            "paged_attention.py:242"),
+           ("paged_attention_rows", "paged_attention_rows",
+            "paged_attention.py:109"),
+           ("pseudo_voigt", "pseudo_voigt", "pseudo_voigt.py:81"),
+           ("flash_attention", "flash_attention_fwd", "flash_attention.py:96"),
+           ("flash_attention_lse", "flash_attention_fwd",
+            "flash_attention.py:266"),
+           ("flash_attention_dq", "flash_attention_bwd",
+            "flash_attention.py:316"),
+           ("flash_attention_dkv", "flash_attention_bwd",
+            "flash_attention.py:337")]
 
 
 def main() -> None:
@@ -772,16 +1284,25 @@ def main() -> None:
     # 7. the paper's loop
     launches["pseudo_voigt"] = phase_paper_loop()
 
+    # 8. LM training: the flash-attention kernels against their plain
+    # versions (before any weights are loaded), then the training path
+    torch.cuda.empty_cache()
+    fa_checks = phase_flash_kernels()
+    train_launches, eval_launches = phase_training()
+    for name in fa_checks:
+        launches[name] = train_launches[name] or eval_launches[name]
+
     # each kernel's numbers at its main path's shapes
     numbers = {name: c["gemma-7b bf16"] for name, c in checks.items()}
     numbers["pseudo_voigt"] = pv_check
+    numbers.update(fa_checks)
     rows = []
-    for name, replaces in KERNELS:
+    for name, source, replaces in KERNELS:
         main_cfg = numbers[name]
         rows.append({
             "name": name,
             "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "source": f"src/repro_torch/kernels/csrc/{source}.cu",
             "replaces": f"src/repro/kernels/{replaces}",
             "launches": launches[name],
             "max_abs_err": main_cfg["max_abs_err"],

@@ -1,7 +1,8 @@
-"""Synthetic experiment data -- the paper's "S"(imulate) op.
+"""Synthetic experiment data -- the paper's "S"(imulate) op -- and
+synthetic LM token batches.
 
-The counterpart of ``repro/data/synthetic.py``, Bragg-peak patches only
-(CookieBox shots and LM token batches wait for their slices): pseudo-Voigt
+The counterpart of ``repro/data/synthetic.py``, Bragg-peak patches and LM
+batches (CookieBox shots wait for their slice): pseudo-Voigt
 peaks on a noisy background whose ground-truth centers play the role of
 physics; the conventional "A" op (``analysis/pseudo_voigt.py``) recovers
 them to label BraggNN's training data, the paper's pipeline.
@@ -55,3 +56,37 @@ def bragg_patches(generator: torch.Generator, n: int, patch: int = 11, *,
     img = img / torch.clamp(mx, min=1e-9)
     return {"patches": img[..., None],
             "centers": centers / (patch - 1)}
+
+
+# ---------------------------------------------------------------------------
+def lm_token_recurrence(start: torch.Tensor, noise: torch.Tensor,
+                        vocab: int) -> Dict[str, torch.Tensor]:
+    """The bigram recurrence of :func:`lm_token_batch` from its random
+    draws: start (B, 1) in [0, vocab) and noise (B, S) in {0, 1, 2} give
+    tokens x_{t+1} = (31 x_t + 7 + noise_t) mod vocab (B, S), x_0 = start
+    excluded, and the next-token labels, -1 at the last position.  Both
+    int64 on the draws' device."""
+    x = start[:, 0].long()
+    cols = []
+    for n in noise.long().unbind(dim=1):
+        x = (31 * x + 7 + n) % vocab
+        cols.append(x)
+    tokens = torch.stack(cols, dim=1)
+    labels = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
+    labels[:, -1] = -1                  # no target for the last position
+    return {"tokens": tokens, "labels": labels}
+
+
+def lm_token_batch(generator: torch.Generator, batch: int, seq: int,
+                   vocab: int, *, device="cuda") -> Dict[str, torch.Tensor]:
+    """Synthetic next-token LM batch with a learnable bigram structure:
+    {"tokens", "labels"} (batch, seq) int64 on ``device``.  The draws come
+    from ``generator`` (its own device) and the recurrence runs there;
+    a CPU generator keeps the sequential recurrence off the card."""
+    dev = resolve_device(device)
+    start = torch.randint(0, vocab, (batch, 1), generator=generator,
+                          device=generator.device)
+    noise = torch.randint(0, 3, (batch, seq), generator=generator,
+                          device=generator.device)
+    out = lm_token_recurrence(start, noise, vocab)
+    return {k: v.to(dev) for k, v in out.items()}

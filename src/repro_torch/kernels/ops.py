@@ -1,8 +1,8 @@
 """Dispatch between the port's kernels and their plain versions.
 
-The counterpart of the paged-attention and pseudo-Voigt parts of
-``repro/kernels/ops.py``.  With ``use_kernel=None`` the device of the
-input (``q``, ``patches``) decides: the CUDA kernel for
+The counterpart of the flash-attention, paged-attention and pseudo-Voigt
+parts of ``repro/kernels/ops.py``.  With ``use_kernel=None`` the device of
+the input (``q``, ``patches``) decides: the CUDA kernel for
 CUDA tensors, the plain PyTorch version for CPU tensors.
 ``use_kernel=False`` pins the plain version on either device (the
 comparison path of ``chip_smoke.py``); ``use_kernel=True`` on CPU tensors
@@ -14,18 +14,59 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import pseudo_voigt as _pv
 from repro_torch.kernels import ref as _ref
 
 
-def _resolve(q: torch.Tensor, use_kernel: Optional[bool]) -> bool:
+def resolve_use_kernel(q: torch.Tensor, use_kernel: Optional[bool]) -> bool:
+    """Whether a call on ``q`` runs the kernel: ``use_kernel``, or, when
+    it is None, whether ``q`` is on the card."""
     if use_kernel is None:
         return q.is_cuda
     if use_kernel and not q.is_cuda:
         raise ValueError("use_kernel=True needs CUDA tensors; the kernel "
                          "does not run on the CPU")
     return use_kernel
+
+
+def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True, window: int = 0,
+                         block_q: int = 128, block_kv: int = 128,
+                         use_kernel: Optional[bool] = None) -> torch.Tensor:
+    """Model-layout flash attention: q (B, S, H, D), k/v (B, S, Hkv, D) ->
+    (B, S, H, D), differentiable.
+
+    The kernel path runs :func:`flash_attention.flash_attention_trainable`
+    on transposed views (the kernels read the model layout in place and
+    mask their own ragged tail, so nothing is padded or copied).  The
+    plain path keeps the reference wrapper's padding of S up to a
+    multiple of ``block_q``/``block_kv`` with zero rows around
+    ``ref.attention_reference``; the block sizes shape only that padding.
+    Under the causal mask real queries never see the padded keys, so the
+    padding changes nothing; with ``causal=False`` they see them, as in
+    the reference wrapper (the kernel masks them: ROADMAP C).  The
+    reference's ``interpret`` flag has no counterpart: ``use_kernel``
+    chooses."""
+    if resolve_use_kernel(q, use_kernel):
+        out = _fa.flash_attention_trainable(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal,
+            window)
+        return out.transpose(1, 2)
+    B, S, H, D = q.shape
+    bq = min(block_q, max(16, S))
+    bkv = min(block_kv, max(16, S))
+    pad = (-S) % max(bq, bkv)
+    if pad:
+        zk = k.new_zeros((B, pad) + tuple(k.shape[2:]))
+        q = torch.cat([q, q.new_zeros((B, pad, H, D))], dim=1)
+        k = torch.cat([k, zk], dim=1)
+        v = torch.cat([v, zk], dim=1)
+    out = _ref.attention_reference(q.transpose(1, 2), k.transpose(1, 2),
+                                   v.transpose(1, 2), causal=causal,
+                                   window=window).transpose(1, 2)
+    return out[:, :S] if pad else out
 
 
 def paged_attention_ragged_tiled(q: torch.Tensor, k_pool: torch.Tensor,
@@ -42,7 +83,7 @@ def paged_attention_ragged_tiled(q: torch.Tensor, k_pool: torch.Tensor,
     through the TileMap arrays (``serving.batch.build_tile_map``): per-lane
     ``block_tables``, ``tile_meta`` (5, n_tiles) and ``row_tile`` (T,).
     Returns (T, H, D)."""
-    if _resolve(q, use_kernel):
+    if resolve_use_kernel(q, use_kernel):
         T, H, D = q.shape
         Hkv = k_pool.shape[2]
         out = _pa.paged_attention_ragged_tiled(
@@ -67,7 +108,7 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     squeeze = q.dim() == 4
     if squeeze:
         q = q[:, 0]
-    if _resolve(q, use_kernel):
+    if resolve_use_kernel(q, use_kernel):
         B, H, D = q.shape
         Hkv = k_pool.shape[2]
         out = _pa.paged_attention(
@@ -93,7 +134,7 @@ def paged_attention_chunk(q: torch.Tensor, k_pool: torch.Tensor,
     lane from absolute position ``q_starts[b]``, of which ``q_lens[b]``
     are real (padded rows are ignored by callers), causal inside the
     chunk.  Returns (B, C, H, D)."""
-    if _resolve(q, use_kernel):
+    if resolve_use_kernel(q, use_kernel):
         B, C, H, D = q.shape
         Hkv = k_pool.shape[2]
         out = _pa.paged_attention_chunk(
@@ -117,7 +158,7 @@ def paged_attention_ragged(q: torch.Tensor, k_pool: torch.Tensor,
     pools, ``token_tables`` (T, max_blocks) each token's lane's
     block-table row and ``token_pos`` (T,) its position (the causal
     bound).  Returns (T, H, D)."""
-    if _resolve(q, use_kernel):
+    if resolve_use_kernel(q, use_kernel):
         T, H, D = q.shape
         Hkv = k_pool.shape[2]
         out = _pa.paged_attention_ragged(
@@ -134,6 +175,6 @@ def pseudo_voigt_fit(patches: torch.Tensor, *, n_iter: int = 5,
     """patches (Np, ph, pw) -> (Np, 6) fits (y0, x0, gy, gx, Ay, Ax).  The
     kernel masks its own ragged tail, so unlike the reference's wrapper
     this pads nothing; any Np >= 0 is taken."""
-    if _resolve(patches, use_kernel):
+    if resolve_use_kernel(patches, use_kernel):
         return _pv.pseudo_voigt_fit(patches, n_iter=n_iter)
     return _ref.pseudo_voigt_reference(patches, n_iter)

@@ -1,5 +1,6 @@
-"""Plain PyTorch versions of the port's kernels: paged attention and the
-pseudo-Voigt Bragg-peak fit.
+"""Plain PyTorch versions of the port's kernels: flash attention (forward,
+forward with logsumexp, backward), paged attention and the pseudo-Voigt
+Bragg-peak fit.
 
 Each function is the mathematical specification its CUDA kernel must
 match; the port's tests hold it to the reference package's own oracle
@@ -7,9 +8,11 @@ match; the port's tests hold it to the reference package's own oracle
 the kernel to it on the card.  It is also the serving path for CPU
 tensors (``kernels/ops.py`` dispatches here by device).
 
-Dtype choices copy the reference: scores are contracted in the input
-dtype and then cast to float32, and the softmax weights are cast back to
-``q.dtype`` before the PV contraction.  Where the reference lets jnp
+The flash-attention versions compute in float32 from any input dtype, as
+the reference's ``attention_reference`` and ``_flash_bwd`` do.  For the
+paged reads, dtype choices copy the reference: scores are contracted in
+the input dtype and then cast to float32, and the softmax weights are
+cast back to ``q.dtype`` before the PV contraction.  Where the reference lets jnp
 promote mixed dtypes (an int8 pool dequantized to float32 against a bf16
 query), the port promotes explicitly, since torch contractions refuse
 mixed operands; the result is returned in ``q.dtype``, as the kernel
@@ -27,6 +30,96 @@ NEG_INF = -1e30
 # rows of the (5, n_tiles) int32 tile metadata shared by the kernel, this
 # oracle and serving.batch.TileMap
 TILE_WINDOW, TILE_LO, TILE_HI, TILE_POS0, TILE_LANE = range(5)
+
+
+# ---------------------------------------------------------------------------
+# flash attention: the forward (B6), the forward with logsumexp (B6f) and
+# the backward (B6b), all on (B, H, S, D) q and (B, Hkv, S, D) k/v
+# ---------------------------------------------------------------------------
+def _band_mask(S: int, causal: bool, window: int,
+               device: torch.device) -> torch.Tensor:
+    """(S, S) bool: key ``s`` is visible to query ``q``."""
+    qpos = torch.arange(S, device=device)[:, None]
+    kpos = torch.arange(S, device=device)[None, :]
+    mask = torch.ones((S, S), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kpos <= qpos
+    if window:
+        mask &= (qpos - kpos) < window
+    return mask
+
+
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            causal: bool, window: int, with_lse: bool):
+    B, H, S, D = q.shape
+    Hkv = k.shape[1]
+    qg = q.reshape(B, Hkv, H // Hkv, S, D).to(torch.float32)
+    s = torch.einsum("bkgqd,bksd->bkgqs", qg, k.to(torch.float32))
+    s = s / (D ** 0.5)
+    s = torch.where(_band_mask(S, causal, window, q.device), s,
+                    torch.tensor(NEG_INF, dtype=s.dtype, device=s.device))
+    w = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqs,bksd->bkgqd", w, v.to(torch.float32))
+    out = out.reshape(B, H, S, D).to(q.dtype)
+    if not with_lse:
+        return out
+    return out, torch.logsumexp(s, dim=-1).reshape(B, H, S)
+
+
+def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: int = 0
+                        ) -> torch.Tensor:
+    """q (B, H, S, D), k/v (B, Hkv, S, D) -> (B, H, S, D) in ``q.dtype``:
+    plain masked softmax in float32, query head h reading kv head
+    ``h // (H // Hkv)``.  The plain version of B6."""
+    return _attend(q, k, v, causal, window, False)
+
+
+def attention_lse_reference(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, *, causal: bool = True,
+                            window: int = 0
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`attention_reference` and the logsumexp of every query's
+    masked scores, (B, H, S) float32.  The plain version of B6f."""
+    return _attend(q, k, v, causal, window, True)
+
+
+def attention_bwd_reference(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, o: torch.Tensor,
+                            lse: torch.Tensor, do: torch.Tensor, *,
+                            causal: bool = True, window: int = 0
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """(dq, dk, dv) of attention from the forward's output ``o`` and
+    logsumexp ``lse`` and the output's gradient ``do``, in the dtypes of
+    q, k and v: the arithmetic of the reference's ``_flash_bwd`` (all in
+    float32; ``delta = sum(do * o)`` per query; scores scaled after the
+    contraction; ``p = exp(s - lse)`` inside the mask, else 0;
+    ``ds = p * (dp - delta) * scale``), with dk and dv summed over the G
+    query heads of each kv head.  The plain version of B6b.  One kv head
+    at a time, so the (B, G, S, S) intermediates bound its memory."""
+    B, H, S, D = q.shape
+    Hkv = k.shape[1]
+    G = H // Hkv
+    scale = 1.0 / (D ** 0.5)
+    f32 = torch.float32
+    delta = (do.to(f32) * o.to(f32)).sum(dim=-1)              # (B, H, S)
+    mask = _band_mask(S, causal, window, q.device)
+    dq = torch.empty(q.shape, dtype=f32, device=q.device)
+    dk = torch.empty(k.shape, dtype=f32, device=q.device)
+    dv = torch.empty(v.shape, dtype=f32, device=q.device)
+    for kh in range(Hkv):
+        hs = slice(kh * G, (kh + 1) * G)
+        qh, doh = q[:, hs].to(f32), do[:, hs].to(f32)         # (B, G, S, D)
+        kk, vv = k[:, kh].to(f32), v[:, kh].to(f32)           # (B, S, D)
+        s = torch.einsum("bgqd,bsd->bgqs", qh, kk) * scale
+        p = torch.where(mask, torch.exp(s - lse[:, hs, :, None]), 0.0)
+        dp = torch.einsum("bgqd,bsd->bgqs", doh, vv)
+        ds = p * (dp - delta[:, hs, :, None]) * scale
+        dq[:, hs] = torch.einsum("bgqs,bsd->bgqd", ds, kk)
+        dk[:, kh] = torch.einsum("bgqs,bgqd->bsd", ds, qh)
+        dv[:, kh] = torch.einsum("bgqs,bgqd->bsd", p, doh)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _apply_block_scales(spans: torch.Tensor, scale_pool: torch.Tensor,

@@ -1,0 +1,59 @@
+"""Step functions of the port's training path: the counterpart of
+``make_loss_for_shape`` and ``make_train_step_fn`` in
+``repro/launch/specs.py``.
+
+The reference's abstract input specs and its AOT/HLO step builders read
+XLA's ahead-of-time compilation and have no counterpart here yet (ROADMAP
+A10).  Options that the reference does not have (``compute_dtype``,
+``use_kernel``) pass through ``**model_kw`` to the model's loss.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Tuple
+
+import torch
+
+from repro_torch.configs.shapes import InputShape
+from repro_torch.models.api import ModelAPI
+from repro_torch.models.common import cast_weights
+from repro_torch.optim import Optimizer, adamw
+from repro_torch.train.trainer import make_train_step
+
+
+def make_loss_for_shape(api: ModelAPI, shape: InputShape, *,
+                        attn_chunk: int = 512, remat: bool = True,
+                        **model_kw) -> Callable:
+    """loss(params, batch) -> (loss, metrics) at the attention window
+    that ``shape``'s sequence length gives the arch."""
+    kwargs: Dict[str, Any] = dict(window=api.effective_window(shape.seq_len),
+                                  attn_chunk=attn_chunk, remat=remat,
+                                  **model_kw)
+
+    def loss(params, batch):
+        return api.loss(params, batch, **kwargs)
+
+    return loss
+
+
+def _bf16(tree):
+    """Every float leaf cast to bfloat16, differentiably: the reference's
+    per-step bf16 gather of the master weights, without its sharding
+    constraint (one card)."""
+    return cast_weights(tree, torch.bfloat16, keep_norms=False)
+
+
+def make_train_step_fn(api: ModelAPI, shape: InputShape, *,
+                       lr: float = 1e-4, attn_chunk: int = 512,
+                       remat: bool = True, pre_gather: bool = False,
+                       **model_kw) -> Tuple[Callable, Optimizer]:
+    """(train_step, opt): train_step(params, opt_state, batch) ->
+    (params, opt_state, metrics) with ``adamw(lr, grad_clip_norm=1.0)``;
+    metrics hold the loss's metrics, ``loss`` and ``grad_norm``."""
+    loss = make_loss_for_shape(api, shape, attn_chunk=attn_chunk,
+                               remat=remat, **model_kw)
+    opt = adamw(lr, grad_clip_norm=1.0)
+
+    def loss_of(p, b):
+        return loss(_bf16(p) if pre_gather else p, b)
+
+    return make_train_step(loss_of, opt), opt

@@ -3,6 +3,9 @@
 
 ``build_model(cfg)`` returns a :class:`ModelAPI` with:
   * ``init(seed=0, device="cuda", dtype=torch.bfloat16)`` -> params
+    (``dtype=torch.float32`` for training masters);
+  * ``loss(params, batch, **kw)`` -> (loss, metrics) and
+    ``forward(params, tokens, **kw)`` -> (logits, aux): the training path;
   * ``init_cache(batch, cache_len, **kw)`` / ``decode_step`` — the
     dense-slot decode path (the oracle of the paged engine);
   * ``init_paged_cache(n_lanes, **kw)`` / ``paged_step`` — the
@@ -28,6 +31,8 @@ LONG_CONTEXT_THRESHOLD = 65_536
 class ModelAPI:
     cfg: ArchConfig
     init: Callable[..., Any]
+    loss: Callable[..., Tuple[Any, Any]]
+    forward: Callable[..., Tuple[Any, Any]]
     init_cache: Callable[..., Any]
     decode_step: Callable[..., Tuple[Any, Any]]
     init_paged_cache: Optional[Callable[..., Any]] = None
@@ -72,6 +77,8 @@ def build_model(cfg: ArchConfig) -> ModelAPI:
     return ModelAPI(
         cfg=cfg,
         init=lambda **kw: transformer.init_params(cfg, **kw),
+        loss=lambda p, b, **kw: transformer.loss_fn(p, b, cfg, **kw),
+        forward=lambda p, t, **kw: transformer.forward(p, t, cfg, **kw),
         init_cache=lambda b, n, **kw: transformer.init_cache(cfg, b, n,
                                                              **kw),
         decode_step=lambda p, c, t, **kw: transformer.decode_step(

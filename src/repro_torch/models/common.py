@@ -1,10 +1,13 @@
-"""Shared model utilities: initializers, norms, activations, RoPE.
+"""Shared model utilities: initializers, norms, activations, RoPE, and
+the cast of float32 master weights to the compute dtype.
 
 The counterpart of ``repro/models/common.py``.  Parameters are plain
-dicts of tensors.  Unlike the reference, which keeps float32 masters and
-casts them on every call, the port stores each weight once in the
-compute dtype; norm scales and biases stay float32, since norms are
-computed in float32 as in the reference.
+dicts of tensors.  The reference keeps float32 masters and casts them
+inside every contraction.  The port's layer functions expect weights
+already in the compute dtype: the serving paths store each weight once
+in it, and the training forward casts float32 masters once per call
+(:func:`cast_weights`).  Norm parameters stay float32 either way, since
+norms are computed in float32 as in the reference.
 """
 from __future__ import annotations
 
@@ -50,6 +53,28 @@ def norm_params(kind: str, d: int, use_bias: bool, *, n: int,
     if kind != "rmsnorm" and use_bias:
         p["bias"] = torch.zeros((n, d), dtype=torch.float32, device=device)
     return p
+
+
+def is_norm_key(key: str) -> bool:
+    """Norm parameters (``attn_norm``, ``final_norm``, ``q_norm_scale``
+    ...), which stay float32 whatever the compute dtype."""
+    return key.endswith(("norm", "norm_scale"))
+
+
+def cast_weights(tree: Dict, dtype: torch.dtype, *,
+                 keep_norms: bool = True) -> Dict:
+    """Every float leaf (outside the norms, with ``keep_norms``) cast to
+    ``dtype`` with a differentiable ``.to`` (a leaf already in ``dtype``
+    is returned as is), so gradients reach the masters."""
+    def conv(node, is_norm: bool):
+        if isinstance(node, dict):
+            return {k: conv(v, is_norm or (keep_norms and is_norm_key(k)))
+                    for k, v in node.items()}
+        if is_norm or not node.is_floating_point():
+            return node
+        return node.to(dtype)
+
+    return conv(tree, False)
 
 
 # ---------------------------------------------------------------------------

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.models.common import is_norm_key
 
 
 def from_reference_params(tree: Dict[str, Any], *, device="cuda",
@@ -22,8 +23,9 @@ def from_reference_params(tree: Dict[str, Any], *, device="cuda",
                           ) -> Dict[str, Any]:
     """Convert the reference's parameter pytree (nested dicts of numpy
     arrays) into tensors on ``device``.  Weights and biases take ``dtype``
-    (the compute dtype); norm parameters (any key ending in ``norm`` or
-    ``norm_scale``) stay float32, as the port's own ``init_params`` keeps them.
+    (the compute dtype, or float32 for training masters); norm parameters
+    (``common.is_norm_key``) stay float32, as the port's own
+    ``init_params`` keeps them.
     The layer-stacked ``blocks`` layout (leading layer axis) is kept."""
     if "head_blocks" in tree:
         raise NotImplementedError(
@@ -33,7 +35,7 @@ def from_reference_params(tree: Dict[str, Any], *, device="cuda",
 
     def conv(node, is_norm: bool):
         if isinstance(node, dict):
-            return {k: conv(v, is_norm or k.endswith(("norm", "norm_scale")))
+            return {k: conv(v, is_norm or is_norm_key(k))
                     for k, v in node.items()}
         arr = np.asarray(node)
         return torch.from_numpy(np.array(arr, copy=True)).to(

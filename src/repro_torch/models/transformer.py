@@ -1,11 +1,12 @@
-"""Decoder-only transformer LM (dense family): parameters, the dense-slot
-decode step and the paged serving steps (rectangular ``paged_step`` and
-flat-token ``ragged_step``).
+"""Decoder-only transformer LM (dense family): parameters, the training
+forward and loss, the dense-slot decode step and the paged serving steps
+(rectangular ``paged_step`` and flat-token ``ragged_step``).
 
 The counterpart of ``repro/models/transformer.py``.  Parameters keep the
 reference's layer-stacked layout (every leaf of ``params["blocks"]`` has a
 leading layer axis), but the port runs eagerly: a Python loop over layers
-takes the place of ``lax.scan``, and the KV pools are one
+takes the place of ``lax.scan`` (and ``torch.utils.checkpoint`` per block
+that of ``jax.checkpoint``), and the KV pools are one
 ``(L, num_blocks, bs, Hkv, D)`` tensor per leaf, updated in place through
 per-layer views instead of being rebuilt and donated every step.
 """
@@ -14,12 +15,13 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers
-from repro_torch.models.common import (apply_norm, dense_init_, embed_init_,
-                                       fan_in_std, norm_params)
+from repro_torch.models.common import (apply_norm, cast_weights, dense_init_,
+                                       embed_init_, fan_in_std, norm_params)
 
 
 # ---------------------------------------------------------------------------
@@ -124,6 +126,94 @@ def _mlp_residual(bp: Dict, x: torch.Tensor, xn: torch.Tensor,
     x = x + attn
     xm = apply_norm(cfg.norm_type, bp["mlp_norm"], x)
     return x + layers.apply_mlp(bp["mlp"], xm, cfg)
+
+
+# ---------------------------------------------------------------------------
+# Forward (train / prefill) and loss
+# ---------------------------------------------------------------------------
+def _apply_block(bp: Dict, x: torch.Tensor, positions: torch.Tensor,
+                 cfg: ArchConfig, *, window: int, attn_chunk: int = 512,
+                 use_kernel: Optional[bool] = None) -> torch.Tensor:
+    """One layer over x (B, S, d): norm -> QKV (RoPE at ``positions``) ->
+    causal attention -> out projection -> MLP."""
+    xn = apply_norm(cfg.norm_type, bp["attn_norm"], x)
+    q, k, v = layers.project_qkv(bp["attn"], xn, positions, cfg)
+    attn = layers.causal_attention(q, k, v, window=window, chunk=attn_chunk,
+                                   use_kernel=use_kernel)
+    attn = layers.project_out(bp["attn"], attn, cfg)
+    return _mlp_residual(bp, x, xn, attn, cfg)
+
+
+def forward(params: Dict, tokens: torch.Tensor, cfg: ArchConfig, *,
+            window: int = 0, compute_dtype: torch.dtype = torch.bfloat16,
+            attn_chunk: int = 512, remat: bool = True,
+            use_kernel: Optional[bool] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens (B, S) -> (logits (B, S, V) float32, aux scalar): the
+    training and prefill forward.
+
+    Every float leaf of ``params`` but the norms is cast to
+    ``compute_dtype`` once per call, differentiably, so float32 masters
+    train as the reference's do (a leaf already in ``compute_dtype`` is
+    used as is).  With ``remat`` each block runs under non-reentrant
+    ``torch.utils.checkpoint`` when autograd records, so the backward
+    pass recomputes its insides.  Attention follows
+    ``layers.causal_attention``'s ``use_kernel`` rule.  The dense family
+    has no auxiliary loss: aux is 0, kept for the reference's signature."""
+    _check_family(cfg)
+    p = cast_weights(params, compute_dtype)
+    x = _embed(p, tokens, cfg)
+    positions = torch.arange(x.shape[1], device=x.device)
+
+    def block(bp, x_):
+        return _apply_block(bp, x_, positions, cfg, window=window,
+                            attn_chunk=attn_chunk, use_kernel=use_kernel)
+
+    for l in range(cfg.n_layers):
+        bp = layer_params(p["blocks"], l)
+        if remat and torch.is_grad_enabled():
+            x = checkpoint(block, bp, x, use_reentrant=False)
+        else:
+            x = block(bp, x)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return _finish(p, x, cfg), aux
+
+
+def lm_loss(logits: torch.Tensor, labels: torch.Tensor,
+            aux: Optional[torch.Tensor] = None, aux_weight: float = 0.0,
+            z_loss: float = 1e-4) -> Tuple[torch.Tensor, Dict]:
+    """Cross-entropy with label -1 = ignore, plus the z-loss
+    ``z_loss * mean(logsumexp^2)`` over the kept positions.  logits
+    (B, S, V) float32.  Returns (loss, {"ce", "z_loss", "tokens"})."""
+    mask = (labels >= 0).to(torch.float32)
+    labels_c = torch.clamp(labels, min=0).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels_c[..., None])[..., 0]
+    nll = (logz - gold) * mask
+    denom = torch.clamp(mask.sum(), min=1.0)
+    ce = nll.sum() / denom
+    zl = z_loss * ((logz * mask) ** 2).sum() / denom
+    loss = ce + zl
+    metrics = {"ce": ce, "z_loss": zl, "tokens": mask.sum()}
+    if aux is not None and aux_weight:
+        loss = loss + aux_weight * aux
+        metrics["moe_aux"] = aux
+    return loss, metrics
+
+
+def loss_fn(params: Dict, batch: Dict, cfg: ArchConfig, *, window: int = 0,
+            attn_chunk: int = 512, remat: bool = True,
+            compute_dtype: torch.dtype = torch.bfloat16,
+            use_kernel: Optional[bool] = None) -> Tuple[torch.Tensor, Dict]:
+    """:func:`forward` on ``batch["tokens"]`` then :func:`lm_loss` against
+    ``batch["labels"]``.  The reference always computes in bfloat16 here;
+    ``compute_dtype`` lets a float32 run compare against its float32
+    forward."""
+    logits, aux = forward(params, batch["tokens"], cfg, window=window,
+                          compute_dtype=compute_dtype,
+                          attn_chunk=attn_chunk, remat=remat,
+                          use_kernel=use_kernel)
+    return lm_loss(logits, batch["labels"], aux, 0.0)
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,5 @@
-"""Optimizers of the port (functional, over dicts of tensors)."""
+"""Optimizers of the port (functional, over dicts of tensors) and
+learning-rate schedules."""
 from repro_torch.optim.optimizers import (  # noqa: F401
     Optimizer,
     adafactor,
@@ -7,3 +8,4 @@ from repro_torch.optim.optimizers import (  # noqa: F401
     global_norm,
     sgd,
 )
+from repro_torch.optim import schedules  # noqa: F401,E402

@@ -3,8 +3,9 @@
 The counterpart of ``repro/train/trainer.py``.  PyTorch runs eagerly, so
 the step is a plain function: gradients come from ``torch.autograd.grad``
 over the parameter leaves, and the optimizer's functional ``update``
-returns the new parameters.  Checkpointing (``train/checkpoint.py``) is
-not ported yet.
+returns the new parameters.  ``fit`` checkpoints parameters and
+optimizer state through ``train/checkpoint.py``, in the reference's
+on-disk format.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ import torch
 
 from repro_torch.optim.optimizers import (Optimizer, global_norm, tree_leaves,
                                           tree_map)
+from repro_torch.train import checkpoint as ckpt_lib
 
 Tree = Any
 
@@ -82,11 +84,13 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer, *,
 # ---------------------------------------------------------------------------
 @dataclasses.dataclass
 class TrainerConfig:
-    """Loop settings.  Checkpointing is not ported yet: ``fit`` refuses a
-    ``ckpt_dir`` (the reference's ``ckpt_every`` comes with it)."""
+    """Loop settings: with a ``ckpt_dir``, ``fit`` saves {"params",
+    "opt_state"} every ``ckpt_every`` steps (0: only the final step) and
+    at the end."""
 
     steps: int = 100
     log_every: int = 10
+    ckpt_every: int = 0            # 0 = only final
     ckpt_dir: Optional[str] = None
     grad_accum: int = 1
 
@@ -97,10 +101,6 @@ def fit(loss_fn: Callable, optimizer: Optimizer, params: Tree,
     """Run the loop; returns the final state and the metric history:
     ``loss`` and ``step_time`` as (step, value) pairs at step 1, every
     ``log_every`` steps and the last step, and the loop's ``wall_time``."""
-    if cfg.ckpt_dir:
-        raise NotImplementedError(
-            "checkpointing is not ported yet (train/checkpoint.py, ROADMAP "
-            "A7)")
     step_fn = make_train_step(loss_fn, optimizer, grad_accum=cfg.grad_accum)
     opt_state = optimizer.init(params)
     history: Dict[str, list] = {"loss": [], "step_time": []}
@@ -117,6 +117,14 @@ def fit(loss_fn: Callable, optimizer: Optimizer, params: Tree,
             history["step_time"].append((step, dt))
             for cb in callbacks:
                 cb(step, metrics)
+        if (cfg.ckpt_dir and cfg.ckpt_every
+                and step % cfg.ckpt_every == 0):
+            ckpt_lib.save_checkpoint(cfg.ckpt_dir, step,
+                                     {"params": params,
+                                      "opt_state": opt_state})
 
+    if cfg.ckpt_dir:
+        ckpt_lib.save_checkpoint(cfg.ckpt_dir, cfg.steps,
+                                 {"params": params, "opt_state": opt_state})
     history["wall_time"] = time.perf_counter() - t_wall
     return TrainState(params, opt_state, cfg.steps), history

@@ -83,6 +83,7 @@ def test_kernel_build_needs_nvcc_and_is_keyed_by_source(monkeypatch,
     """A build without the CUDA toolkit fails with a clear error; the
     library is named by its source and flags, so an edit rebuilds."""
     from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import pseudo_voigt as pv
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
@@ -94,24 +95,29 @@ def test_kernel_build_needs_nvcc_and_is_keyed_by_source(monkeypatch,
     assert path.name.startswith(pa.TILED + "-")
     monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-G",))
     assert _build.library_path(pa.TILED) != path
-    assert set(_build.sources()) == {pa.TILED, pa.RAGGED, pa.ROWS, pv.PV}
+    assert set(_build.sources()) == {pa.TILED, pa.RAGGED, pa.ROWS, pv.PV,
+                                     fa.FWD, fa.BWD}
 
 
 def test_kernel_build_key_covers_shared_headers(monkeypatch, tmp_path):
-    """The paged-attention kernels include the shared header: editing it
-    changes every library path, so no stale library is reused."""
+    """The paged-attention kernels include their shared header and the
+    flash-attention kernels theirs: editing either changes every library
+    path, so no stale library is reused."""
     import shutil
     from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, csrc)
     monkeypatch.setattr(_build, "CSRC", csrc)
     names = _build.sources()
-    before = {n: _build.library_path(n) for n in names}
-    headers = sorted(csrc.glob("*.cuh"))
-    assert headers and all(
-        f'#include "{headers[0].name}"' in (csrc / f"{n}.cu").read_text()
-        for n in (pa.TILED, pa.RAGGED, pa.ROWS))
-    headers[0].write_text(headers[0].read_text() + "\n// edited\n")
-    after = {n: _build.library_path(n) for n in names}
-    assert all(after[n] != before[n] for n in names)
+    for header, users in (("paged_attention_common.cuh",
+                           (pa.TILED, pa.RAGGED, pa.ROWS)),
+                          ("flash_attention_common.cuh", (fa.FWD, fa.BWD))):
+        assert all(f'#include "{header}"' in (csrc / f"{n}.cu").read_text()
+                   for n in users)
+        before = {n: _build.library_path(n) for n in names}
+        (csrc / header).write_text((csrc / header).read_text()
+                                   + "\n// edited\n")
+        after = {n: _build.library_path(n) for n in names}
+        assert all(after[n] != before[n] for n in names)

@@ -1,0 +1,383 @@
+"""The port's LM training path against the reference's, on the CPU: the
+training forward, ``lm_loss``, parameter gradients, AdamW train steps,
+the learning-rate schedules, the synthetic token batches, checkpoints
+across the two packages and the training launcher.
+
+Parameters come from the reference's ``init`` and are carried across by
+``from_reference_params`` in float32; token batches are made with numpy
+from a seed and fed to both packages.  The reference's ``loss_fn`` and
+``make_train_step_fn`` always compute in bfloat16, so the float32
+comparisons compose the reference's ``forward(compute_dtype=float32)``
+with its ``lm_loss``, ``adamw(lr, grad_clip_norm=1.0)`` and
+``global_norm``, and the port runs ``compute_dtype=torch.float32``.
+Tolerances (float32 contractions summed in other orders over two layers
+and a 512-way softmax): logits and losses ``rtol = 1e-5, atol = 1e-5``,
+gradients ``rtol = 1e-3, atol = 1e-6``; a train step's loss and gradient
+norm at 1e-5 and its AdamW moments at 1e-3 relative.  The updated
+parameters are not compared elementwise: at step 1 Adam moves a weight
+by about lr * sign(g), so a gradient at rounding level may flip a weight
+by 2 * lr between frameworks (``test_torch_paper_loop.py`` holds one
+update from identical gradients exactly); a 5-step loss curve is held
+at ``rtol = 1e-4``.  bfloat16 losses agree to ``rtol = 1e-2``.
+"""
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.configs.shapes import TRAIN_4K, InputShape, smoke_shape
+from repro_torch.data.synthetic import lm_token_batch, lm_token_recurrence
+from repro_torch.launch import specs
+from repro_torch.launch import train as train_launcher
+from repro_torch.models import transformer as tf
+from repro_torch.models.api import build_model
+from repro_torch.models.convert import from_reference_params
+from repro_torch.optim import schedules
+from repro_torch.optim.optimizers import tree_leaves
+from repro_torch.train import checkpoint as ck
+
+ARCHS = ["gemma-7b", "starcoder2-7b"]   # MHA; GQA G = 4 with a window
+B, S = 2, 80                             # S past starcoder2 smoke's window
+LR = 1e-3
+SHAPE = InputShape("test_train", S, B, "train")
+
+jax = pytest.importorskip("jax")
+jnp = pytest.importorskip("jax.numpy")
+
+
+@pytest.fixture(scope="module")
+def models():
+    """Per arch: the reference's config, API, float32 params and a jitted
+    float32 (loss, (metrics, logits)) value-and-grad; the port's API and
+    the same params."""
+    from repro.configs import get_config as jax_get_config
+    from repro.models import build_model as jax_build_model
+    from repro.models import transformer as jtf
+    out = {}
+    for arch in ARCHS:
+        jcfg = jax_get_config(arch).smoke_variant()
+        japi = jax_build_model(jcfg)
+        jparams = japi.init(jax.random.PRNGKey(0))
+        window = japi.effective_window(S)
+
+        def loss32(p, b, jcfg=jcfg, window=window):
+            logits, aux = jtf.forward(p, b["tokens"], jcfg, window=window,
+                                      compute_dtype=jnp.float32)
+            loss, metrics = jtf.lm_loss(logits, b["labels"], aux, 0.0)
+            return loss, (metrics, logits)
+
+        api = build_model(get_config(arch).smoke_variant())
+        out[arch] = dict(
+            jcfg=jcfg, japi=japi, jparams=jparams, window=window,
+            vg=jax.jit(jax.value_and_grad(loss32, has_aux=True)), api=api,
+            tparams=_port_params(jparams))
+    return out
+
+
+def _port_params(jparams):
+    return from_reference_params(jax.tree.map(np.asarray, jparams),
+                                 device="cpu", dtype=torch.float32)
+
+
+def _np_batch(seed, vocab, ignore=()):
+    """A bigram token batch (the synthetic recurrence over numpy draws),
+    labels -1 at the last position and at ``ignore`` (b, s) positions."""
+    rng = np.random.default_rng(seed)
+    start = rng.integers(0, vocab, (B, 1))
+    noise = rng.integers(0, 3, (B, S))
+    out = lm_token_recurrence(torch.from_numpy(start),
+                              torch.from_numpy(noise), vocab)
+    for b, s in ignore:
+        out["labels"][b, s] = -1
+    return {k: v.numpy().astype(np.int32) for k, v in out.items()}
+
+
+def _jb(batch):
+    return {k: jnp.asarray(v) for k, v in batch.items()}
+
+
+def _tb(batch):
+    return {k: torch.from_numpy(v).long() for k, v in batch.items()}
+
+
+def _flat(tree, prefix=""):
+    """{path: leaf} of nested dicts."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat(v, f"{prefix}{k}/"))
+        return out
+    return {prefix[:-1]: tree}
+
+
+def _grads(loss_fn, params, batch):
+    """(loss, metrics, {path: grad}) of the port's loss."""
+    flat = _flat(params)
+    leaves = {k: v.clone().requires_grad_(True) for k, v in flat.items()}
+
+    def unflat(tree, prefix=""):
+        return {k: unflat(v, f"{prefix}{k}/") if isinstance(v, dict)
+                else leaves[f"{prefix}{k}"] for k, v in tree.items()}
+
+    loss, metrics = loss_fn(unflat(params), batch)
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    return loss, metrics, dict(zip(leaves, grads))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_forward_loss_and_grads_match_reference(models, arch):
+    """float32 logits, lm_loss (labels -1 ignored, z-loss) and the
+    gradient of every parameter."""
+    m = models[arch]
+    cfg = m["api"].cfg
+    batch = _np_batch(0, cfg.vocab_size, ignore=[(0, 3), (1, 0), (1, 40)])
+    (jloss, (jmet, jlogits)), jgrads = m["vg"](m["jparams"], _jb(batch))
+    tb = _tb(batch)
+    logits, aux = tf.forward(m["tparams"], tb["tokens"], cfg,
+                             window=m["window"], compute_dtype=torch.float32)
+    assert logits.shape == (B, S, cfg.vocab_size)
+    assert logits.dtype == torch.float32 and float(aux) == 0.0
+    np.testing.assert_allclose(logits.detach().numpy(), np.asarray(jlogits),
+                               rtol=1e-5, atol=1e-5)
+    loss, met = tf.lm_loss(logits, tb["labels"])
+    np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
+    for k in ("ce", "z_loss", "tokens"):
+        np.testing.assert_allclose(float(met[k]), float(jmet[k]), rtol=1e-5)
+    assert float(met["tokens"]) == B * S - B - 3
+    loss2, _, grads = _grads(
+        lambda p, b: m["api"].loss(p, b, window=m["window"],
+                                   compute_dtype=torch.float32),
+        m["tparams"], tb)
+    np.testing.assert_allclose(float(loss2.detach()), float(jloss), rtol=1e-5)
+    want = {k: np.asarray(v) for k, v in _flat(jgrads).items()}
+    assert set(want) == set(grads)
+    for k, g in grads.items():
+        np.testing.assert_allclose(g.numpy(), want[k], rtol=1e-3, atol=1e-6,
+                                   err_msg=k)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_train_steps_match_reference(models, arch):
+    """One ``make_train_step_fn`` step (loss, grad_norm, AdamW moments)
+    and a 5-step loss curve on identical batches."""
+    from repro.optim import adamw as jadamw
+    from repro.optim import global_norm as jglobal_norm
+    m = models[arch]
+    cfg = m["api"].cfg
+    step_fn, opt = specs.make_train_step_fn(m["api"], SHAPE, lr=LR,
+                                            compute_dtype=torch.float32)
+    jopt = jadamw(LR, grad_clip_norm=1.0)
+    tparams, tstate = m["tparams"], opt.init(m["tparams"])
+    jparams, jstate = m["jparams"], jopt.init(m["jparams"])
+    t_losses, j_losses = [], []
+    for i in range(5):
+        batch = _np_batch(10 + i, cfg.vocab_size)
+        (jl, _), jg = m["vg"](jparams, _jb(batch))
+        jparams, jstate = jopt.update(jg, jstate, jparams)
+        tparams, tstate, met = step_fn(tparams, tstate, _tb(batch))
+        t_losses.append(float(met["loss"]))
+        j_losses.append(float(jl))
+        if i == 0:
+            np.testing.assert_allclose(float(met["grad_norm"]),
+                                       float(jglobal_norm(jg)), rtol=1e-5)
+            np.testing.assert_allclose(t_losses[0], j_losses[0], rtol=1e-5)
+            assert int(tstate["step"]) == 1
+            for name in ("m", "v"):
+                want = _flat(jax.tree.map(np.asarray, jstate[name]))
+                got = _flat(tstate[name])
+                assert set(got) == set(want)
+                for k, g in got.items():
+                    scale = np.abs(want[k]).max()
+                    np.testing.assert_allclose(g.numpy(), want[k],
+                                               atol=1e-3 * scale + 1e-12,
+                                               err_msg=(name, k))
+            moved = max(float((a - b).abs().max()) for a, b in zip(
+                tree_leaves(tparams), tree_leaves(m["tparams"])))
+            assert moved <= 2 * LR
+    np.testing.assert_allclose(t_losses, j_losses, rtol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_bf16_loss_and_train_step_match_reference(models, arch):
+    """The reference's bfloat16 ``loss_fn`` and ``make_train_step_fn``
+    (pre_gather off and on) against the port's defaults from the same
+    float32 masters: bfloat16 rounds at other places in the two
+    frameworks, so losses agree to 1e-2 and gradient norms to 5e-2."""
+    from repro.configs.shapes import InputShape as JShape
+    from repro.launch import specs as jspecs
+    m = models[arch]
+    batch = _np_batch(30, m["api"].cfg.vocab_size)
+    jloss, _ = m["japi"].loss(m["jparams"], _jb(batch), window=m["window"])
+    tloss, _ = m["api"].loss(m["tparams"], _tb(batch), window=m["window"])
+    np.testing.assert_allclose(float(tloss), float(jloss), rtol=1e-2)
+    jshape = JShape("test_train", S, B, "train")
+    for pre_gather in (False, True):
+        jstep, jopt = jspecs.make_train_step_fn(m["japi"], jshape, lr=LR,
+                                                pre_gather=pre_gather)
+        _, _, jmet = jax.jit(jstep)(m["jparams"], jopt.init(m["jparams"]),
+                                    _jb(batch))
+        tstep, topt = specs.make_train_step_fn(m["api"], SHAPE, lr=LR,
+                                               pre_gather=pre_gather)
+        tparams, _, tmet = tstep(m["tparams"], topt.init(m["tparams"]),
+                                 _tb(batch))
+        assert all(p.dtype == q.dtype for p, q in zip(
+            tree_leaves(tparams), tree_leaves(m["tparams"])))
+        np.testing.assert_allclose(float(tmet["loss"]), float(jmet["loss"]),
+                                   rtol=1e-2)
+        np.testing.assert_allclose(float(tmet["grad_norm"]),
+                                   float(jmet["grad_norm"]), rtol=5e-2)
+
+
+def test_loss_window_and_shapes_match_reference():
+    """make_loss_for_shape's window, and the shape copies."""
+    from repro.configs import shapes as jshapes
+    def fields(s):
+        return (s.name, s.seq_len, s.global_batch, s.kind, s.is_decode)
+
+    assert fields(TRAIN_4K) == fields(jshapes.TRAIN_4K)
+    for kind in ("train", "prefill", "decode"):
+        assert fields(smoke_shape(kind)) == fields(jshapes.smoke_shape(kind))
+    seen = []
+    for arch, window in (("gemma-7b", 0), ("starcoder2-7b", 64)):
+        api = build_model(get_config(arch).smoke_variant())
+        fake = api.__class__(**{**api.__dict__, "loss": lambda p, b, **kw:
+                                seen.append(kw)})
+        specs.make_loss_for_shape(fake, SHAPE, attn_chunk=64)(None, None)
+        assert seen[-1] == dict(window=window, attn_chunk=64, remat=True)
+
+
+def test_schedules_match_reference():
+    from repro.optim import schedules as js
+    steps = [0, 1, 3, 10, 49, 50, 51, 200, 1000]
+    for name, args in (("constant", (3e-4,)),
+                       ("warmup_cosine", (3e-4, 50, 500)),
+                       ("warmup_cosine", (1e-3, 0, 100, 0.0)),
+                       ("inverse_sqrt", (3e-4, 50))):
+        jf, tf_ = getattr(js, name)(*args), getattr(schedules, name)(*args)
+        for step in steps:
+            want = float(jf(jnp.asarray(step, jnp.int32)))
+            got = tf_(torch.tensor(step, dtype=torch.int32))
+            assert got.dtype == torch.float32
+            np.testing.assert_allclose(float(got), want, rtol=1e-6,
+                                       err_msg=(name, args, step))
+
+
+def test_lm_token_batch_recurrence_matches_reference():
+    """The reference's lm_token_batch from its key equals the port's
+    recurrence over the same draws; the port's batch is well formed."""
+    from repro.data.synthetic import lm_token_batch as jax_lm_token_batch
+    key = jax.random.PRNGKey(3)
+    k1, k2 = jax.random.split(key)
+    vocab = 1000
+    start = np.array(jax.random.randint(k1, (3, 1), 0, vocab))
+    noise = np.array(jax.random.randint(k2, (3, 50), 0, 3))
+    want = jax_lm_token_batch(key, 3, 50, vocab)
+    got = lm_token_recurrence(torch.from_numpy(start),
+                              torch.from_numpy(noise), vocab)
+    for k in ("tokens", "labels"):
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
+    g = torch.Generator()
+    g.manual_seed(0)
+    b1 = lm_token_batch(g, 2, 16, 256000, device="cpu")
+    g.manual_seed(0)
+    b2 = lm_token_batch(g, 2, 16, 256000, device="cpu")
+    assert all(torch.equal(b1[k], b2[k]) for k in b1)
+    t, lab = b1["tokens"], b1["labels"]
+    assert t.shape == lab.shape == (2, 16) and t.dtype == torch.int64
+    assert int(t.min()) >= 0 and int(t.max()) < 256000
+    assert torch.equal(lab[:, :-1], t[:, 1:]) and bool((lab[:, -1] == -1)
+                                                        .all())
+    step = (31 * t[:, :-1] + 7 - t[:, 1:]) % 256000
+    assert bool(((-step) % 256000 <= 2).all())
+
+
+def _ckpt_tree(rng):
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)
+    return {"params": {"w": f(8, 16), "stack": f(3, 4, 5)},
+            "half": f(16), "step": np.int32(7)}
+
+
+def test_checkpoint_written_by_each_package_restores_in_the_other(tmp_path):
+    """The on-disk format is shared: a checkpoint the port writes (with
+    a bfloat16 leaf) restores in the reference, and the reverse."""
+    from repro.train import checkpoint as jck
+    tree = _ckpt_tree(np.random.default_rng(0))
+    ttree = {"params": {k: torch.from_numpy(v)
+                        for k, v in tree["params"].items()},
+             "half": torch.from_numpy(tree["half"]).to(torch.bfloat16),
+             "step": torch.tensor(7, dtype=torch.int32)}
+    jtree = {"params": {k: jnp.asarray(v) for k, v in tree["params"].items()},
+             "half": jnp.asarray(tree["half"], jnp.bfloat16),
+             "step": jnp.asarray(7, jnp.int32)}
+    ck.save_checkpoint(str(tmp_path / "port"), 4, ttree)
+    got, man = jck.restore_checkpoint(str(tmp_path / "port"), jtree)
+    assert man["step"] == 4
+    ck.save_checkpoint(str(tmp_path / "port"), 5, ttree)
+    jck.save_checkpoint(str(tmp_path / "jax"), 6, jtree)
+    back, jman = ck.restore_checkpoint(str(tmp_path / "jax"), ttree)
+    assert jman["step"] == 6
+    for path, j in _flat(jax.tree.map(np.asarray, got)).items():
+        t = _flat(ttree)[path]
+        assert str(j.dtype) == str(t.dtype).split(".")[1]
+        np.testing.assert_array_equal(np.asarray(j, np.float32),
+                                      t.float().numpy())
+    for path, t in _flat(back).items():
+        assert t.dtype == _flat(ttree)[path].dtype
+        assert torch.equal(t, _flat(ttree)[path])
+    # the same tree gives the same manifest entries: paths, dtype names,
+    # shapes, array names and the crc32 of the stored bytes
+    entries = []
+    for sub, step in (("port", 5), ("jax", 6)):
+        with open(tmp_path / sub / f"ckpt_{step:08d}.json") as f:
+            entries.append(json.load(f)["entries"])
+    assert entries[0] == entries[1]
+    assert [e["dtype"] for e in entries[0]] == ["bfloat16", "float32",
+                                                "float32", "int32"]
+
+
+def test_checkpoint_roundtrip_retention_and_integrity(tmp_path):
+    tree = {"layer": {"w": torch.randn(8, 16),
+                      "b": torch.zeros(16, dtype=torch.bfloat16) + 0.5},
+            "step": torch.tensor(7, dtype=torch.int32)}
+    for step in (1, 2, 3, 4, 5):
+        ck.save_checkpoint(str(tmp_path), step, tree, keep=2,
+                           extra={"note": step})
+    assert ck.latest_step(str(tmp_path)) == 5
+    assert sorted(f for f in os.listdir(tmp_path) if f.endswith(".json")) \
+        == ["ckpt_00000004.json", "ckpt_00000005.json"]
+    back, man = ck.restore_checkpoint(str(tmp_path), tree)
+    assert man["extra"] == {"note": 5} and back["step"].dtype == torch.int32
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(back),
+                                                   tree_leaves(tree)))
+    assert ck.tree_nbytes(tree) == 8 * 16 * 4 + 16 * 2 + 4
+    with pytest.raises(ValueError, match="shape"):
+        ck.restore_checkpoint(str(tmp_path), dict(tree, step=torch.zeros(2)))
+    with pytest.raises(KeyError):
+        ck.restore_checkpoint(str(tmp_path), dict(tree, extra=torch.zeros(1)))
+    base = str(tmp_path / "ckpt_00000005")
+    data = dict(np.load(base + ".npz"))
+    data["a0"] = data["a0"] + 1
+    np.savez(base + ".npz", **data)
+    with pytest.raises(IOError, match="crc"):
+        ck.restore_checkpoint(str(tmp_path), tree)
+    assert ck.latest_step(str(tmp_path / "none")) is None
+    with pytest.raises(FileNotFoundError):
+        ck.restore_checkpoint(str(tmp_path / "none"), tree)
+
+
+def test_train_launcher_runs_on_cpu(tmp_path, capsys):
+    """``python -m repro_torch.launch.train --arch gemma-7b --device cpu``
+    for 2 steps, with a checkpoint the reference format reads back."""
+    train_launcher.main(["--arch", "gemma-7b", "--device", "cpu",
+                         "--steps", "2", "--log-every", "1", "--seq", "32",
+                         "--ckpt-dir", str(tmp_path)])
+    out = capsys.readouterr().out
+    assert "step     1" in out and "step     2" in out
+    assert out.strip().endswith("done")
+    assert ck.latest_step(str(tmp_path)) == 2
+    with pytest.raises(NotImplementedError, match="A9"):
+        train_launcher.main(["--arch", "gemma-7b", "--device", "cpu",
+                             "--model-parallel", "2"])

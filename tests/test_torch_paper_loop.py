@@ -12,6 +12,7 @@ gradient at rounding level may flip sign between frameworks, so
 parameters after many steps are not compared; a 20-step loss curve at
 ``rtol = 1e-3``.
 """
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -238,17 +239,28 @@ def test_fit_loss_curve_matches_reference(jax_side):
     assert state.step == 20 and int(state.opt_state["step"]) == 20
 
 
-def test_fit_logs_like_reference_and_refuses_checkpoints():
+def test_fit_logs_like_reference_and_refuses_checkpoints(tmp_path):
+    """fit logs at the reference's steps; with a ckpt_dir it checkpoints
+    every ckpt_every steps and at the end, as the reference does (it
+    refused a ckpt_dir until checkpointing was ported)."""
+    from repro_torch.train import checkpoint as ck
     tp = tb.init_params(CFG, seed=0, device="cpu")
-    batches = iter([_torch(_batch(i, n=4)) for i in range(7)])
+    batches = iter([_torch(_batch(i, n=4)) for i in range(10)])
     seen = []
     _, h = fit(lambda p, bb: tb.loss_fn(p, bb, CFG), adam(1e-3), tp,
                batches, TrainerConfig(steps=7, log_every=3),
                callbacks=[lambda s, m: seen.append(s)])
     assert [s for s, _ in h["loss"]] == seen == [1, 3, 6, 7]
-    with pytest.raises(NotImplementedError, match="A7"):
-        fit(lambda p, bb: tb.loss_fn(p, bb, CFG), adam(1e-3), tp, batches,
-            TrainerConfig(steps=1, ckpt_dir="unused"))
+    state, _ = fit(lambda p, bb: tb.loss_fn(p, bb, CFG), adam(1e-3), tp,
+                   batches, TrainerConfig(steps=3, ckpt_dir=str(tmp_path),
+                                          ckpt_every=2))
+    assert sorted(f for f in os.listdir(tmp_path) if f.endswith(".json")) \
+        == ["ckpt_00000002.json", "ckpt_00000003.json"]
+    restored, manifest = ck.restore_checkpoint(
+        str(tmp_path), {"params": tp, "opt_state": state.opt_state})
+    assert manifest["step"] == 3
+    for k, v in state.params.items():
+        assert torch.equal(restored["params"][k], v)
 
 
 def test_init_params_matches_reference_shapes_and_scales(jax_side):
