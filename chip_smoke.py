@@ -54,7 +54,22 @@ printing its own line(s):
    the loss must fall; the plain path's step (``use_kernel=False``) from
    the first step's state and batch must agree with the kernel's in bf16,
    and on the last step's state the two paths must agree in float32; one
-   no-grad eval forward must launch B6 L times.
+   no-grad eval forward must launch B6 L times;
+9. the recurrent families: (a) the Mamba2 SSD scan (B5) at zamba2-2.7b's
+   shapes (80 heads, P = N = 64, chunk 128) and the chunkwise mLSTM (B4)
+   at xlstm-1.3b's (4 heads of 1024, chunk 128), each at 4096 tokens and
+   at one sequence shorter than a chunk, from float32 inputs and their
+   bf16 copies, against their plain versions on the card, with the time,
+   the plain version's and the least time the card could take (no
+   PyTorch call computes either scan, so no library time); and B6 at
+   zamba2-2.7b's head dim 80 with SDPA's time; (b) zamba2-2.7b at its
+   published width and depth (54 Mamba2 layers and the shared attention
+   block, random bf16 weights from a seed): the prefill step
+   (``make_prefill_step_fn``, no grad) at batch 1 x 4096 tokens must
+   launch B5 54 times and the B6 forward 9 times and no other kernel, and
+   agree with the plain path (``use_kernel=False``) in bf16 and in
+   float32; then ``SlotDecodeEngine`` serves 3 requests on 2 slots, every
+   request to its end; (c) xlstm-1.3b likewise (48 layers; B4 42 times).
 
 Then one JSON line of per-kernel numbers, and last
 ``{"ok": true, "device": {...}}``.  Any failed phase raises, so the run
@@ -125,6 +140,32 @@ TRAIN_LAYERS = 4
 TRAIN_STEPS = 10
 TRAIN_LR = 3e-4               # the training launcher's default
 TOP_KERNELS = 12              # device kernels listed from the profiled step
+# B5 and B4 against their plain versions (phase 9a; the readings are
+# printed).  float32 inputs run the same arithmetic in another order:
+# every element within SCAN_F32_TOL * (1 + |plain|) (readings at the
+# full-width shapes on an H100: 1.2e-7 B5, 7.3e-7 B4).  In bf16 the plain
+# versions round their intermediates (decay weights, gated scores, the
+# carried states) to bf16 before their products and the kernels do not:
+# the whole within SCAN_BF16_REL_L2 in the 2-norm (readings 3.0e-3 B5,
+# 3.5e-3 B4) and every element within SCAN_BF16_MAX x the largest |plain|
+# (readings 5.6e-3 both)
+SCAN_F32_TOL = 5e-6
+SCAN_BF16_REL_L2 = 1e-2
+SCAN_BF16_MAX = 2e-2
+# the full-depth prefills (phase 9b, 9c), kernel against plain path, the
+# last position's logits as a relative 2-norm.  float32 forwards differ by
+# summation order (readings 4.6e-6 zamba2-2.7b, 3.5e-5 xlstm-1.3b).  The
+# bf16 steps differ by the scans' roundings, compounded over the depth
+# (readings 3.1e-2 zamba2-2.7b, 1.6e-1 xlstm-1.3b, whose 42 mLSTM layers
+# each round C, the gated scores and q / sqrt(hd) to bf16 on the plain
+# path only); each bf16 step's distance from the float32 kernel forward
+# is printed beside them
+RECURRENT_F32_REL_L2 = 2e-4
+RECURRENT_BF16_REL_L2 = {"zamba2-2.7b": 8e-2, "xlstm-1.3b": 4e-1}
+PREFILL_SEQ = 4096            # tokens a prefill (32 SSD / mLSTM chunks)
+SERVE_SLOTS = 2
+SERVE_REQUESTS = 3            # more requests than slots: a slot is reused
+SERVE_NEW = 8
 SEED = 0
 DEVICE = "cuda"
 
@@ -1205,6 +1246,324 @@ def phase_training():
     return totals, counts
 
 
+# ---------------------------------------------------------------------------
+# phase 9a: the scan kernels against their plain versions
+# ---------------------------------------------------------------------------
+def _scan_bound(nbytes: float, flops: float) -> tuple:
+    """Least time of a call that must move ``nbytes`` and do ``flops``:
+    the larger of the byte time at the memory rate and the operation time
+    at the bf16 peak (the path's type)."""
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    flop_ms = flops / BF16_FLOPS * 1e3
+    return (byte_ms, "bytes") if byte_ms >= flop_ms else (flop_ms,
+                                                          "operations")
+
+
+def _ssd_bound(B, L, H, P, G, N, Q, esize) -> tuple:
+    """B5: xdt read and y written in the input type, B and C read, dA in
+    float32; per chunk and head the lower triangle of C B^T and of W xdt
+    (Q (Q + 1) / 2 x (N + P) multiply-adds), C S^T and the state update
+    (2 Q N P)."""
+    nbytes = 2 * B * L * H * P * esize + 2 * B * L * G * N * esize \
+        + 4 * B * L * H
+    macs = (Q * (Q + 1) // 2 * (N + P) + 2 * Q * N * P) * (L // Q) * B * H
+    return _scan_bound(nbytes, 2 * macs)
+
+
+def _mlstm_bound(B, L, H, hd, Q, esize) -> tuple:
+    """B4: q, k, v read and h written in the input type, the two gates in
+    float32; per chunk and head the lower triangle of q k^T and of S v
+    (Q (Q + 1) / 2 x 2 hd multiply-adds), q C and the C update
+    (2 Q hd^2), q n and the n update (2 Q hd)."""
+    nbytes = 4 * B * L * H * hd * esize + 2 * 4 * B * L * H
+    macs = (Q * (Q + 1) // 2 * 2 * hd + 2 * Q * hd * hd + 2 * Q * hd) \
+        * (L // Q) * B * H
+    return _scan_bound(nbytes, 2 * macs)
+
+
+def _scan_compare(label, got, want, f32: bool) -> float:
+    """Hold a scan kernel's output to its plain version's: in float32
+    every element within SCAN_F32_TOL * (1 + |plain|); in bf16 the whole
+    within SCAN_BF16_REL_L2 in the 2-norm and every element within
+    SCAN_BF16_MAX x the largest |plain|.  Prints the readings the limits
+    are set from; returns the largest error; raises past a limit."""
+    import torch
+    a, b = got.float(), want.float()
+    err = (a - b).abs()
+    rel = (err.norm() / b.norm()).item()
+    peak = b.abs().max().item()
+    need = (err / (1 + b.abs())).max().item()
+    finite = bool(torch.isfinite(a).all())
+    print(f"kernel check [{label}]: max_abs_err={err.max().item():.3e} "
+          f"max_abs={peak:.3e} err/(1+|plain|)={need:.3e} "
+          f"max_err/max|plain|={err.max().item() / peak:.3e} "
+          f"rel_l2={rel:.3e} finite={finite}", flush=True)
+    if f32:
+        ok = need <= SCAN_F32_TOL
+    else:
+        ok = rel <= SCAN_BF16_REL_L2 and err.max().item() <= \
+            SCAN_BF16_MAX * peak
+    if not (ok and finite):
+        raise AssertionError(f"{label} disagrees with its plain version")
+    return err.max().item()
+
+
+def phase_scan_kernels():
+    """B5 at zamba2-2.7b's shapes and B4 at xlstm-1.3b's, full width at
+    PREFILL_SEQ tokens and at one sequence shorter than a chunk, from
+    float32 inputs and their bf16 copies, against the plain versions on
+    the card; then B6 at zamba2-2.7b's shared attention (32 x 80 heads).
+    Returns {kernel: numbers} at the full-width bf16 shape; raises on any
+    disagreement."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mlstm_scan as ml
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as kref
+    from repro_torch.kernels import ssm_scan as ssd
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(SEED)
+    rn = lambda *s: torch.randn(s, generator=g, device=DEVICE)
+    results = {}
+    # B5: B, L, H, P, G, N, chunk
+    for L in (PREFILL_SEQ, 96):
+        B, H, P, G, N, Q = 1, 80, 64, 1, 64, 128
+        label = f"{ssd.SSD} zamba2-2.7b L={L}"
+        x, dt = rn(B, L, H, P) * 0.5, F.softplus(rn(B, L, H))
+        A, Bm, Cm = -torch.exp(rn(H) * 0.3), rn(B, L, G, N) * 0.3, \
+            rn(B, L, G, N) * 0.3
+        for dtype in (torch.float32, torch.bfloat16):
+            xs, Bs, Cs = (t.to(dtype) for t in (x, Bm, Cm))
+            kern = lambda: ops.ssd_scan_heads(xs, dt, A, Bs, Cs, chunk=Q,
+                                              use_kernel=True)
+            plain = lambda: ops.ssd_scan_heads(xs, dt, A, Bs, Cs, chunk=Q,
+                                               use_kernel=False)
+            err = _scan_compare(f"{label} {str(dtype)[6:]}", kern(),
+                                plain(), dtype == torch.float32)
+        if L != PREFILL_SEQ:
+            continue
+        # the kernel alone on the inputs the path hands it, bf16
+        xdt = xs * dt[..., None].to(xs.dtype)
+        dA = dt * A
+        y = torch.empty_like(xdt)
+        call = lambda: ssd.ssd_scan(xdt.transpose(1, 2), dA.transpose(1, 2),
+                                    Bs.transpose(1, 2), Cs.transpose(1, 2),
+                                    chunk=Q, out=y.transpose(1, 2))
+        bound_ms, bound_by = _ssd_bound(B, L, H, P, G, N, Q, 2)
+        results[ssd.SSD] = dict(
+            max_abs_err=err, ms=_median_ms(call, reps=10, inner=5),
+            plain_ms=_median_ms(plain, reps=3, inner=1, warmup=1),
+            library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
+        del x, xs, xdt, y, Bm, Cm, Bs, Cs
+    # B4: B, L, H, hd, chunk
+    for L in (PREFILL_SEQ, 64):
+        B, H, hd, Q = 1, 4, 1024, 128
+        label = f"{ml.MLSTM} xlstm-1.3b L={L}"
+        q, k, v = rn(B, L, H, hd) * 0.5, rn(B, L, H, hd) * 0.5, \
+            rn(B, L, H, hd) * 0.5
+        li, lf = rn(B, L, H) * 0.5, F.logsigmoid(rn(B, L, H) + 2.0)
+        for dtype in (torch.float32, torch.bfloat16):
+            qs, ks, vs = (t.to(dtype) for t in (q, k, v))
+            kern = lambda: ops.mlstm_scan_heads(qs, ks, vs, li, lf, chunk=Q,
+                                                use_kernel=True)
+            plain = lambda: ops.mlstm_scan_heads(qs, ks, vs, li, lf,
+                                                 chunk=Q, use_kernel=False)
+            err = _scan_compare(f"{label} {str(dtype)[6:]}", kern(),
+                                plain(), dtype == torch.float32)
+        if L != PREFILL_SEQ:
+            continue
+        h = torch.empty_like(qs)
+        tr = lambda t: t.transpose(1, 2)
+        call = lambda: ml.mlstm_scan(tr(qs), tr(ks), tr(vs), tr(li), tr(lf),
+                                     chunk=Q, out=tr(h))
+        bound_ms, bound_by = _mlstm_bound(B, L, H, hd, Q, 2)
+        results[ml.MLSTM] = dict(
+            max_abs_err=err, ms=_median_ms(call, reps=5, inner=3),
+            plain_ms=_median_ms(plain, reps=3, inner=1, warmup=1),
+            library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
+        del q, k, v, qs, ks, vs, h
+    for name, r in results.items():
+        print(f"kernel check [{name} full width bf16]: ms={r['ms']:.4f} "
+              f"plain_ms={r['plain_ms']:.4f} library_ms=null (no PyTorch "
+              f"call computes the scan) bound_ms={r['bound_ms']:.4f} "
+              f"({r['bound_by']})", flush=True)
+
+    # B6 at head dim 80: zamba2-2.7b's shared attention, bf16, in the
+    # model's (B, S, H, D) layout read through transposed views
+    S, H, D = PREFILL_SEQ, 32, 80
+    q, k, v = (rn(1, S, H, D).to(torch.bfloat16).transpose(1, 2)
+               for _ in range(3))
+    kw = dict(causal=True, window=0)
+    err = _fa_compare(f"{fa.B6} zamba2-2.7b D={D} bf16", [
+        ("o", fa.flash_attention(q, k, v, **kw),
+         kref.attention_reference(q, k, v, **kw), FA_BF16_RTOL,
+         FA_BF16_O_ROW, FA_BF16_REL_L2["o"], True)])
+    with torch.no_grad():
+        lib = _median_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True), reps=5, inner=3, warmup=1)
+    bound_ms, bound_by = _fa_bound(1, H, H, S, D, 0, flops_per_pair=4,
+                                   head_tensors=2, kv_tensors=2, f32_rows=0)
+    ms = _median_ms(lambda: fa.flash_attention(q, k, v, **kw), reps=5,
+                    inner=3)
+    plain_ms = _median_ms(lambda: kref.attention_reference(q, k, v, **kw),
+                          reps=3, inner=1, warmup=1)
+    print(f"kernel check [{fa.B6} zamba2-2.7b D={D} S={S} bf16]: "
+          f"max_abs_err={err:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+          f"library_ms={lib:.4f} bound_ms={bound_ms:.4f} ({bound_by})",
+          flush=True)
+    del q, k, v
+    torch.cuda.empty_cache()
+    return results
+
+
+# ---------------------------------------------------------------------------
+# phase 9b, 9c: the recurrent families' prefill and serving at full width
+# ---------------------------------------------------------------------------
+def _kernel_modules():
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mlstm_scan as ml
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import pseudo_voigt as pv
+    from repro_torch.kernels import ssm_scan as ssd
+    return fa, ml, pa, pv, ssd
+
+
+def _zero_counts() -> None:
+    for m in _kernel_modules():
+        m.reset_launch_counts()
+
+
+def _read_counts() -> dict:
+    out = {}
+    for m in _kernel_modules():
+        out.update(m.launch_counts)
+    return out
+
+
+def _logits_gap(a, b) -> tuple:
+    """(relative 2-norm, max abs) of the difference of two logit rows."""
+    a, b = a.float(), b.float()
+    return ((a - b).norm() / b.norm()).item(), (a - b).abs().max().item()
+
+
+def phase_recurrent(arch: str, want: dict) -> dict:
+    """``arch`` at its published width and depth, random bf16 weights from
+    SEED: the prefill step (``make_prefill_step_fn``, no grad) at batch 1
+    and PREFILL_SEQ tokens must launch exactly ``want`` and no other
+    kernel; the plain path (``use_kernel=False``) on the same weights and
+    tokens must agree on the last position's logits (bf16 steps within
+    RECURRENT_BF16_REL_L2; float32 forwards within RECURRENT_F32_REL_L2);
+    then ``SlotDecodeEngine`` serves SERVE_REQUESTS requests on
+    SERVE_SLOTS slots (so slots are reused) and every request must
+    finish.  Returns the prefill's launches."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.launch.specs import make_prefill_step_fn
+    from repro_torch.models.api import build_model
+    from repro_torch.serving.engine import DecodeEngine, SlotDecodeEngine
+    cfg = get_config(arch)
+    api = build_model(cfg)
+    t0 = time.perf_counter()
+    params = api.init(seed=SEED, device=DEVICE, dtype=torch.bfloat16)
+    _sync()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"{arch}: full width (d_model={cfg.d_model}, layers="
+          f"{cfg.n_layers}, heads={cfg.n_heads}x{cfg.resolved_head_dim}, "
+          f"vocab={cfg.vocab_size}) {n_params / 1e9:.3f} B params bf16 "
+          f"(gates and decays float32) in {time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card",
+          flush=True)
+    shape = InputShape(f"prefill_{PREFILL_SEQ}", PREFILL_SEQ, 1, "prefill")
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, PREFILL_SEQ),
+                                     generator=gen, device=DEVICE)}
+    window = api.effective_window(PREFILL_SEQ)
+    runs = {}
+    with torch.no_grad():
+        for label, kw in (("kernel", {}), ("plain", {"use_kernel": False})):
+            step = make_prefill_step_fn(api, shape, **kw)
+            times = []
+            for _ in range(2):
+                _zero_counts()
+                t0 = time.perf_counter()
+                out = step(params, batch)
+                _sync()
+                times.append((time.perf_counter() - t0) * 1e3)
+                counts = {k: v for k, v in _read_counts().items() if v}
+            runs[label] = out
+            print(f"{arch} prefill [{label}, bf16]: batch 1 x {PREFILL_SEQ} "
+                  f"tokens, logits {tuple(out.shape)} {out.dtype} "
+                  f"finite={bool(torch.isfinite(out).all())} wall_ms="
+                  f"{times[0]:.2f} (first), {times[1]:.2f} "
+                  f"({PREFILL_SEQ / times[1] * 1e3:.1f} tokens/s) "
+                  f"kernel_launches={json.dumps(counts)}", flush=True)
+            expect = want if label == "kernel" else {}
+            if counts != expect:
+                raise AssertionError(f"{arch} {label} prefill launches "
+                                     f"{counts} != {expect}")
+            if not bool(torch.isfinite(out).all()) or \
+                    tuple(out.shape) != (1, cfg.vocab_size):
+                raise AssertionError(f"{arch} {label} prefill logits")
+        rel16, max16 = _logits_gap(runs["kernel"], runs["plain"])
+        f32 = {}
+        for label, kw in (("kernel", {}), ("plain", {"use_kernel": False})):
+            logits, _ = api.forward(params, batch["tokens"], window=window,
+                                    compute_dtype=torch.float32,
+                                    remat=False, **kw)
+            f32[label] = logits[:, -1].clone()
+            del logits
+            torch.cuda.empty_cache()
+        rel32, max32 = _logits_gap(f32["kernel"], f32["plain"])
+    agree = int((runs["kernel"].argmax(-1) == runs["plain"].argmax(-1)
+                 ).sum())
+    to32 = {k: _logits_gap(v, f32["kernel"])[0] for k, v in runs.items()}
+    lim16 = RECURRENT_BF16_REL_L2[arch]
+    print(f"{arch} prefill kernel vs plain, last position: bf16 rel_l2="
+          f"{rel16:.3e} max_abs={max16:.3e} (limit rel_l2 {lim16:g}), same "
+          f"argmax={agree}; float32 rel_l2={rel32:.3e} max_abs={max32:.3e} "
+          f"(limit rel_l2 {RECURRENT_F32_REL_L2:g}); from the float32 "
+          f"kernel forward: bf16 kernel rel_l2={to32['kernel']:.3e}, bf16 "
+          f"plain rel_l2={to32['plain']:.3e}; max |logit| bf16="
+          f"{runs['plain'].float().abs().max().item():.3e}", flush=True)
+    if not (rel16 <= lim16 and rel32 <= RECURRENT_F32_REL_L2):
+        raise AssertionError(f"{arch}: the kernel prefill disagrees with "
+                             "the plain one")
+    del runs, f32
+    torch.cuda.empty_cache()
+
+    # serving: the slot engine, prompts fed token by token
+    rng = np.random.default_rng(SEED)
+    eng = DecodeEngine(api, params, n_slots=SERVE_SLOTS, cache_len=64,
+                       device=DEVICE)
+    if not isinstance(eng, SlotDecodeEngine):
+        raise AssertionError(f"{arch} is not served by the slot engine")
+    for _ in range(SERVE_REQUESTS):
+        eng.submit(rng.integers(0, cfg.vocab_size, 8).astype(np.int32),
+                   SERVE_NEW)
+    _zero_counts()
+    t0 = time.perf_counter()
+    finished = eng.run_until_drained()
+    _sync()
+    wall = time.perf_counter() - t0
+    print(f"{arch} serve: SlotDecodeEngine slots={SERVE_SLOTS} "
+          f"requests={len(finished)}/{SERVE_REQUESTS} steps={eng.steps} "
+          f"tokens={eng.tokens_decoded} wall_s={wall:.3f} tok_per_s="
+          f"{eng.tokens_decoded / wall:.2f} ms_per_step="
+          f"{wall / eng.steps * 1e3:.2f} kernel_launches="
+          f"{json.dumps({k: v for k, v in _read_counts().items() if v})}",
+          flush=True)
+    if len(finished) != SERVE_REQUESTS or not all(
+            len(r.generated) == SERVE_NEW for r in finished):
+        raise AssertionError(f"{arch} serve: not every request finished")
+    del eng, params
+    torch.cuda.empty_cache()
+    return want
+
+
 def _sync() -> None:
     import torch
     if DEVICE == "cuda":
@@ -1225,7 +1584,9 @@ KERNELS = [("paged_attention_tiled", "paged_attention_tiled",
            ("flash_attention_dq", "flash_attention_bwd",
             "flash_attention.py:316"),
            ("flash_attention_dkv", "flash_attention_bwd",
-            "flash_attention.py:337")]
+            "flash_attention.py:337"),
+           ("ssd_scan", "ssm_scan", "ssm_scan.py:74"),
+           ("mlstm_scan", "mlstm_scan", "mlstm_scan.py:89")]
 
 
 def main() -> None:
@@ -1292,10 +1653,21 @@ def main() -> None:
     for name in fa_checks:
         launches[name] = train_launches[name] or eval_launches[name]
 
+    # 9. the recurrent families: the scan kernels against their plain
+    # versions, then zamba2-2.7b's and xlstm-1.3b's prefill and serving
+    torch.cuda.empty_cache()
+    scan_checks = phase_scan_kernels()
+    zamba = phase_recurrent("zamba2-2.7b", {
+        "ssd_scan": 54, "flash_attention": 9})
+    xlstm = phase_recurrent("xlstm-1.3b", {"mlstm_scan": 42})
+    launches["ssd_scan"] = zamba["ssd_scan"]
+    launches["mlstm_scan"] = xlstm["mlstm_scan"]
+
     # each kernel's numbers at its main path's shapes
     numbers = {name: c["gemma-7b bf16"] for name, c in checks.items()}
     numbers["pseudo_voigt"] = pv_check
     numbers.update(fa_checks)
+    numbers.update(scan_checks)
     rows = []
     for name, source, replaces in KERNELS:
         main_cfg = numbers[name]

@@ -1,6 +1,6 @@
 """Config registry: importing this package registers the archs the port
-serves (the dense transformer family), and exports the configs of the
-paper's own edge models."""
+serves (the dense transformer family, zamba2 and xLSTM), and exports the
+configs of the paper's own edge models."""
 from repro_torch.configs.base import (  # noqa: F401
     ArchConfig,
     MoEConfig,
@@ -13,4 +13,5 @@ from repro_torch.configs.paper_models import (  # noqa: F401
 )
 
 # registration side-effects
-from repro_torch.configs import gemma_7b, starcoder2_7b  # noqa: F401,E402
+from repro_torch.configs import (  # noqa: F401,E402
+    gemma_7b, starcoder2_7b, xlstm_1p3b, zamba2_2p7b)

@@ -1,6 +1,6 @@
-"""Input shapes of the port's training path: the port's own copy of
-``InputShape``, ``TRAIN_4K`` and ``smoke_shape`` from
-``repro/configs/shapes.py``."""
+"""Input shapes of the port's training and prefill paths: the port's own
+copy of ``InputShape``, ``TRAIN_4K``, ``PREFILL_32K``, ``DECODE_32K`` and
+``smoke_shape`` from ``repro/configs/shapes.py``."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -19,6 +19,8 @@ class InputShape:
 
 
 TRAIN_4K = InputShape("train_4k", 4_096, 256, "train")
+PREFILL_32K = InputShape("prefill_32k", 32_768, 32, "prefill")
+DECODE_32K = InputShape("decode_32k", 32_768, 128, "decode")
 
 
 def smoke_shape(kind: str = "train") -> InputShape:

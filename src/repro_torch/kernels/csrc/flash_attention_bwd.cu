@@ -244,6 +244,7 @@ cudaError_t launch_d(const BwdArgs& a, int B, int D, bool dkv,
                      cudaStream_t stream) {
   switch (D) {
     case 64: return launch<T, 64>(a, B, dkv, stream);
+    case 80: return launch<T, 80>(a, B, dkv, stream);
     case 128: return launch<T, 128>(a, B, dkv, stream);
     case 256: return launch<T, 256>(a, B, dkv, stream);
     default: return cudaErrorInvalidValue;
@@ -284,7 +285,7 @@ extern "C" {
 // and delta (contiguous (B, H, S) float32), and the outputs dq (like q),
 // dk and dv (like k, v), all of one type (dtype 0: float32, 1: bfloat16),
 // d contiguous, 16-byte aligned; ``strides`` holds the (b, h, s) element
-// strides of q, k, v, do, dq, dk and dv, 21 values.  D in {64, 128, 256}.
+// strides of q, k, v, do, dq, dk and dv, 21 values.  D in {64, 80, 128, 256}.
 // The dq launch writes only dq, the dk/dv launch only dk and dv.  Each
 // returns cudaGetLastError() after its launch.
 int flash_attention_dq_launch(const void* q, const void* k, const void* v,

@@ -15,7 +15,9 @@
 // query rows ty + 16 i (i < 4) and keys tx + 16 c (c < 2); a row's 32
 // scores sit in the 16 lanes of one half-warp, so row reductions are four
 // shuffles.  For a D-wide accumulator tile, the same thread owns the same
-// four rows and columns 4 tx + 64 jj .. + 3 (jj < D / 64).  Tiles live in
+// four rows and columns 4 tx + 64 jj .. + 3 (jj < D / 64), then, where
+// D % 64 is not 0 (zamba2's D = 80), columns 64 (D / 64) + tx + 16 e
+// (e < (D % 64) / 16), read and written one float at a time.  Tiles live in
 // shared memory as float32 rows of D + 4 floats: the padding staggers the
 // rows across banks, so the 16-byte reads of eight consecutive lanes of
 // different rows never collide.
@@ -72,6 +74,12 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const float* v) {
   u.x = *reinterpret_cast<uint32_t*>(&a);
   u.y = *reinterpret_cast<uint32_t*>(&b);
   *reinterpret_cast<uint2*>(p) = u;
+}
+
+__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
+
+__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
 }
 
 // x rounded to T and back (the TPU kernel's p.astype(v.dtype))
@@ -147,14 +155,16 @@ template <int D, int NR>
 __device__ __forceinline__ void weighted_rows(const float* w, int ws, int cs,
                                               const float* m, int nc,
                                               float (&acc)[NR][D / 16]) {
+  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
   constexpr int LD = D + kPad;
+  constexpr int kMain = D / 64, kTail = (D % 64) / 16;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   for (int c = 0; c < nc; ++c) {
     float p[NR];
 #pragma unroll
     for (int i = 0; i < NR; ++i) p[i] = w[(ty + 16 * i) * ws + c * cs];
 #pragma unroll
-    for (int jj = 0; jj < D / 64; ++jj) {
+    for (int jj = 0; jj < kMain; ++jj) {
       const float4 y =
           *reinterpret_cast<const float4*>(m + c * LD + 4 * tx + 64 * jj);
 #pragma unroll
@@ -165,11 +175,18 @@ __device__ __forceinline__ void weighted_rows(const float* w, int ws, int cs,
         acc[i][4 * jj + 3] = fmaf(p[i], y.w, acc[i][4 * jj + 3]);
       }
     }
+#pragma unroll
+    for (int e = 0; e < kTail; ++e) {
+      const float y = m[c * LD + 64 * kMain + tx + 16 * e];
+#pragma unroll
+      for (int i = 0; i < NR; ++i)
+        acc[i][4 * kMain + e] = fmaf(p[i], y, acc[i][4 * kMain + e]);
+    }
   }
 }
 
-// Write the thread's NR accumulator rows (rows row0 + ty + 16 i, columns
-// 4 tx + 64 jj ..) divided by div[i] into ``dst`` (row stride ``rs``),
+// Write the thread's NR accumulator rows (rows row0 + ty + 16 i, its
+// columns as above) divided by div[i] into ``dst`` (row stride ``rs``),
 // skipping rows at or past S.
 template <typename T, int D, int NR>
 __device__ __forceinline__ void store_rows(T* dst, long long rs, int row0,
@@ -181,13 +198,18 @@ __device__ __forceinline__ void store_rows(T* dst, long long rs, int row0,
   for (int i = 0; i < NR; ++i) {
     const int row = row0 + ty + 16 * i;
     if (row >= S) continue;
+    T* out = dst + static_cast<long long>(row) * rs;
 #pragma unroll
     for (int jj = 0; jj < D / 64; ++jj) {
       float v[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) v[e] = acc[i][4 * jj + e] / div[i];
-      store4(dst + static_cast<long long>(row) * rs + 4 * tx + 64 * jj, v);
+      store4(out + 4 * tx + 64 * jj, v);
     }
+#pragma unroll
+    for (int e = 0; e < (D % 64) / 16; ++e)
+      store1(out + 64 * (D / 64) + tx + 16 * e,
+             acc[i][4 * (D / 64) + e] / div[i]);
   }
 }
 

@@ -164,6 +164,7 @@ template <typename T>
 cudaError_t launch_d(const FwdArgs& a, int B, int D, cudaStream_t stream) {
   switch (D) {
     case 64: return launch<T, 64>(a, B, stream);
+    case 80: return launch<T, 80>(a, B, stream);
     case 128: return launch<T, 128>(a, B, stream);
     case 256: return launch<T, 256>(a, B, stream);
     default: return cudaErrorInvalidValue;
@@ -179,7 +180,7 @@ extern "C" {
 // float32, 1: bfloat16), d contiguous, 16-byte aligned; ``strides`` holds
 // the (b, h, s) element strides of q, k, v and o, 12 values.  ``lse`` is
 // null (B6) or a contiguous (B, H, S) float32 output (B6f).  D in
-// {64, 128, 256}.  Returns cudaGetLastError() after the launch.
+// {64, 80, 128, 256}.  Returns cudaGetLastError() after the launch.
 int flash_attention_fwd_launch(const void* q, const void* k, const void* v,
                                void* o, void* lse, const long long* strides,
                                int B, int H, int Hkv, int S, int D,

@@ -1,0 +1,50 @@
+// Shared pieces of the port's chunked-scan kernels for Hopper (sm_90a):
+// ssm_scan.cu (B5, the Mamba2 SSD scan) and mlstm_scan.cu (B4, the
+// chunkwise mLSTM).  Both read logical (B, heads, L, width) tensors given
+// by their element strides over (b, head, position), with the last axis
+// contiguous, so the models' (B, L, heads, width) activations are read in
+// place through transposed views; both compute in float32 whatever the
+// input type (float32 or bfloat16) and round only their output.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace scan {
+
+constexpr int kThreads = 256;            // 16 x 16 threads a block
+constexpr size_t kSmemLimit = 232448;    // opt-in shared memory, H100
+
+// element strides of a logical (B, heads, L, width) tensor; width has
+// stride 1
+struct Layout {
+  long long b, h, l;
+};
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// Opt ``kernel`` into the largest dynamic shared memory once (a static per
+// template instantiation of the caller holds ``done``).
+template <typename K>
+__host__ cudaError_t allow_smem(K kernel, bool& done) {
+  if (done) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kSmemLimit));
+  if (e == cudaSuccess) done = true;
+  return e;
+}
+
+}  // namespace scan

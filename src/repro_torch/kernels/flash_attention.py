@@ -36,7 +36,7 @@ B6 = "flash_attention"               # launch counters
 B6F = "flash_attention_lse"
 B6_DQ = "flash_attention_dq"
 B6_DKV = "flash_attention_dkv"
-HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (64, 80, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launch_counts: Dict[str, int] = {B6: 0, B6F: 0, B6_DQ: 0, B6_DKV: 0}

@@ -1,9 +1,10 @@
 """Dispatch between the port's kernels and their plain versions.
 
-The counterpart of the flash-attention, paged-attention and pseudo-Voigt
-parts of ``repro/kernels/ops.py``.  With ``use_kernel=None`` the device of
-the input (``q``, ``patches``) decides: the CUDA kernel for
-CUDA tensors, the plain PyTorch version for CPU tensors.
+The counterpart of ``repro/kernels/ops.py``: flash attention, paged
+attention, the SSD and mLSTM scans and the pseudo-Voigt fit.  With
+``use_kernel=None`` the device of the input (``q``, ``x``, ``patches``)
+decides: the CUDA kernel for CUDA tensors, the plain PyTorch version for
+CPU tensors.
 ``use_kernel=False`` pins the plain version on either device (the
 comparison path of ``chip_smoke.py``); ``use_kernel=True`` on CPU tensors
 raises, since a CUDA kernel cannot run there.
@@ -15,9 +16,11 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import mlstm_scan as _ml
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import pseudo_voigt as _pv
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import ssm_scan as _ssd
 
 
 def resolve_use_kernel(q: torch.Tensor, use_kernel: Optional[bool]) -> bool:
@@ -178,3 +181,60 @@ def pseudo_voigt_fit(patches: torch.Tensor, *, n_iter: int = 5,
     if resolve_use_kernel(patches, use_kernel):
         return _pv.pseudo_voigt_fit(patches, n_iter=n_iter)
     return _ref.pseudo_voigt_reference(patches, n_iter)
+
+
+def _refuse_grad(name: str, *ts: torch.Tensor) -> None:
+    """The scan kernels have no backward (nor do the reference's): under
+    grad mode an input that requires grad raises instead of being
+    detached."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        raise RuntimeError(f"{name} kernel has no backward; call it under "
+                           "torch.no_grad() or with use_kernel=False")
+
+
+def ssd_scan_heads(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                   Bm: torch.Tensor, Cm: torch.Tensor, *, chunk: int = 128,
+                   use_kernel: Optional[bool] = None) -> torch.Tensor:
+    """Model-layout SSD scan: x (B, L, H, P); dt (B, L, H) float32
+    (softplus'd); A (H,) negative; Bm/Cm (B, L, G, N).  Returns y
+    (B, L, H, P) in x's dtype.
+
+    The kernel path forms ``xdt = x * dt`` (in x's dtype) and ``dA = dt *
+    A`` (float32) as the reference wrapper does and runs
+    :func:`ssm_scan.ssd_scan` on transposed views, writing y in the model
+    layout.  The plain path is ``models/ssm.py::ssd_chunked``, called as
+    ``apply_mamba2`` calls it."""
+    if resolve_use_kernel(x, use_kernel):
+        _refuse_grad(_ssd.SSD, x, dt, A, Bm, Cm)
+        xdt = x * dt[..., None].to(x.dtype)
+        dA = dt.to(torch.float32) * A.to(torch.float32)
+        y = torch.empty_like(xdt)
+        _ssd.ssd_scan(xdt.transpose(1, 2), dA.transpose(1, 2),
+                      Bm.transpose(1, 2), Cm.transpose(1, 2), chunk=chunk,
+                      out=y.transpose(1, 2))
+        return y
+    from repro_torch.models.ssm import ssd_chunked
+    return ssd_chunked(x, dt, A, Bm, Cm, chunk)[0]
+
+
+def mlstm_scan_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     log_i: torch.Tensor, log_f: torch.Tensor, *,
+                     chunk: int = 128,
+                     use_kernel: Optional[bool] = None) -> torch.Tensor:
+    """Model-layout chunkwise mLSTM: q/k/v (B, L, H, hd); log_i/log_f
+    (B, L, H).  Returns h (B, L, H, hd) in q's dtype.
+
+    The kernel path runs :func:`mlstm_scan.mlstm_scan` on transposed
+    views (gates in float32), writing h in the model layout.  The plain
+    path is ``models/xlstm.py::mlstm_chunkwise``."""
+    if resolve_use_kernel(q, use_kernel):
+        _refuse_grad(_ml.MLSTM, q, k, v, log_i, log_f)
+        h = torch.empty_like(q)
+        _ml.mlstm_scan(q.transpose(1, 2), k.transpose(1, 2),
+                       v.transpose(1, 2),
+                       log_i.to(torch.float32).transpose(1, 2),
+                       log_f.to(torch.float32).transpose(1, 2),
+                       chunk=chunk, out=h.transpose(1, 2))
+        return h
+    from repro_torch.models.xlstm import mlstm_chunkwise
+    return mlstm_chunkwise(q, k, v, log_i, log_f, chunk)[0]

@@ -1,6 +1,6 @@
 """Plain PyTorch versions of the port's kernels: flash attention (forward,
-forward with logsumexp, backward), paged attention and the pseudo-Voigt
-Bragg-peak fit.
+forward with logsumexp, backward), paged attention, the SSD scan's
+sequential oracle and the pseudo-Voigt Bragg-peak fit.
 
 Each function is the mathematical specification its CUDA kernel must
 match; the port's tests hold it to the reference package's own oracle
@@ -292,6 +292,34 @@ def paged_attention_ragged_tiled_reference(
     t_idx = row_tile[:T].long()
     off = torch.clamp(r - win[t_idx] * tile, 0, tile - 1)
     return ot[t_idx, off].reshape(T, H, D).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# ssd_scan oracle: the direct (non-chunked) linear recurrence
+# ---------------------------------------------------------------------------
+def ssd_reference(xdt: torch.Tensor, dA: torch.Tensor, Bm: torch.Tensor,
+                  Cm: torch.Tensor) -> torch.Tensor:
+    """Sequential SSM recurrence, the ground truth for the chunked forms
+    (the SSD kernel and ``models/ssm.py::ssd_chunked``).
+
+    xdt: (B,H,L,P); dA: (B,H,L); Bm/Cm: (B,G,L,N) -> y (B,H,L,P) in xdt's
+    dtype, computed in float32:
+    h_t = exp(dA_t) h_{t-1} + xdt_t B_t^T ;  y_t = h_t C_t
+    """
+    B, H, L, P = xdt.shape
+    G, N = Bm.shape[1], Bm.shape[3]
+    rep = H // G
+    Bh = torch.repeat_interleave(Bm, rep, dim=1).to(torch.float32)
+    Ch = torch.repeat_interleave(Cm, rep, dim=1).to(torch.float32)
+    x = xdt.to(torch.float32)
+    decay = torch.exp(dA.to(torch.float32))
+    h = torch.zeros((B, H, P, N), dtype=torch.float32, device=xdt.device)
+    ys = []
+    for t in range(L):
+        h = h * decay[:, :, t, None, None] + torch.einsum(
+            "bhp,bhn->bhpn", x[:, :, t], Bh[:, :, t])
+        ys.append(torch.einsum("bhpn,bhn->bhp", h, Ch[:, :, t]))
+    return torch.stack(ys, dim=2).to(xdt.dtype)
 
 
 # ---------------------------------------------------------------------------

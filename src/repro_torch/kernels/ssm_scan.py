@@ -1,0 +1,129 @@
+"""Mamba2 SSD chunked scan: the wrapper of the port's Hopper kernel.
+
+:func:`ssd_scan` (``csrc/ssm_scan.cu``) replaces the TPU kernel
+``repro/kernels/ssm_scan.py::ssd_scan`` (B5): for xdt (B, H, L, P), dA
+(B, H, L) float32 and the maps Bm/Cm (B, G, L, N) it computes the SSD
+scan's output y (B, H, L, P) in xdt's dtype, chunk by chunk, with the
+(P x N) state carried on chip.
+
+The tensors may be any strided views (the 4-D ones with a contiguous
+last axis): ``ops.ssd_scan_heads`` hands over transposed views of the
+model's (B, L, H, P) layout, read in place.  For CUDA tensors the wrapper checks
+its inputs, allocates the output and launches on the current stream, or
+raises: there is no fallback, and no backward (the reference kernel has
+no VJP either).  For CPU tensors it runs ``ref.ssd_reference``, the
+sequential recurrence.  ``launch_counts`` counts kernel launches, so a
+run can show that its path went through the kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Dict
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels import ref as _ref
+
+SRC = "ssm_scan"               # source in csrc/
+SSD = "ssd_scan"               # launch counter
+MAX_CHUNK = 128
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+launch_counts: Dict[str, int] = {SSD: 0}
+_fns: Dict[str, object] = {}
+
+
+def _lib():
+    """The C functions of ``csrc/ssm_scan.cu``, built and bound on first
+    use."""
+    if SSD not in _fns:
+        lib = _build.load(SRC)
+        fn = lib.ssm_scan_launch
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        lib.ssm_scan_smem_bytes.argtypes = [ctypes.c_int] * 3
+        lib.ssm_scan_smem_bytes.restype = ctypes.c_size_t
+        _fns[SSD] = lib
+    return _fns[SSD]
+
+
+def reset_launch_counts() -> None:
+    """Zero the launch counter of this module."""
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+def check_scan_inputs(tensors, dtypes, names) -> None:
+    """Device, dtype and layout checks shared by the scan wrappers: each
+    tensor on the first one's device, of its listed dtype; a 4-D tensor
+    with a contiguous last axis (a 3-D one, read one value a position,
+    may have any strides)."""
+    dev = tensors[0].device
+    for name, t, dt in zip(names, tensors, dtypes):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, not {dev}")
+        if t.dtype != dt:
+            raise TypeError(f"{name} dtype {t.dtype}, expected {dt}")
+        if t.dim() == 4 and t.stride(-1) != 1:
+            raise ValueError(f"{name} must have a contiguous last axis")
+
+
+def strides(*ts: torch.Tensor):
+    """The (b, head, l) element strides of each tensor, as a C array."""
+    vals = [s for t in ts for s in t.stride()[:3]]
+    return (ctypes.c_longlong * len(vals))(*vals)
+
+
+def ssd_scan(xdt: torch.Tensor, dA: torch.Tensor, Bm: torch.Tensor,
+             Cm: torch.Tensor, *, chunk: int = 128,
+             out: torch.Tensor = None) -> torch.Tensor:
+    """y (B, H, L, P) of the SSD scan (B5), in xdt's dtype.
+
+    xdt: (B, H, L, P) inputs multiplied by dt; dA: (B, H, L) float32, dt
+    times A (negative); Bm/Cm: (B, G, L, N).  ``chunk = min(chunk, L)``
+    must divide L.  On the card: float32 or bfloat16 xdt (Bm and Cm of
+    its dtype), chunk <= 128, P and N <= 128; ``out``, when given, is
+    written (any strided (B, H, L, P) view with a contiguous last axis)."""
+    if not xdt.is_cuda:
+        return _ref.ssd_reference(xdt, dA, Bm, Cm)
+    if xdt.dim() != 4 or dA.dim() != 3 or Bm.dim() != 4 or \
+            Bm.shape != Cm.shape:
+        raise ValueError(f"xdt (B, H, L, P), dA (B, H, L) and Bm/Cm "
+                         f"(B, G, L, N) expected, got {tuple(xdt.shape)}, "
+                         f"{tuple(dA.shape)}, {tuple(Bm.shape)}, "
+                         f"{tuple(Cm.shape)}")
+    B, H, L, P = xdt.shape
+    G, N = Bm.shape[1], Bm.shape[3]
+    if dA.shape != (B, H, L) or Bm.shape[0] != B or Bm.shape[2] != L or \
+            H % G:
+        raise ValueError(f"dA {tuple(dA.shape)} or Bm {tuple(Bm.shape)} "
+                         f"do not fit xdt {tuple(xdt.shape)}")
+    if xdt.dtype not in _DTYPES:
+        raise TypeError(f"xdt dtype {xdt.dtype} not in float32, bfloat16")
+    y = torch.empty_like(xdt) if out is None else out
+    check_scan_inputs((xdt, dA, Bm, Cm, y), (xdt.dtype, torch.float32,
+                                             xdt.dtype, xdt.dtype,
+                                             xdt.dtype),
+                      ("xdt", "dA", "Bm", "Cm", "out"))
+    if y.shape != xdt.shape:
+        raise ValueError(f"out {tuple(y.shape)} != {tuple(xdt.shape)}")
+    Q = min(chunk, L)
+    if L % Q:
+        raise ValueError(f"sequence {L} is not a multiple of chunk {Q}")
+    lib = _lib()
+    if Q > MAX_CHUNK or P > 128 or N > 128 or lib.ssm_scan_smem_bytes(
+            Q, P, N) > 232448:
+        raise ValueError(f"chunk {Q}, P {P}, N {N}: the kernel takes chunk "
+                         f"<= {MAX_CHUNK}, P, N <= 128 within 227 KB of "
+                         "shared memory")
+    err = lib.ssm_scan_launch(
+        xdt.data_ptr(), dA.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+        y.data_ptr(), strides(xdt, dA, Bm, Cm, y), B, H, G, L, P, N, Q,
+        _DTYPES[xdt.dtype],
+        torch.cuda.current_stream(xdt.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{SRC} launch failed: CUDA error {err}")
+    launch_counts[SSD] += 1
+    return y

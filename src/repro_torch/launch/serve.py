@@ -2,10 +2,11 @@
 ``python -m repro_torch.launch.serve --arch gemma-7b [--full] [--device cuda|cpu]``.
 
 Builds the port's DecodeEngine (the paged engine with its defaults for
-the dense family) on the smoke variant of the arch, or at its published
-width with ``--full``, with random bf16 weights from seed 0, and serves a
-batch of synthetic requests.  It runs on the CUDA card unless
-``--device cpu`` is given.
+the dense family; the dense-slot engine for the recurrent families,
+``--arch zamba2-2.7b`` and ``--arch xlstm-1.3b``) on the smoke variant of
+the arch, or at its published width with ``--full``, with random bf16
+weights from seed 0, and serves a batch of synthetic requests.  It runs
+on the CUDA card unless ``--device cpu`` is given.
 """
 from __future__ import annotations
 

@@ -1,5 +1,6 @@
-"""Step functions of the port's training path: the counterpart of
-``make_loss_for_shape`` and ``make_train_step_fn`` in
+"""Step functions of the port's training, prefill and serving paths: the
+counterpart of ``make_loss_for_shape``, ``make_train_step_fn``,
+``make_prefill_step_fn`` and ``make_serve_step_fn`` in
 ``repro/launch/specs.py``.
 
 The reference's abstract input specs and its AOT/HLO step builders read
@@ -57,3 +58,34 @@ def make_train_step_fn(api: ModelAPI, shape: InputShape, *,
         return loss(_bf16(p) if pre_gather else p, b)
 
     return make_train_step(loss_of, opt), opt
+
+
+def make_prefill_step_fn(api: ModelAPI, shape: InputShape, *,
+                         attn_chunk: int = 512, **model_kw) -> Callable:
+    """prefill_step(params, batch) -> the last position's logits (B, V) in
+    bfloat16, from a no-remat forward over ``batch["tokens"]`` at the
+    window ``shape``'s sequence length gives the arch: what serving
+    admission needs for next-token sampling.  The encoder-decoder and VLM
+    families' extra inputs are not ported (ROADMAP A6)."""
+    window = api.effective_window(shape.seq_len)
+    if api.cfg.family in ("audio", "vlm"):
+        raise NotImplementedError(f"{api.cfg.family} prefill is ROADMAP A6")
+
+    def prefill_step(params, batch):
+        logits, _ = api.forward(params, batch["tokens"], window=window,
+                                attn_chunk=attn_chunk, remat=False,
+                                **model_kw)
+        return logits[:, -1].to(torch.bfloat16)
+
+    return prefill_step
+
+
+def make_serve_step_fn(api: ModelAPI, shape: InputShape) -> Callable:
+    """serve_step(params, cache, tokens) -> (logits, cache): one
+    ``decode_step`` at the window of ``shape``'s sequence length."""
+    window = api.effective_window(shape.seq_len)
+
+    def serve_step(params, cache, tokens):
+        return api.decode_step(params, cache, tokens, window=window)
+
+    return serve_step

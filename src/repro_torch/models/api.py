@@ -1,5 +1,5 @@
-"""Unified model API of the port: the dense branch of
-``repro/models/api.py::build_model``.
+"""Unified model API of the port: the dense, hybrid (zamba2) and ssm
+(xLSTM) branches of ``repro/models/api.py::build_model``.
 
 ``build_model(cfg)`` returns a :class:`ModelAPI` with:
   * ``init(seed=0, device="cuda", dtype=torch.bfloat16)`` -> params
@@ -14,6 +14,10 @@
     Both multi-token steps return logits for EVERY row, the
     speculative-decode verification contract.
   * ``effective_window(seq_len)`` -> attention window for a shape
+
+The recurrent families have no paged steps (their decode state is O(1)
+recurrent, not a growing KV sequence), so they serve through the
+dense-slot engine; their ``loss`` raises (training them is ROADMAP A7).
 """
 from __future__ import annotations
 
@@ -21,7 +25,7 @@ import dataclasses
 from typing import Any, Callable, Optional, Tuple
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import transformer
+from repro_torch.models import recurrent, transformer
 
 # full-attention archs switch to their long-context SWA variant above this
 LONG_CONTEXT_THRESHOLD = 65_536
@@ -69,11 +73,39 @@ class ModelAPI:
         return 0
 
 
+# the recurrent families: (init, forward, init_cache, decode_step)
+_RECURRENT = {
+    "hybrid": (recurrent.init_zamba_params, recurrent.zamba_forward,
+               recurrent.init_zamba_cache, recurrent.zamba_decode_step),
+    "ssm": (recurrent.init_xlstm_params, recurrent.xlstm_forward,
+            recurrent.init_xlstm_cache, recurrent.xlstm_decode_step),
+}
+
+
+def _no_training(cfg: ArchConfig):
+    def loss(*_args, **_kw):
+        raise NotImplementedError(
+            f"training {cfg.name} ({cfg.family}) is not ported yet (ROADMAP "
+            "A7): the SSD and mLSTM kernels have no backward")
+    return loss
+
+
 def build_model(cfg: ArchConfig) -> ModelAPI:
+    if cfg.family in _RECURRENT:
+        init, forward, init_cache, decode_step = _RECURRENT[cfg.family]
+        return ModelAPI(
+            cfg=cfg,
+            init=lambda **kw: init(cfg, **kw),
+            loss=_no_training(cfg),
+            forward=lambda p, t, **kw: forward(p, t, cfg, **kw),
+            init_cache=lambda b, n, **kw: init_cache(cfg, b, n, **kw),
+            decode_step=lambda p, c, t, **kw: decode_step(p, c, t, cfg,
+                                                          **kw),
+        )
     if cfg.family != "dense":
         raise NotImplementedError(
             f"{cfg.family} models ({cfg.name}) are not ported yet: MoE, VLM "
-            "and the slot-engine families are ROADMAP item A6")
+            "and the encoder-decoder family are ROADMAP item A6")
     return ModelAPI(
         cfg=cfg,
         init=lambda **kw: transformer.init_params(cfg, **kw),

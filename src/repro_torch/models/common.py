@@ -61,14 +61,28 @@ def is_norm_key(key: str) -> bool:
     return key.endswith(("norm", "norm_scale"))
 
 
+# recurrent-family parameters that the reference reads in float32
+# arithmetic whatever the compute dtype (Mamba2's decay and step bias,
+# the mLSTM and sLSTM gates)
+FLOAT32_KEYS = frozenset({"A_log", "dt_bias", "w_if", "b_i", "b_f",
+                          "w_gates", "b_gates", "r_gates"})
+
+
+def keeps_float32(key: str) -> bool:
+    """Parameters stored and read in float32 whatever the compute dtype:
+    the norms and :data:`FLOAT32_KEYS`."""
+    return is_norm_key(key) or key in FLOAT32_KEYS
+
+
 def cast_weights(tree: Dict, dtype: torch.dtype, *,
                  keep_norms: bool = True) -> Dict:
-    """Every float leaf (outside the norms, with ``keep_norms``) cast to
-    ``dtype`` with a differentiable ``.to`` (a leaf already in ``dtype``
-    is returned as is), so gradients reach the masters."""
+    """Every float leaf (outside the norms and the other float32 keys,
+    with ``keep_norms``: :func:`keeps_float32`) cast to ``dtype`` with a
+    differentiable ``.to`` (a leaf already in ``dtype`` is returned as
+    is), so gradients reach the masters."""
     def conv(node, is_norm: bool):
         if isinstance(node, dict):
-            return {k: conv(v, is_norm or (keep_norms and is_norm_key(k)))
+            return {k: conv(v, is_norm or (keep_norms and keeps_float32(k)))
                     for k, v in node.items()}
         if is_norm or not node.is_floating_point():
             return node

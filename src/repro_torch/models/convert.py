@@ -1,5 +1,5 @@
-"""Parameters of the reference package in the port's layout: the dense
-transformer (:func:`from_reference_params`) and BraggNN
+"""Parameters of the reference package in the port's layout: the LM
+families (:func:`from_reference_params`) and BraggNN
 (:func:`braggnn_from_reference_params`).
 
 jax and torch generators give different numbers from the same seed, so
@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models.common import is_norm_key
+from repro_torch.models.common import keeps_float32
 
 
 def from_reference_params(tree: Dict[str, Any], *, device="cuda",
@@ -24,9 +24,11 @@ def from_reference_params(tree: Dict[str, Any], *, device="cuda",
     """Convert the reference's parameter pytree (nested dicts of numpy
     arrays) into tensors on ``device``.  Weights and biases take ``dtype``
     (the compute dtype, or float32 for training masters); norm parameters
-    (``common.is_norm_key``) stay float32, as the port's own
-    ``init_params`` keeps them.
-    The layer-stacked ``blocks`` layout (leading layer axis) is kept."""
+    and the recurrent families' gate and decay parameters
+    (``common.keeps_float32``) stay float32, as the port's own inits keep
+    them.  The stacked layouts are kept: the dense family's ``blocks``
+    (leading layer axis), zamba2's ``segments`` (n_seg, per, ...) and
+    xLSTM's ``mlstm`` (n_seg, n_mlstm, ...) and ``slstm`` (n_seg, ...)."""
     if "head_blocks" in tree:
         raise NotImplementedError(
             "unstacked leading dense blocks belong to the MoE family "
@@ -35,7 +37,7 @@ def from_reference_params(tree: Dict[str, Any], *, device="cuda",
 
     def conv(node, is_norm: bool):
         if isinstance(node, dict):
-            return {k: conv(v, is_norm or is_norm_key(k))
+            return {k: conv(v, is_norm or keeps_float32(k))
                     for k, v in node.items()}
         arr = np.asarray(node)
         return torch.from_numpy(np.array(arr, copy=True)).to(

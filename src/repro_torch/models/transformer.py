@@ -30,8 +30,66 @@ from repro_torch.models.common import (apply_norm, cast_weights, dense_init_,
 def _check_family(cfg: ArchConfig) -> None:
     if cfg.moe is not None or cfg.family != "dense":
         raise NotImplementedError(
-            f"{cfg.name}: the port serves the dense transformer family; MoE "
-            "and the other families are ROADMAP item A6")
+            f"{cfg.name}: this module serves the dense transformer family "
+            "(zamba2 and xLSTM are models/recurrent.py); MoE is ROADMAP "
+            "item A6")
+
+
+def attention_params(cfg: ArchConfig, n: int, g: torch.Generator, *,
+                     device, dtype: torch.dtype) -> Dict:
+    """``n`` stacked attention layers with the reference's init scales
+    (``layers.attention_params``), weights in ``dtype``."""
+    d, L = cfg.d_model, cfg.n_layers
+    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=dtype, device=device)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    attn = {"wq": empty(n, d, H, D), "wk": empty(n, d, Hkv, D),
+            "wv": empty(n, d, Hkv, D), "wo": empty(n, H, D, d)}
+    # reference: dense_init((H, D, d), in_axis=0, scale=1/sqrt(2L)) then
+    # rescaled by sqrt(D) / sqrt(H * D), i.e. std = 1 / (sqrt(2L) * H)
+    wo_std = (fan_in_std((H, D, d), scale=1.0 / (2 * L) ** 0.5)
+              * D ** 0.5 / (H * D) ** 0.5)
+    for l in range(n):
+        dense_init_(attn["wq"][l], g, std=fan_in_std((d,)))
+        dense_init_(attn["wk"][l], g, std=fan_in_std((d,)))
+        dense_init_(attn["wv"][l], g, std=fan_in_std((d,)))
+        dense_init_(attn["wo"][l], g, std=wo_std)
+    if cfg.use_bias:
+        attn.update(bq=zeros(n, H, D), bk=zeros(n, Hkv, D),
+                    bv=zeros(n, Hkv, D), bo=zeros(n, d))
+    if cfg.qk_norm:
+        attn["q_norm_scale"] = torch.ones((n, D), device=device)
+        attn["k_norm_scale"] = torch.ones((n, D), device=device)
+    return attn
+
+
+def mlp_params(cfg: ArchConfig, n: int, g: torch.Generator, *, device,
+               dtype: torch.dtype) -> Dict:
+    """``n`` stacked MLPs with the reference's init scales
+    (``layers.mlp_params``), weights in ``dtype``."""
+    d, ff = cfg.d_model, cfg.d_ff
+    gated = cfg.mlp_type in ("swiglu", "geglu")
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=dtype, device=device)
+
+    mlp = {"w_up": empty(n, d, ff), "w_down": empty(n, ff, d)}
+    if gated:
+        mlp["w_gate"] = empty(n, d, ff)
+    for l in range(n):
+        if gated:
+            dense_init_(mlp["w_gate"][l], g, std=fan_in_std((d,)))
+        dense_init_(mlp["w_up"][l], g, std=fan_in_std((d,)))
+        dense_init_(mlp["w_down"][l], g, std=fan_in_std((ff,)))
+    if cfg.use_bias:
+        mlp.update(b_up=torch.zeros((n, ff), dtype=dtype, device=device),
+                   b_down=torch.zeros((n, d), dtype=dtype, device=device))
+    return mlp
 
 
 def init_params(cfg: ArchConfig, *, seed: int = 0, device="cuda",
@@ -44,57 +102,21 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device="cuda",
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
     L, d, V = cfg.n_layers, cfg.d_model, cfg.vocab_size
-    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-
-    def empty(*shape):
-        return torch.empty(shape, dtype=dtype, device=dev)
-
-    def zeros(*shape):
-        return torch.zeros(shape, dtype=dtype, device=dev)
-
-    attn = {"wq": empty(L, d, H, D), "wk": empty(L, d, Hkv, D),
-            "wv": empty(L, d, Hkv, D), "wo": empty(L, H, D, d)}
-    # reference: dense_init((H, D, d), in_axis=0, scale=1/sqrt(2L)) then
-    # rescaled by sqrt(D) / sqrt(H * D), i.e. std = 1 / (sqrt(2L) * H)
-    wo_std = (fan_in_std((H, D, d), scale=1.0 / (2 * L) ** 0.5)
-              * D ** 0.5 / (H * D) ** 0.5)
-    for l in range(L):
-        dense_init_(attn["wq"][l], g, std=fan_in_std((d,)))
-        dense_init_(attn["wk"][l], g, std=fan_in_std((d,)))
-        dense_init_(attn["wv"][l], g, std=fan_in_std((d,)))
-        dense_init_(attn["wo"][l], g, std=wo_std)
-    if cfg.use_bias:
-        attn.update(bq=zeros(L, H, D), bk=zeros(L, Hkv, D),
-                    bv=zeros(L, Hkv, D), bo=zeros(L, d))
-    if cfg.qk_norm:
-        attn["q_norm_scale"] = torch.ones((L, D), device=dev)
-        attn["k_norm_scale"] = torch.ones((L, D), device=dev)
-
-    ff = cfg.d_ff
-    gated = cfg.mlp_type in ("swiglu", "geglu")
-    mlp = {"w_up": empty(L, d, ff), "w_down": empty(L, ff, d)}
-    if gated:
-        mlp["w_gate"] = empty(L, d, ff)
-    for l in range(L):
-        if gated:
-            dense_init_(mlp["w_gate"][l], g, std=fan_in_std((d,)))
-        dense_init_(mlp["w_up"][l], g, std=fan_in_std((d,)))
-        dense_init_(mlp["w_down"][l], g, std=fan_in_std((ff,)))
-    if cfg.use_bias:
-        mlp.update(b_up=zeros(L, ff), b_down=zeros(L, d))
-
+    kw = dict(device=dev, dtype=dtype)
     blocks = {"attn_norm": norm_params(cfg.norm_type, d, cfg.use_bias, n=L,
                                        device=dev),
-              "attn": attn, "mlp": mlp}
+              "attn": attention_params(cfg, L, g, **kw),
+              "mlp": mlp_params(cfg, L, g, **kw)}
     if not cfg.parallel_block:
         blocks["mlp_norm"] = norm_params(cfg.norm_type, d, cfg.use_bias,
                                          n=L, device=dev)
     final = norm_params(cfg.norm_type, d, cfg.use_bias, n=1, device=dev)
-    p = {"embed": {"embedding": embed_init_(empty(V, d), g)},
+    p = {"embed": {"embedding": embed_init_(torch.empty((V, d), **kw), g)},
          "final_norm": {k: v[0] for k, v in final.items()},
          "blocks": blocks}
     if not cfg.tie_embeddings:
-        p["head"] = {"w": dense_init_(empty(d, V), g, std=fan_in_std((d,)))}
+        p["head"] = {"w": dense_init_(torch.empty((d, V), **kw), g,
+                                      std=fan_in_std((d,)))}
     return p
 
 

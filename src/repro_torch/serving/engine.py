@@ -11,7 +11,7 @@ The counterpart of ``repro/serving/engine.py``:
     (``tiled=False``) and the rectangular (lanes, chunk) batch
     (``ragged=False``), each through its own Hopper kernel.
   * :class:`SlotDecodeEngine` — the dense per-lane oracle over
-    ``decode_step``.
+    ``decode_step``, and the serving path of the recurrent families.
   * :func:`DecodeEngine` — the facade picking between them.
 
 The host side (scheduler, block manager, proposer, batch builders) is the
@@ -681,10 +681,14 @@ class SlotDecodeEngine:
                 req = self.queue.pop(0)
                 req.begin_run(slot)
                 self.active[slot] = req
-                # a new occupant starts at position 0 and never sees its
-                # predecessor's KV
-                self.cache["slot_positions"][slot] = -1
-                self.cache["pos"][slot] = 0
+                if "slot_positions" in self.cache and "scan" in self.cache:
+                    # the transformer family's KV cache: a new occupant
+                    # starts at position 0 and never sees its
+                    # predecessor's KV.  The recurrent families (zamba2,
+                    # xLSTM) keep the reference's behaviour: their lane
+                    # state and position carry over to the new occupant.
+                    self.cache["slot_positions"][slot] = -1
+                    self.cache["pos"][slot] = 0
 
     def step(self) -> None:
         """One engine iteration: one token per active slot."""

@@ -284,8 +284,10 @@ def cuda_device():
 
 
 # B, H, Hkv, S, D, window, causal, layout: ragged S, GQA, windows, every
-# head dim, and the kernels' non-causal mode
+# head dim (80: zamba2-2.7b's shared attention), and the kernels'
+# non-causal mode
 CUDA_CASES = [(1, 2, 1, 128, 64, 0, True, "bhsd"),
+              (1, 4, 4, 230, 80, 0, True, "bshd"),
               (2, 4, 2, 200, 64, 0, True, "bshd"),
               (1, 8, 2, 300, 128, 40, True, "bhsd"),
               (1, 2, 2, 257, 256, 0, True, "bshd"),

@@ -60,8 +60,8 @@ def test_source_imports_no_jax_and_no_repro(path):
 
 def test_default_device_is_the_card():
     """Built with the default device on a machine without CUDA, the
-    engine, the model init and the caches raise instead of running on
-    the CPU."""
+    engines, the model inits and the caches (dense, zamba2 and xLSTM)
+    raise instead of running on the CPU."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device works")
     from repro_torch.configs import get_config
@@ -76,6 +76,17 @@ def test_default_device_is_the_card():
     params = api.init(seed=0, device="cpu", dtype=torch.float32)
     with pytest.raises(RuntimeError, match="CUDA"):
         PagedDecodeEngine(api, params, n_slots=2, cache_len=16)
+    # the recurrent families: init, caches and their slot engine
+    from repro_torch.serving.engine import DecodeEngine
+    for arch in ("zamba2-2.7b", "xlstm-1.3b"):
+        api = build_model(get_config(arch).smoke_variant())
+        with pytest.raises(RuntimeError, match="CUDA"):
+            api.init(seed=0)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            api.init_cache(2, 16)
+        params = api.init(seed=0, device="cpu", dtype=torch.float32)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            DecodeEngine(api, params, n_slots=2, cache_len=16)
 
 
 def test_kernel_build_needs_nvcc_and_is_keyed_by_source(monkeypatch,
@@ -84,8 +95,10 @@ def test_kernel_build_needs_nvcc_and_is_keyed_by_source(monkeypatch,
     library is named by its source and flags, so an edit rebuilds."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mlstm_scan as ml
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import pseudo_voigt as pv
+    from repro_torch.kernels import ssm_scan as ssd
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
@@ -96,24 +109,27 @@ def test_kernel_build_needs_nvcc_and_is_keyed_by_source(monkeypatch,
     monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-G",))
     assert _build.library_path(pa.TILED) != path
     assert set(_build.sources()) == {pa.TILED, pa.RAGGED, pa.ROWS, pv.PV,
-                                     fa.FWD, fa.BWD}
+                                     fa.FWD, fa.BWD, ssd.SRC, ml.MLSTM}
 
 
 def test_kernel_build_key_covers_shared_headers(monkeypatch, tmp_path):
-    """The paged-attention kernels include their shared header and the
-    flash-attention kernels theirs: editing either changes every library
-    path, so no stale library is reused."""
+    """The paged-attention kernels include their shared header, the
+    flash-attention kernels theirs and the two scans theirs: editing any
+    changes every library path, so no stale library is reused."""
     import shutil
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mlstm_scan as ml
     from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ssm_scan as ssd
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, csrc)
     monkeypatch.setattr(_build, "CSRC", csrc)
     names = _build.sources()
     for header, users in (("paged_attention_common.cuh",
                            (pa.TILED, pa.RAGGED, pa.ROWS)),
-                          ("flash_attention_common.cuh", (fa.FWD, fa.BWD))):
+                          ("flash_attention_common.cuh", (fa.FWD, fa.BWD)),
+                          ("scan_common.cuh", (ssd.SRC, ml.MLSTM))):
         assert all(f'#include "{header}"' in (csrc / f"{n}.cu").read_text()
                    for n in users)
         before = {n: _build.library_path(n) for n in names}
