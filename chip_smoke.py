@@ -45,7 +45,11 @@ printing its own line(s):
    (S 4096, 16 x 256 heads) and at starcoder2-7b's heads with its sliding
    window (S 8192, 36 q and 4 kv heads x 128, window 4096), each with its
    time, the plain version's, ``scaled_dot_product_attention``'s and the
-   least time the card could take; (b) gemma-7b at its published width,
+   least time the card could take, and its achieved TFLOP/s and share of
+   that bound; bfloat16 runs the tensor-core kernels (wgmma fed by TMA:
+   the phase counts the ``HGMMA`` instructions ``cuobjdump -sass`` finds in
+   each of their libraries and fails on none), float32 the FMA kernels,
+   which are timed too; (b) gemma-7b at its published width,
    depth cut to 4 of 28 layers (float32 AdamW state for 28 does not fit
    80 GB), float32 masters and bfloat16 compute, trained 10
    ``make_train_step_fn`` steps on ``TRAIN_4K``'s sequence at batch 1:
@@ -111,7 +115,9 @@ PV_TOL = 1e-5
 #   (2^-7 of the value), the most that two roundings to bfloat16 of nearly
 #   equal float32 values can differ by.  The atol covers the float32
 #   difference before that rounding.  In the backward that is summation
-#   order only (reading 3.7e-6).  In the forward the kernel rounds the
+#   order and the tensor cores' accumulation (the kernels carry float32
+#   sums tile by tile, and split p and ds into three bf16 terms; PERF.md
+#   has the readings).  In the forward the kernel rounds the
 #   softmax weights to bfloat16 before PV, as the TPU kernel does and the
 #   plain version does not; that error scales with the row (a row
 #   averaging n keys has values and errors ~1/sqrt(n) of |v|), so o's atol
@@ -901,14 +907,44 @@ def _fa_check_all(label, q, k, v, do, kw, f32: bool):
     return o, lse, err_f, err_o, err_b
 
 
+def _fa_flops(B, H, S, D, window, flops_per_pair) -> float:
+    """The operations of one flash-attention kernel on its inputs (the
+    function's, as ``_fa_bound`` counts them)."""
+    return flops_per_pair * D * _visible_pairs(S, window) * B * H
+
+
+def _fa_rate(name, label, ms, flops, bound_ms) -> None:
+    print(f"kernel rate [{name} {label}]: {flops / ms / 1e9:.1f} TFLOP/s "
+          f"({flops / 1e9:.1f} GFLOP in {ms:.4f} ms), "
+          f"{bound_ms / ms:.3f} of its bound", flush=True)
+
+
+def _fa_tensor_core_check() -> None:
+    """The bf16 flash-attention libraries must hold wgmma (SASS HGMMA)
+    and TMA loads (UTMALDG); the float32 ones are FMA code."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    counts = {src: (_build.sass_count(src, "HGMMA"),
+                    _build.sass_count(src, "UTMALDG"))
+              for src in (fa.FWD_TC, fa.BWD_TC, fa.FWD, fa.BWD)}
+    print("flash libraries (cuobjdump -sass): " + ", ".join(
+        f"{src} HGMMA={h} UTMALDG={t}" for src, (h, t) in counts.items()),
+        flush=True)
+    if not all(h and t for h, t in (counts[fa.FWD_TC], counts[fa.BWD_TC])):
+        raise AssertionError("a bf16 flash-attention library holds no "
+                             "HGMMA or no TMA load")
+
+
 def phase_flash_kernels():
     """B6, B6f, dq and dk/dv against their plain versions at gemma-7b's
-    training shape and at starcoder2-7b's heads and window.  Returns
-    {kernel: numbers} at gemma-7b's shape; raises on any disagreement."""
+    training shape and at starcoder2-7b's heads and window; the bf16
+    kernels' SASS must hold HGMMA.  Returns {kernel: numbers} at gemma-7b's
+    shape; raises on any disagreement."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref as kref
+    _fa_tensor_core_check()
     cases = [("gemma-7b S=4096", 1, 16, 16, 4096, 256, 0),
              ("starcoder2-7b S=8192 window=4096", 1, 36, 4, 8192, 128, 4096)]
     results = {}
@@ -925,10 +961,23 @@ def phase_flash_kernels():
         print(f"flash inputs [{label}]: B={B} H={H} Hkv={Hkv} S={S} D={D} "
               f"window={window} bf16, visible pairs per head="
               f"{_visible_pairs(S, window)}", flush=True)
-        # float32 copies of the same values first, then the path's bf16
+        # float32 copies of the same values first (checked, then the FMA
+        # kernels timed), then the path's bf16
         f32 = [t.float() for t in (q, k, v, do)]
-        _fa_check_all(label, *f32, kw, f32=True)
-        del f32
+        o32, lse32 = _fa_check_all(label, *f32, kw, f32=True)[:2]
+        t32 = {fa.B6: _median_ms(lambda: fa.flash_attention(*f32[:3], **kw),
+                                 reps=3, inner=1, warmup=1)}
+        for name in (fa.B6_DQ, fa.B6_DKV):
+            t32[name] = _median_ms(_bwd_kernel_call(
+                name, *f32[:3], o32, lse32, f32[3], kw), reps=3, inner=1,
+                warmup=1)
+        for name, per_pair in ((fa.B6, 4), (fa.B6_DQ, 6), (fa.B6_DKV, 8)):
+            rate = _fa_flops(B, H, S, D, window, per_pair) / t32[name] * 1e3
+            print(f"kernel check [{name} {label} float32 FMA]: "
+                  f"ms={t32[name]:.4f} {rate / 1e12:.1f} TFLOP/s "
+                  f"({rate / F32_FLOPS:.3f} of the float32 peak)", flush=True)
+        del f32, o32, lse32
+        torch.cuda.empty_cache()
         o, lse, err_f, err_o, err_b = _fa_check_all(label, q, k, v, do, kw,
                                                     f32=False)
 
@@ -992,7 +1041,8 @@ def phase_flash_kernels():
             results.setdefault(name, {})[label] = dict(
                 max_abs_err=err_b, ms=ms, plain_ms=plain_b,
                 library_ms=lib_b, bound_ms=bound_ms, bound_by=bound_by)
-        for name in (fa.B6, fa.B6F, fa.B6_DQ, fa.B6_DKV):
+        for name, per_pair in ((fa.B6, 4), (fa.B6F, 4), (fa.B6_DQ, 6),
+                               (fa.B6_DKV, 8)):
             r = results[name][label]
             print(f"kernel check [{name} {label}]: ms={r['ms']:.4f} "
                   f"plain_ms={r['plain_ms']:.4f} "
@@ -1000,6 +1050,8 @@ def phase_flash_kernels():
                   f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']})"
                   + (" (plain and library: the whole backward)"
                      if name in (fa.B6_DQ, fa.B6_DKV) else ""), flush=True)
+            _fa_rate(name, label, r["ms"],
+                     _fa_flops(B, H, S, D, window, per_pair), r["bound_ms"])
         del q, k, v, do, o, lse
         torch.cuda.empty_cache()
     return {name: c[cases[0][0]] for name, c in results.items()}
@@ -1022,7 +1074,7 @@ def _bwd_kernel_call(name, q, k, v, o, lse, do, kw):
 # ---------------------------------------------------------------------------
 def _group_train(name: str) -> str:
     """Kernel family of a device kernel name in a training step."""
-    if "flash_attention::" in name:
+    if "flash_attention::" in name or "flash_wgmma" in name:
         return "flash attention"
     if any(k in name for k in ("nvjet", "gemm", "splitKreduce", "cutlass")):
         return "gemm"
@@ -1412,6 +1464,8 @@ def phase_scan_kernels():
           f"max_abs_err={err:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f} "
           f"library_ms={lib:.4f} bound_ms={bound_ms:.4f} ({bound_by})",
           flush=True)
+    _fa_rate(fa.B6, f"zamba2-2.7b D={D} S={S} bf16", ms,
+             _fa_flops(1, H, S, D, 0, 4), bound_ms)
     del q, k, v
     torch.cuda.empty_cache()
     return results
@@ -1570,7 +1624,8 @@ def _sync() -> None:
         torch.cuda.synchronize()
 
 
-# each kernel, its source in csrc/ and the TPU kernel it replaces
+# each kernel, its source in csrc/ on the main path (bf16: the flash
+# kernels' tensor-core sources) and the TPU kernel it replaces
 KERNELS = [("paged_attention_tiled", "paged_attention_tiled",
             "paged_attention.py:373"),
            ("paged_attention_ragged", "paged_attention_ragged",
@@ -1578,12 +1633,13 @@ KERNELS = [("paged_attention_tiled", "paged_attention_tiled",
            ("paged_attention_rows", "paged_attention_rows",
             "paged_attention.py:109"),
            ("pseudo_voigt", "pseudo_voigt", "pseudo_voigt.py:81"),
-           ("flash_attention", "flash_attention_fwd", "flash_attention.py:96"),
-           ("flash_attention_lse", "flash_attention_fwd",
+           ("flash_attention", "flash_attention_fwd_wgmma",
+            "flash_attention.py:96"),
+           ("flash_attention_lse", "flash_attention_fwd_wgmma",
             "flash_attention.py:266"),
-           ("flash_attention_dq", "flash_attention_bwd",
+           ("flash_attention_dq", "flash_attention_bwd_wgmma",
             "flash_attention.py:316"),
-           ("flash_attention_dkv", "flash_attention_bwd",
+           ("flash_attention_dkv", "flash_attention_bwd_wgmma",
             "flash_attention.py:337"),
            ("ssd_scan", "ssm_scan", "ssm_scan.py:74"),
            ("mlstm_scan", "mlstm_scan", "mlstm_scan.py:89")]

@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -88,6 +89,16 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(path))
         _libs[name] = lib
     return lib
+
+
+def sass_count(name: str, opcode: str) -> int:
+    """How many ``opcode`` instructions (for example ``HGMMA``, Hopper's
+    wgmma) ``cuobjdump -sass`` finds in the built library of
+    ``csrc/<name>.cu``."""
+    tool = Path(nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(build([name])[name])],
+                          capture_output=True, text=True, check=True).stdout
+    return len(re.findall(rf"\b{opcode}\b", sass))
 
 
 def sources() -> List[str]:

@@ -1,5 +1,6 @@
 // Flash-attention backward for Hopper (sm_90a): B6b, as two kernels, dq
-// and dk/dv.
+// and dk/dv, for float32 inputs (bfloat16 runs the tensor-core kernels of
+// flash_attention_bwd_wgmma.cu).
 //
 // Replaces the TPU kernels of repro/kernels/flash_attention.py::_flash_bwd:
 // _dq_kernel and _dkv_kernel.  Inputs are the forward's q (B, H, S, D),
@@ -10,7 +11,6 @@
 // scale, p = exp(s - lse) inside the causal/window mask and 0 outside,
 // dp = do . v, ds = p * (dp - delta) * scale; dq = ds k, dk = ds^T q and
 // dv = p^T do, dk and dv summed over the G query heads of their kv head.
-// Outputs are in the input type.
 //
 // Schedules (the TPU's sequential grid axes become loops inside a block):
 //   * dq: one block per (q tile of 64 rows, head, batch); q, do, lse and
@@ -272,7 +272,6 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
   a.scale = scale; a.causal = causal; a.window = window;
   const cudaStream_t st_ = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_d<float>(a, B, D, dkv, st_);
-  if (dtype == 1) return launch_d<__nv_bfloat16>(a, B, D, dkv, st_);
   return cudaErrorInvalidValue;
 }
 
@@ -283,9 +282,9 @@ extern "C" {
 
 // Both entry points take the same arguments: q, k, v, do (like q), lse
 // and delta (contiguous (B, H, S) float32), and the outputs dq (like q),
-// dk and dv (like k, v), all of one type (dtype 0: float32, 1: bfloat16),
-// d contiguous, 16-byte aligned; ``strides`` holds the (b, h, s) element
-// strides of q, k, v, do, dq, dk and dv, 21 values.  D in {64, 80, 128, 256}.
+// dk and dv (like k, v), all float32 (dtype 0), d contiguous, 16-byte
+// aligned; ``strides`` holds the (b, h, s) element strides of q, k, v, do,
+// dq, dk and dv, 21 values.  D in {64, 80, 128, 256}.
 // The dq launch writes only dq, the dk/dv launch only dk and dv.  Each
 // returns cudaGetLastError() after its launch.
 int flash_attention_dq_launch(const void* q, const void* k, const void* v,

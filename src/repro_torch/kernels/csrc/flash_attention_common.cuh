@@ -7,8 +7,8 @@
 // and dk/dv) all work on logical (B, H, S, D) tensors given by their
 // element strides over (b, h, s), with d contiguous, so the model's
 // (B, S, H, D) activations are read in place through transposed views.
-// Every kernel computes in float32 whatever the input type (float32 or
-// bfloat16), as the TPU kernels do.
+// These are the float32 kernels (float32 FMAs on the CUDA cores); bfloat16
+// inputs run the tensor-core kernels of flash_attention_{fwd,bwd}_wgmma.cu.
 //
 // Geometry: a block of 256 threads.  A q tile has kBQ = 64 rows and a kv
 // tile kBKV = 32 keys.  For a score tile, thread t = 16 * ty + tx owns
@@ -23,7 +23,6 @@
 // different rows never collide.
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -49,48 +48,11 @@ __device__ __forceinline__ void load8(const float* p, float* o) {
   o[4] = b.x; o[5] = b.y; o[6] = b.z; o[7] = b.w;
 }
 
-// a bfloat16 is the high half of a float32
-__device__ __forceinline__ void widen2(uint32_t w, float* o) {
-  o[0] = __uint_as_float(w << 16);
-  o[1] = __uint_as_float(w & 0xffff0000u);
-}
-
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* o) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  widen2(u.x, o);
-  widen2(u.y, o + 2);
-  widen2(u.z, o + 4);
-  widen2(u.w, o + 6);
-}
-
 __device__ __forceinline__ void store4(float* p, const float* v) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
 }
 
-__device__ __forceinline__ void store4(__nv_bfloat16* p, const float* v) {
-  __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]);
-  __nv_bfloat162 b = __floats2bfloat162_rn(v[2], v[3]);
-  uint2 u;
-  u.x = *reinterpret_cast<uint32_t*>(&a);
-  u.y = *reinterpret_cast<uint32_t*>(&b);
-  *reinterpret_cast<uint2*>(p) = u;
-}
-
 __device__ __forceinline__ void store1(float* p, float v) { *p = v; }
-
-__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
-
-// x rounded to T and back (the TPU kernel's p.astype(v.dtype))
-template <typename T>
-__device__ __forceinline__ float round_to(float x);
-template <>
-__device__ __forceinline__ float round_to<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
 
 // Rows row0 .. row0 + R - 1 of one (b, h) slice (``src`` points at its row
 // 0, ``rs`` is the row stride) into ``dst`` (R rows of D + kPad floats),

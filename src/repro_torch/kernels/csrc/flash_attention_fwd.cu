@@ -1,17 +1,18 @@
 // Flash-attention forward for Hopper (sm_90a): B6 and, behind the ``lse``
-// flag, B6f.
+// flag, B6f, for float32 inputs (bfloat16, the models' type, runs the
+// tensor-core kernel of flash_attention_fwd_wgmma.cu).
 //
 // Replaces the TPU kernels repro/kernels/flash_attention.py::
 // flash_attention (body _attn_kernel) and _flash_fwd_lse (body
 // _attn_fwd_lse_kernel).  For q (B, H, S, D) and k/v (B, Hkv, S, D), query
 // head h reads kv head h / (H / Hkv); causal, with an optional sliding
-// window; o (B, H, S, D) in the input type and, for B6f, the logsumexp of
-// every query's masked scores, lse (B, H, S) float32 =
-// m + log(max(l, 1e-30)).  The arithmetic is the TPU kernel's: q is cast
-// to float32 and scaled by 1/sqrt(D) before QK^T, masked scores are -1e30,
-// the online softmax keeps the running max m, sum l and accumulator in
-// float32, the weights are rounded to the input type before PV (l sums
-// them unrounded), and o = acc / max(l, 1e-30).
+// window; o (B, H, S, D) and, for B6f, the logsumexp of every query's
+// masked scores, lse (B, H, S) = m + log(max(l, 1e-30)), all float32.
+// The arithmetic is the TPU kernel's: q is scaled by 1/sqrt(D) before
+// QK^T, masked scores are -1e30, the online softmax keeps the running max
+// m, sum l and accumulator, and o = acc / max(l, 1e-30) (the TPU kernel's
+// rounding of the weights to the input type before PV is the identity in
+// float32).
 //
 // Schedule: one block per (q tile of 64 rows, head, batch) loops over the
 // kv tiles of 32 keys that the causal and window bounds leave in band
@@ -119,7 +120,7 @@ __global__ void __launch_bounds__(kThreads, 1) fwd_kernel(FwdArgs a) {
       for (int c = 0; c < 2; ++c) {
         const float p = expf(s[i][c] - m_new);
         psum += p;
-        Ps[(ty + 16 * i) * kLDP + tx + 16 * c] = round_to<T>(p);
+        Ps[(ty + 16 * i) * kLDP + tx + 16 * c] = p;
       }
 #pragma unroll
       for (int off = 8; off > 0; off >>= 1)
@@ -176,11 +177,11 @@ cudaError_t launch_d(const FwdArgs& a, int B, int D, cudaStream_t stream) {
 
 extern "C" {
 
-// q (B, H, S, D), k/v (B, Hkv, S, D), o like q, all of one type (dtype 0:
-// float32, 1: bfloat16), d contiguous, 16-byte aligned; ``strides`` holds
-// the (b, h, s) element strides of q, k, v and o, 12 values.  ``lse`` is
-// null (B6) or a contiguous (B, H, S) float32 output (B6f).  D in
-// {64, 80, 128, 256}.  Returns cudaGetLastError() after the launch.
+// q (B, H, S, D), k/v (B, Hkv, S, D), o like q, all float32 (dtype 0), d
+// contiguous, 16-byte aligned; ``strides`` holds the (b, h, s) element
+// strides of q, k, v and o, 12 values.  ``lse`` is null (B6) or a
+// contiguous (B, H, S) float32 output (B6f).  D in {64, 80, 128, 256}.
+// Returns cudaGetLastError() after the launch.
 int flash_attention_fwd_launch(const void* q, const void* k, const void* v,
                                void* o, void* lse, const long long* strides,
                                int B, int H, int Hkv, int S, int D,
@@ -201,7 +202,6 @@ int flash_attention_fwd_launch(const void* q, const void* k, const void* v,
   a.scale = scale; a.causal = causal; a.window = window;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_d<float>(a, B, D, st);
-  if (dtype == 1) return launch_d<__nv_bfloat16>(a, B, D, st);
   return cudaErrorInvalidValue;
 }
 

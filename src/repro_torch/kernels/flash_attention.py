@@ -4,17 +4,25 @@ forward and the backward, and the differentiable
 
 Each kernel replaces TPU kernels of ``repro/kernels/flash_attention.py``:
 
-  * :func:`flash_attention` (``csrc/flash_attention_fwd.cu``) —
-    ``flash_attention`` (B6), the forward;
-  * :func:`flash_attention_lse` (the same source, with its logsumexp
+  * :func:`flash_attention` — ``flash_attention`` (B6), the forward;
+  * :func:`flash_attention_lse` (the same kernel, with its logsumexp
     output) — ``_flash_fwd_lse`` (B6f), the forward that training saves;
-  * :func:`flash_attention_bwd` (``csrc/flash_attention_bwd.cu``, two
-    kernels) — ``_flash_bwd``'s ``_dq_kernel`` and ``_dkv_kernel`` (B6b).
+  * :func:`flash_attention_bwd` (two kernels) — ``_flash_bwd``'s
+    ``_dq_kernel`` and ``_dkv_kernel`` (B6b).
+
+The input type picks the source: bfloat16, the models' type, runs on the
+tensor cores (``csrc/flash_attention_fwd_wgmma.cu``,
+``flash_attention_bwd_wgmma.cu``: wgmma fed by TMA); float32 runs float32
+FMAs on the CUDA cores (``csrc/flash_attention_fwd.cu``,
+``flash_attention_bwd.cu``), which the float32 agreement checks use.
+Neither stands in for the other.
 
 All take q (B, H, S, D) and k/v (B, Hkv, S, D) with any strides whose last
 one is 1 (transposed views of the model's (B, S, H, D) activations are
 read in place), causal with an optional sliding window; any S, since the
-kernels mask their ragged tail.  For CUDA tensors a wrapper checks its
+kernels mask their ragged tail.  The bfloat16 kernels load their tiles by
+TMA, which needs 16-byte aligned tensors and strides: the same layout
+check covers both.  For CUDA tensors a wrapper checks its
 inputs, allocates the outputs and launches on the current stream, or
 raises: there is no fallback.  For CPU tensors it runs the kernel's plain
 version in ``ref.py``.  ``launch_counts`` counts kernel launches by name,
@@ -30,8 +38,10 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
 
-FWD = "flash_attention_fwd"          # sources in csrc/
+FWD = "flash_attention_fwd"          # sources in csrc/: float32
 BWD = "flash_attention_bwd"
+FWD_TC = "flash_attention_fwd_wgmma"  # bfloat16, tensor cores
+BWD_TC = "flash_attention_bwd_wgmma"
 B6 = "flash_attention"               # launch counters
 B6F = "flash_attention_lse"
 B6_DQ = "flash_attention_dq"
@@ -43,22 +53,29 @@ launch_counts: Dict[str, int] = {B6: 0, B6F: 0, B6_DQ: 0, B6_DKV: 0}
 _fns: Dict[str, object] = {}
 
 
-def _kernel(name: str):
-    """The C launch function ``name`` (``flash_attention_fwd_launch``,
-    ``flash_attention_dq_launch`` or ``flash_attention_dkv_launch``), its
-    source built and bound on first use."""
-    if name not in _fns:
-        if name == "fwd":
-            fn = _build.load(FWD).flash_attention_fwd_launch
-            n_ptr = 5
-        else:
-            fn = getattr(_build.load(BWD), f"flash_attention_{name}_launch")
-            n_ptr = 9
+def _source(name: str, dtype: torch.dtype) -> str:
+    """The csrc/ source of kernel ``name`` for inputs of ``dtype``."""
+    tc = dtype == torch.bfloat16
+    return ((FWD_TC if tc else FWD) if name == "fwd"
+            else (BWD_TC if tc else BWD))
+
+
+def _kernel(name: str, dtype: torch.dtype):
+    """The C launch function of kernel ``name`` ("fwd", "dq" or "dkv")
+    for inputs of ``dtype`` (``flash_attention_{name}_launch`` in float32,
+    ``flash_attention_{name}_wgmma_launch`` in bfloat16), its source built
+    and bound on first use."""
+    tc = dtype == torch.bfloat16
+    key = f"{name}_wgmma" if tc else name
+    if key not in _fns:
+        fn = getattr(_build.load(_source(name, dtype)),
+                     f"flash_attention_{key}_launch")
+        n_ptr = 5 if name == "fwd" else 9
         fn.argtypes = ([ctypes.c_void_p] * (n_ptr + 1) + [ctypes.c_int] * 8
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        _fns[name] = fn
-    return _fns[name]
+        _fns[key] = fn
+    return _fns[key]
 
 
 def reset_launch_counts() -> None:
@@ -69,7 +86,8 @@ def reset_launch_counts() -> None:
 
 def _layout_ok(t: torch.Tensor) -> bool:
     """A contiguous last axis, 16-byte alignment and (b, h, s) strides of
-    whole 16-byte rows: what the kernels' vector loads need."""
+    multiples of 8 elements: what the float32 kernels' vector loads and
+    the bfloat16 kernels' TMA (16-byte strides) need."""
     return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
             and all(s % 8 == 0 for s in t.stride()[:3]))
 
@@ -122,11 +140,11 @@ def _forward(q, k, v, causal: bool, window: int, with_lse: bool):
     o = torch.empty_like(q)
     lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
            if with_lse else None)
-    _raise_on(_kernel("fwd")(
+    _raise_on(_kernel("fwd", q.dtype)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr() if with_lse else None, _strides(q, k, v, o), B, H,
         k.shape[1], S, D, _DTYPES[q.dtype], int(causal), window,
-        1.0 / D ** 0.5, _stream(q)), FWD)
+        1.0 / D ** 0.5, _stream(q)), _source("fwd", q.dtype))
     launch_counts[B6F if with_lse else B6] += 1
     return o, lse
 
@@ -188,12 +206,12 @@ def launch_bwd_kernel(which: str, q: torch.Tensor, k: torch.Tensor,
     checked and outputs it has allocated (``delta`` contiguous (B, H, S)
     float32); it runs both, and a timing can run one alone."""
     B, H, S, D = q.shape
-    _raise_on(_kernel(which)(
+    _raise_on(_kernel(which, q.dtype)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), _strides(q, k, v, do, dq, dk, dv), B, H, k.shape[1],
         S, D, _DTYPES[q.dtype], int(causal), window, 1.0 / D ** 0.5,
-        _stream(q)), f"{BWD} {which}")
+        _stream(q)), f"{_source(which, q.dtype)} {which}")
     launch_counts[B6_DQ if which == "dq" else B6_DKV] += 1
 
 

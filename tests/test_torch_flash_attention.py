@@ -12,15 +12,22 @@ logsumexp at ``atol = rtol = 2e-5``, gradients at ``atol = 2e-5, rtol =
 held to the reference's on both sides of ``chunk_threshold`` at the same
 tolerances.  The CUDA kernels themselves are held to the plain versions
 on the card; those cases are marked ``cuda`` and skip where there is no
-card.  The JAX side is imported by the tests that use it, so that the
+card.  The bfloat16 kernels' backward arithmetic (p and ds split into
+bfloat16 terms for the tensor cores) is emulated here in plain PyTorch
+and held to ``jax.grad`` of the reference's oracle.  The JAX side is imported by the tests that use it, so that the
 CUDA cases also run on a machine that has no JAX:
 
     python -m pytest -q --noconftest -m cuda tests/test_torch_flash_attention.py
 """
+import ctypes
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
@@ -272,6 +279,89 @@ def test_chunked_schedules_match_full_attention():
 
 
 # ---------------------------------------------------------------------------
+# The bfloat16 backward's arithmetic, emulated on the CPU
+# ---------------------------------------------------------------------------
+def _chip_smoke_limits():
+    """chip_smoke.py's bfloat16 gradient limits (rtol, atol, rel_l2)."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return (mod.FA_BF16_RTOL, mod.FA_BF16_GRAD_ATOL,
+            mod.FA_BF16_REL_L2["grad"])
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _split(x, terms):
+    """x as ``terms`` bfloat16 terms, each the rounding of what the ones
+    before it leave (``hopper_common.cuh::split_bf16``)."""
+    out = []
+    for _ in range(terms):
+        out.append(_bf16(x))
+        x = x - out[-1]
+    return out
+
+
+def _bf16_backward_emulation(q, k, v, do, o, lse, window, terms):
+    """(dq, dk, dv) as ``flash_attention_bwd_wgmma.cu`` computes them,
+    float32 sums standing in for the tensor cores': s and dp from the
+    bfloat16 inputs (products exact), the scale after the product, and p
+    and ds split into ``terms`` bfloat16 terms in dv = p^T do, dq = ds k
+    and dk = ds^T q; causal."""
+    B, H, S, D = q.shape
+    G = H // k.shape[1]
+    kx, vx = (t.repeat_interleave(G, dim=1) for t in (k, v))
+    s = (q @ kx.transpose(-1, -2)) * (1.0 / D ** 0.5)
+    p = torch.where(tref._band_mask(S, True, window, q.device),
+                    torch.exp(s - lse[..., None]), 0.0)
+    ds = p * (do @ vx.transpose(-1, -2) - (do * o).sum(-1)[..., None]) \
+        * (1.0 / D ** 0.5)
+    per_kv = lambda t: t.reshape(B, -1, G, S, D).sum(2)
+    dq = sum(t @ kx for t in _split(ds, terms))
+    dk = per_kv(sum(t.transpose(-1, -2) @ q for t in _split(ds, terms)))
+    dv = per_kv(sum(t.transpose(-1, -2) @ do for t in _split(p, terms)))
+    return dq, dk, dv
+
+
+# the card test's limits (below) for the kernels' three terms; two terms
+# read up to 1.4e-6 here, within chip_smoke's 2e-5 but not the card
+# test's 1e-6; one rounding (FlashAttention-2/3's) reads 1.7e-3-9.3e-3,
+# about 100x chip_smoke's atol and 5x its rel_l2
+@pytest.mark.parametrize("terms", [3, 2, 1])
+@pytest.mark.parametrize("D,window", [(64, 96), (80, 0)])
+def test_bf16_backward_split_arithmetic(jax_side, terms, D, window):
+    """The bfloat16 backward's arithmetic (bfloat16 inputs, o and lse of
+    the float32 forward, float32 sums) against ``jax.grad`` of the
+    reference's oracle on the same values, both rounded to bfloat16 as
+    the kernels' outputs are: three terms within the card test's limits,
+    two within chip_smoke.py's, and one rounding of p and ds beyond
+    chip_smoke.py's, which is why the kernels split them."""
+    jax, jnp = jax_side["jax"], jax_side["jnp"]
+    q, k, v, do = (_bf16(t) for t in _t(*_qkv(40, 1, 2, 1, 256, D)))
+    o, lse = tref.attention_lse_reference(q, k, v, window=window)
+    jct = jnp.asarray(do.numpy())
+    want = jax.grad(lambda *a: (jax_side["ref"].attention_reference(
+        *a, causal=True, window=window) * jct).sum(), argnums=(0, 1, 2))(
+        *(jnp.asarray(t.numpy()) for t in (q, k, v)))
+    got = _bf16_backward_emulation(q, k, v, do, o, lse, window, terms)
+    rtol, atol, rel_l2 = ((BF16_RTOL, BF16_GRAD_ATOL, BF16_REL_L2["grad"])
+                          if terms == 3 else _chip_smoke_limits())
+    worst_atol = worst_rel = 0.0
+    for a, b in zip(got, want):
+        a, b = _bf16(a), _bf16(torch.from_numpy(np.array(b)))
+        err = (a - b).abs()
+        worst_atol = max(worst_atol, (err - rtol * b.abs()).max().item())
+        worst_rel = max(worst_rel, (err.norm() / b.norm()).item())
+    within = worst_atol <= atol and worst_rel <= rel_l2
+    assert within == (terms > 1), (terms, worst_atol, worst_rel)
+    if terms == 1:
+        assert worst_atol > 50 * atol and worst_rel > 2 * rel_l2
+
+
+# ---------------------------------------------------------------------------
 # The CUDA kernels (run only where there is a card)
 # ---------------------------------------------------------------------------
 @pytest.fixture
@@ -285,7 +375,8 @@ def cuda_device():
 
 # B, H, Hkv, S, D, window, causal, layout: ragged S, GQA, windows, every
 # head dim (80: zamba2-2.7b's shared attention), and the kernels'
-# non-causal mode
+# non-causal mode; "mixed" reads q, k, v in the model's layout and do
+# contiguous, as autograd may hand it over
 CUDA_CASES = [(1, 2, 1, 128, 64, 0, True, "bhsd"),
               (1, 4, 4, 230, 80, 0, True, "bshd"),
               (2, 4, 2, 200, 64, 0, True, "bshd"),
@@ -293,17 +384,22 @@ CUDA_CASES = [(1, 2, 1, 128, 64, 0, True, "bhsd"),
               (1, 2, 2, 257, 256, 0, True, "bshd"),
               (2, 9, 1, 190, 128, 96, True, "bshd"),
               (1, 4, 2, 150, 64, 0, False, "bshd"),
-              (1, 4, 1, 170, 128, 50, False, "bhsd")]
+              (1, 4, 1, 170, 128, 50, False, "bhsd"),
+              (1, 2, 2, 1000, 256, 96, True, "bshd"),
+              (1, 9, 1, 1000, 80, 0, True, "bshd"),
+              (1, 4, 2, 200, 128, 0, True, "mixed")]
 
 
 # bfloat16 limits of the card tests: every element within one bfloat16 ulp
 # of the value (2^-7 |plain|, the most two roundings of nearly equal
 # values differ by) plus an atol for the float32 difference before the
 # rounding, and each output within BF16_REL_L2 in the 2-norm.  In the
-# backward that difference is summation order; in the forward the kernel
-# rounds the softmax weights to bfloat16, an error that scales with the
-# row, so o's atol is a share of its row's largest |plain|.  Each limit is
-# 3-6x its largest reading over CUDA_CASES on an H100
+# backward that difference is summation order and, for the tensor-core
+# kernels, their accumulation (the largest reading, 8.4e-7, is dq of the
+# D 128 window case); in the forward the kernel rounds the softmax
+# weights to bfloat16, an error that scales with the row, so o's atol is
+# a share of its row's largest |plain|.  Set at 3-6x the FMA kernels'
+# largest readings over CUDA_CASES on an H100
 BF16_RTOL = 2.0 ** -7
 BF16_O_ROW = 1e-2
 BF16_GRAD_ATOL = 1e-6
@@ -321,9 +417,12 @@ def test_cuda_kernels_match_plain_versions(cuda_device, dtype):
     for i, (B, H, Hkv, S, D, window, causal, layout) in enumerate(
             CUDA_CASES):
         q, k, v, do = (t.to(cuda_device, dtype) for t in
-                       _t(*_qkv(10 + i, B, H, Hkv, S, D, layout)))
-        if layout == "bshd":                 # the model's layout, in place
+                       _t(*_qkv(10 + i, B, H, Hkv, S, D,
+                                "bhsd" if layout == "bhsd" else "bshd")))
+        if layout != "bhsd":                 # the model's layout, in place
             q, k, v, do = (t.transpose(1, 2) for t in (q, k, v, do))
+        if layout == "mixed":
+            do = do.contiguous()
         kw = dict(causal=causal, window=window)
         o, lse = tfa.flash_attention_lse(q, k, v, **kw)
         want_o, want_lse = tref.attention_lse_reference(q, k, v, **kw)
@@ -379,6 +478,31 @@ def test_cuda_launch_counts_and_dispatch(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,rs", [(32, 0), (64, 0), (128, 0), (64, 1),
+                                  (80, 1), (128, 1), (256, 1)])
+def test_cuda_single_wgmma_matches_matmul(cuda_device, n, rs):
+    """One warpgroup's wgmma chain (K 64, four k-steps) from TMA-loaded
+    128-byte-swizzled tiles against a float32 matmul: the SS form with
+    both operands K-major (as q k^T) and the RS form with A in registers
+    and B MN-major (as p v), at every N the kernels use; products of
+    bfloat16 values are exact, so only the float32 sums differ."""
+    fn = _build.load(tfa.FWD_TC).flash_attention_wgmma_check
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(n + rs)
+    a = torch.randn((64, 64), generator=g, device=cuda_device).bfloat16()
+    b = torch.randn((64, n) if rs else (n, 64), generator=g,
+                    device=cuda_device).bfloat16()
+    c = torch.full((64, n), float("nan"), device=cuda_device)
+    assert fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), n, rs,
+              torch.cuda.current_stream(cuda_device).cuda_stream) == 0
+    want = a.float() @ (b.float() if rs else b.float().T)
+    torch.testing.assert_close(c, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
 def test_cuda_tensor_raises_instead_of_falling_back(cuda_device):
     """What the kernels do not take raises on the card: no plain
     fallback, no launch."""
@@ -395,4 +519,15 @@ def test_cuda_tensor_raises_instead_of_falling_back(cuda_device):
         tfa.flash_attention(q.transpose(2, 3), k, v)
     with pytest.raises(TypeError):
         tfa.flash_attention(q, k.to(torch.bfloat16), v)
+    # bfloat16 views TMA cannot read: a base 8 bytes off 16-byte
+    # alignment, and a row stride of 68 elements (136 bytes)
+    buf = torch.zeros((1, 64, 2 * 64 + 8), device=cuda_device,
+                      dtype=torch.bfloat16)
+    off = buf[..., 4:4 + 2 * 64].unflatten(-1, (2, 64)).transpose(1, 2)
+    bent = torch.zeros((1, 64, 68), device=cuda_device, dtype=torch.bfloat16
+                       )[..., :64].unsqueeze(2).transpose(1, 2)
+    kb, vb = k.to(torch.bfloat16), v.to(torch.bfloat16)
+    for bad in (off, bent):
+        with pytest.raises(ValueError, match="16-byte alignment"):
+            tfa.flash_attention(bad, kb, vb)
     assert sum(tfa.launch_counts.values()) == 0

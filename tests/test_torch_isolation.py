@@ -109,13 +109,15 @@ def test_kernel_build_needs_nvcc_and_is_keyed_by_source(monkeypatch,
     monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-G",))
     assert _build.library_path(pa.TILED) != path
     assert set(_build.sources()) == {pa.TILED, pa.RAGGED, pa.ROWS, pv.PV,
-                                     fa.FWD, fa.BWD, ssd.SRC, ml.MLSTM}
+                                     fa.FWD, fa.BWD, fa.FWD_TC, fa.BWD_TC,
+                                     ssd.SRC, ml.MLSTM}
 
 
 def test_kernel_build_key_covers_shared_headers(monkeypatch, tmp_path):
     """The paged-attention kernels include their shared header, the
-    flash-attention kernels theirs and the two scans theirs: editing any
-    changes every library path, so no stale library is reused."""
+    float32 and the tensor-core flash-attention kernels theirs and the two
+    scans theirs: editing any changes every library path, so no stale
+    library is reused."""
     import shutil
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
@@ -129,6 +131,7 @@ def test_kernel_build_key_covers_shared_headers(monkeypatch, tmp_path):
     for header, users in (("paged_attention_common.cuh",
                            (pa.TILED, pa.RAGGED, pa.ROWS)),
                           ("flash_attention_common.cuh", (fa.FWD, fa.BWD)),
+                          ("hopper_common.cuh", (fa.FWD_TC, fa.BWD_TC)),
                           ("scan_common.cuh", (ssd.SRC, ml.MLSTM))):
         assert all(f'#include "{header}"' in (csrc / f"{n}.cu").read_text()
                    for n in users)
