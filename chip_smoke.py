@@ -16,7 +16,12 @@ printing its own line(s):
    read (B2) on one mixed flat stream, the rectangular read (B3) on the
    same segments as a (lanes, chunk) batch and as one decode call; each
    with its time, the plain version's, one PyTorch library call's and
-   the least time the card could take;
+   the least time the card could take; B2 and B3 take bf16 q with bf16
+   or int8 pools through the tensor-core split sweep (the phase counts
+   the ``HMMA`` instructions ``cuobjdump -sass`` finds in their libraries
+   and fails on none, and prints B2's per-token bytes, the bytes its
+   reads must move, beside its bound), and their float32 FMA kernels are
+   checked and timed once on float32 copies of the gemma-7b stream;
 4. the main paths: ``PagedDecodeEngine`` serving gemma-7b at its
    published width (all 28 layers, random bf16 weights from a seed) on
    requests that share a system prompt, three times from the same
@@ -95,6 +100,10 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
 BF16_FLOPS = 989e12           # H100 SXM dense bf16 tensor-core peak
 F32_FLOPS = 67e12             # H100 SXM float32 peak outside the tensor cores
+# B2 and B3's FMA kernels on float32 copies of the phase-3 stream against
+# their plain versions: the same float32 arithmetic in another order
+# (readings on an H100 at most 1.4e-6, PERF.md), so any dropped key shows
+PAGED_F32_TOL = 1e-4
 # the paper's peaks per experiment (src/repro/core/costmodel.py:32)
 PAPER_PEAKS = 800_000
 # B7 against its plain version, |kernel - plain| <= PV_TOL * (1 + |plain|):
@@ -368,6 +377,75 @@ def _library_call(s, segs, q):
                                                   attn_mask=mask)
 
 
+def _per_token_bytes(s, segments) -> int:
+    """The K/V bytes the per-token read (B2) must move on these segments:
+    every token reads its lane's blocks up to its own position (from the
+    window's first on), each once; plus q and out once."""
+    q, k = s["q"], s["k"]
+    Hkv, D = k.shape[2], k.shape[3]
+    bs, window = s["bs"], s["window"]
+    per_key = Hkv * (D * k.element_size() + (4 if s["scales"] else 0)) * 2
+    blocks = rows = 0
+    for start, n in segments:
+        for p in range(start, start + n):
+            first = max(0, p - window + 1) if window else 0
+            blocks += p // bs - first // bs + 1
+        rows += n
+    return blocks * bs * per_key + 2 * rows * q.shape[-2] * D * \
+        q.element_size()
+
+
+def _tensor_core_check() -> None:
+    """The split-sweep libraries of B2 and B3 must hold tensor-core
+    instructions (SASS HMMA, mma.sync); the FMA ones hold none."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import paged_attention as pa
+    counts = {src: _build.sass_count(src, "HMMA")
+              for src in (pa.ROWS_TC, pa.RAGGED_TC, pa.ROWS, pa.RAGGED)}
+    print("paged libraries (cuobjdump -sass): " + ", ".join(
+        f"{src} HMMA={n}" for src, n in counts.items()), flush=True)
+    if not (counts[pa.ROWS_TC] and counts[pa.RAGGED_TC]):
+        raise AssertionError("a bf16 paged-attention library holds no HMMA")
+
+
+def _fma_checks(s, r, tol) -> dict:
+    """B2, B3 chunk and B3 decode on float32 copies of the stream (the
+    FMA kernels), against their plain versions, with their times."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_attention as pa
+    f = dict(s, q=s["q"].float(), k=s["k"].float(), v=s["v"].float())
+    segs, T = s["segments"], s["T"]
+    out = {}
+    pargs = (f["q"], f["k"], f["v"], s["token_tables"], s["token_pos"])
+    kw = dict(window=s["window"])
+    out[pa.RAGGED] = _check_kernel(
+        f"{pa.RAGGED} float32 FMA",
+        lambda: ops.paged_attention_ragged(*pargs, use_kernel=True, **kw),
+        lambda: ops.paged_attention_ragged(*pargs, use_kernel=False, **kw),
+        lambda o: o[:T], tol, _library_call(f, segs, f["q"][:T]),
+        _bound(f, segs, s["token_tables_np"].nbytes
+               + s["token_pos"].numel() * 4))
+    rargs = (r["q"].float(), f["k"], f["v"], s["tables"], r["q_starts"],
+             r["q_lens"])
+    out[pa.ROWS] = _check_kernel(
+        f"{pa.ROWS} chunk float32 FMA",
+        lambda: ops.paged_attention_chunk(*rargs, use_kernel=True, **kw),
+        lambda: ops.paged_attention_chunk(*rargs, use_kernel=False, **kw),
+        lambda o: torch.cat([o[b, :n] for b, (_, n) in enumerate(segs)]),
+        tol, _library_call(f, segs, f["q"][:T]),
+        _bound(f, segs, s["tables_np"].nbytes + 2 * 4 * len(segs)))
+    dargs = (r["q_dec"].float(), f["k"], f["v"], s["tables"], r["ctx_lens"])
+    out[pa.ROWS + " decode"] = _check_kernel(
+        f"{pa.ROWS} decode float32 FMA",
+        lambda: ops.paged_attention(*dargs, use_kernel=True, **kw),
+        lambda: ops.paged_attention(*dargs, use_kernel=False, **kw),
+        lambda o: o, tol,
+        _library_call(f, r["dec_segments"], r["q_dec"].float()),
+        _bound(f, r["dec_segments"], s["tables_np"].nbytes + 4 * len(segs)))
+    return out
+
+
 def _check_kernel(label, kernel, plain, rows, tol, lib, bound):
     """Run ``kernel()`` and ``plain()`` once, compare ``rows(out)`` (the
     real rows), time the kernel, the plain version and ``lib``; print one
@@ -395,8 +473,9 @@ def _check_kernel(label, kernel, plain, rows, tol, lib, bound):
 
 def phase_kernel_checks():
     """B1, B2 and B3 against their plain versions at three
-    configurations.  Returns {kernel: {config: numbers}}; raises if any
-    disagrees."""
+    configurations (B2 and B3 on float32 copies too, once), after the
+    tensor-core count of the B2 and B3 libraries.  Returns {kernel:
+    {config: numbers}}; raises if any disagrees."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels import paged_attention as pa
@@ -407,6 +486,7 @@ def phase_kernel_checks():
         ("gemma-7b int8", 16, 1, 256, torch.int8, 0, 5e-2),
         ("starcoder2-7b bf16 window", 4, 9, 128, torch.bfloat16, 256, 5e-2),
     ]
+    _tensor_core_check()
     results = {pa.TILED: {}, pa.RAGGED: {}, pa.ROWS: {},
                pa.ROWS + " decode": {}}
     for name, Hkv, G, D, pdt, window, tol in configs:
@@ -447,6 +527,15 @@ def phase_kernel_checks():
             real, tol, lib,
             _bound(s, segs, s["token_tables_np"].nbytes
                    + s["token_pos"].numel() * 4))
+        pt_bytes = _per_token_bytes(s, segs)
+        pt_ms = pt_bytes / HBM_BYTES_PER_S * 1e3
+        results[pa.RAGGED][name].update(per_token_bytes=pt_bytes,
+                                        per_token_ms=pt_ms)
+        print(f"kernel bytes [{pa.RAGGED} {name}]: per-token reads "
+              f"{pt_bytes / 1e6:.1f} MB, {pt_ms:.4f} ms at the HBM rate "
+              f"(bound {results[pa.RAGGED][name]['bound_ms']:.4f} ms: each "
+              f"needed block once; kernel "
+              f"{results[pa.RAGGED][name]['ms']:.4f} ms)", flush=True)
 
         # B3: the same segments as a (lanes, chunk) batch, then one decode
         r = _rect_batch(s)
@@ -472,6 +561,9 @@ def phase_kernel_checks():
             _library_call(s, r["dec_segments"], r["q_dec"]),
             _bound(s, r["dec_segments"], s["tables_np"].nbytes
                    + 4 * len(segs)))
+        if name == "gemma-7b bf16":
+            for kernel, numbers in _fma_checks(s, r, PAGED_F32_TOL).items():
+                results[kernel]["gemma-7b float32 FMA"] = numbers
         del s, r
         torch.cuda.empty_cache()
     return results
@@ -1625,12 +1717,13 @@ def _sync() -> None:
 
 
 # each kernel, its source in csrc/ on the main path (bf16: the flash
-# kernels' tensor-core sources) and the TPU kernel it replaces
+# kernels' and the per-token and rectangular reads' tensor-core sources)
+# and the TPU kernel it replaces
 KERNELS = [("paged_attention_tiled", "paged_attention_tiled",
             "paged_attention.py:373"),
-           ("paged_attention_ragged", "paged_attention_ragged",
+           ("paged_attention_ragged", "paged_attention_ragged_tc",
             "paged_attention.py:242"),
-           ("paged_attention_rows", "paged_attention_rows",
+           ("paged_attention_rows", "paged_attention_rows_tc",
             "paged_attention.py:109"),
            ("pseudo_voigt", "pseudo_voigt", "pseudo_voigt.py:81"),
            ("flash_attention", "flash_attention_fwd_wgmma",

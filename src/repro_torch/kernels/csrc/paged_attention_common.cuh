@@ -22,12 +22,17 @@
 //   * with a sliding window, blocks wholly before the window of the first
 //     row are skipped (their masked scores contribute exactly 0).
 //
-// What bounds these kernels on the H100 is bytes: at serving shapes a row
-// does ~4 * keys * D FLOPs per ~2 * keys * D pool elements, far below the
-// ~295 FLOPs per byte at which the tensor cores would bind.  The sweep
-// keeps scores, m, l and the accumulator on chip, so only q, the pools,
-// the tables and the output touch device memory.  A plain first version:
-// FMA on CUDA cores, no cp.async/TMA pipelining and no tensor cores yet.
+// What the function needs is bytes: at serving shapes a row does ~4 *
+// keys * D FLOPs per ~2 * keys * D pool elements, far below the ~295
+// FLOPs per byte at which the tensor cores would bind.  What bounds this
+// sweep on the H100 is not those bytes (int8 pools halve them and not the
+// time; PERF.md): it is shared-memory traffic and the serial sweep, one
+// warp of eight on a decode row, scalar FMAs on shared-memory floats, each
+// tile loaded then computed behind two __syncthreads, one block per lane.
+// It stays for float32 inputs and for the segment-tiled read (B1); bf16
+// q with bf16 or int8 pools goes to the tensor-core split sweep of
+// paged_attention_split.cuh (paged_attention_ragged_tc.cu,
+// paged_attention_rows_tc.cu).
 #pragma once
 
 #include <cuda_bf16.h>

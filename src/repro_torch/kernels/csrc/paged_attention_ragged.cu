@@ -7,12 +7,16 @@
 // (token_tables[t], the lane's block-table row repeated per token) up to
 // its absolute position token_pos[t].
 //
-// What bounds it on the H100: bytes, and more of them than the work needs.
-// Every token reads its lane's K/V blocks up to its own position, so a
-// segment of n tokens re-reads the lane's context n times; the segment-
-// tiled kernel (paged_attention_tiled.cu) reads it once per tile.  This is
-// the baseline's nature, kept as the TPU kernel has it, so the per-token
-// re-reads show against the tiled kernel's bound on the same stream.
+// What the function needs is bytes, and more of them than the work
+// needs: every token reads its lane's K/V blocks up to its own position,
+// so a segment of n tokens re-reads the lane's context n times (the
+// segment-tiled kernel, paged_attention_tiled.cu, reads it once per
+// tile).  That is the baseline's nature, kept as the TPU kernel has it.
+// What bounds this FMA kernel on the H100 is not those bytes but shared-
+// memory traffic and the serial sweep of paged_attention_common.cuh (one
+// warp of eight works on a token's G rows; PERF.md).  It stays for
+// float32 inputs; bf16 q with bf16 or int8 pools runs the tensor-core
+// split sweep, paged_attention_ragged_tc.cu.
 //
 // Schedule: one thread block per (token, kv head) with the token's G query
 // heads as its rows, sweeping blocks j with j * bs <= token_pos[t] (and,

@@ -8,9 +8,12 @@
 // causally over its blocks (block_tables[b]); ctx_lens[b] = q_starts[b] +
 // q_lens[b] is its valid KV length after the chunk.
 //
-// What bounds it on the H100: bytes.  Each row group reads its lane's K/V
+// What the function needs is bytes: each row group reads its lane's K/V
 // blocks up to its deepest real position once, as the tiled kernel does
-// for a tile.
+// for a tile.  What bounds this FMA kernel on the H100 is shared-memory
+// traffic and the serial sweep of paged_attention_common.cuh (PERF.md).
+// It stays for float32 inputs; bf16 q with bf16 or int8 pools runs the
+// tensor-core split sweep, paged_attention_rows_tc.cu.
 //
 // Schedule: one thread block per (lane, kv head, row group).  The TPU
 // kernel keeps all R = C * G rows of a lane in one VMEM tile; on this card

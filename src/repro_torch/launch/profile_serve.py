@@ -74,8 +74,10 @@ def serve_fleet(api, params, *, max_new: int = 32, seed: int = 0,
 
 
 def _group(name: str) -> str:
-    """Kernel family of a device kernel name."""
-    if "paged_attention_kernel" in name:
+    """Kernel family of a device kernel name (the paged reads: the FMA
+    kernels and the bf16 split sweep with its combine)."""
+    if any(k in name for k in ("paged_attention_kernel",
+                               "paged_split::split_")):
         return "attention"
     if any(k in name for k in ("nvjet", "gemm", "splitKreduce", "cutlass")):
         return "gemm"

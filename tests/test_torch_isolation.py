@@ -108,16 +108,18 @@ def test_kernel_build_needs_nvcc_and_is_keyed_by_source(monkeypatch,
     assert path.name.startswith(pa.TILED + "-")
     monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-G",))
     assert _build.library_path(pa.TILED) != path
-    assert set(_build.sources()) == {pa.TILED, pa.RAGGED, pa.ROWS, pv.PV,
+    assert set(_build.sources()) == {pa.TILED, pa.RAGGED, pa.ROWS,
+                                     pa.RAGGED_TC, pa.ROWS_TC, pv.PV,
                                      fa.FWD, fa.BWD, fa.FWD_TC, fa.BWD_TC,
                                      ssd.SRC, ml.MLSTM}
 
 
 def test_kernel_build_key_covers_shared_headers(monkeypatch, tmp_path):
-    """The paged-attention kernels include their shared header, the
-    float32 and the tensor-core flash-attention kernels theirs and the two
-    scans theirs: editing any changes every library path, so no stale
-    library is reused."""
+    """The paged-attention kernels include their shared headers (the FMA
+    one, the split sweep of the bf16 ones), the float32 and the
+    tensor-core flash-attention kernels theirs and the two scans theirs:
+    editing any changes every library path, so no stale library is
+    reused."""
     import shutil
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
@@ -130,6 +132,8 @@ def test_kernel_build_key_covers_shared_headers(monkeypatch, tmp_path):
     names = _build.sources()
     for header, users in (("paged_attention_common.cuh",
                            (pa.TILED, pa.RAGGED, pa.ROWS)),
+                          ("paged_attention_split.cuh",
+                           (pa.RAGGED_TC, pa.ROWS_TC)),
                           ("flash_attention_common.cuh", (fa.FWD, fa.BWD)),
                           ("hopper_common.cuh", (fa.FWD_TC, fa.BWD_TC)),
                           ("scan_common.cuh", (ssd.SRC, ml.MLSTM))):

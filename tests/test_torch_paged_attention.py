@@ -8,10 +8,15 @@ oracles, on real rows only, with ``allclose`` at float32 tolerance (the
 two oracles differ at rounding level between themselves, so exact
 equality is never asked).  The CUDA kernels themselves are held to the
 plain versions on the card; those cases are marked ``cuda`` and skip
-where there is no card.  The JAX side is imported by the tests that use
-it, so that the CUDA cases also run on a machine that has no JAX:
+where there is no card.  The bf16 per-token and rectangular reads run a
+tensor-core split sweep on the card; its host-side split planner and its
+arithmetic (split partials merged, softmax weights rounded to bf16 with
+an int8 pool's v_scale folded in) are checked here, in plain PyTorch,
+against the reference's oracle.  The JAX side is imported by the tests
+that use it, so that the CUDA cases also run on a machine that has no
+JAX:
 
-    python -m pytest -q -m cuda tests/test_torch_paged_attention.py
+    python -m pytest -q --noconftest -m cuda tests/test_torch_paged_attention.py
 """
 import numpy as np
 import pytest
@@ -421,56 +426,360 @@ def _cuda_pools(d, device, pool):
     return t
 
 
+def _cuda_q(d, device, pool):
+    """q on the card: bf16 for the tensor-core reads (bf16 pools, and int8
+    pools under "int8_bf16q"), float32 for the FMA ones."""
+    q = _t(d["q"], device)
+    return q.bfloat16() if pool in ("bf16", "int8_bf16q") else q
+
+
+# ---------------------------------------------------------------------------
+# the split sweep of the bf16 reads: its planner and its arithmetic
+# ---------------------------------------------------------------------------
+def _bf16v(a):
+    """numpy float32 values rounded to bf16 (kept as float32)."""
+    return torch.from_numpy(np.asarray(a, np.float32)).bfloat16().float()
+
+
+def _sweep_emulation(q_rows, pos, table, h, k, v, ks, vs, *, window,
+                     split_blocks, warps, max_blocks=MAX_BLOCKS):
+    """The split sweep's arithmetic for one item: ``q_rows`` (n, D) bf16
+    values at positions ``pos`` against kv head ``h`` of the pools
+    (float32 bf16 values or int8, with scales) through block-table row
+    ``table``.  Each split's 16-key tiles go to ``warps`` warps in turn;
+    a warp keeps a base-2 online softmax in float32, rounds its weights
+    (times v_scale for int8) to bf16 before p . v; warps, then splits,
+    merge with exp2(m - M) in a fixed order; the output is rounded to
+    bf16."""
+    bs = k.shape[1]
+    n, dim = q_rows.shape
+    scale = np.log2(np.e) / np.sqrt(dim)
+    lo, hi = tpa.needed_keys(min(pos), max(pos), window, max_blocks, bs)
+    pos_t = torch.tensor(pos)[:, None]
+    parts = []
+    for k_lo, k_hi in tpa.item_splits(lo, hi, bs, split_blocks):
+        n_tiles = (k_hi - k_lo) // 16 + 1 if k_hi >= k_lo else 0
+        states = []
+        for w in range(warps):
+            m = torch.full((n,), -1e30)
+            l = torch.zeros(n)
+            o = torch.zeros(n, dim)
+            for i in range(w, n_tiles, warps):
+                kpos = torch.arange(k_lo + 16 * i, k_lo + 16 * i + 16)
+                live = kpos <= k_hi
+                kp = kpos.clamp(max=max(k_hi, 0))
+                rows = table[kp // bs].long() * bs + kp % bs
+                kt = k.reshape(-1, k.shape[2], dim)[rows, h].float()
+                vt = v.reshape(-1, v.shape[2], dim)[rows, h].float()
+                kt, vt = kt * live[:, None], vt * live[:, None]
+                s = (q_rows @ kt.T) * scale
+                if ks is not None:
+                    s = s * ks.reshape(-1, ks.shape[2])[rows, h] * live
+                ok = live & (kpos <= pos_t)
+                if window:
+                    ok &= (pos_t - kpos) < window
+                s = torch.where(ok, s, torch.tensor(-1e30))
+                m_new = torch.maximum(m, s.max(dim=1).values)
+                corr = torch.exp2(m - m_new)
+                p = torch.exp2(s - m_new[:, None])
+                l = l * corr + p.sum(dim=1)
+                if vs is not None:
+                    p = p * vs.reshape(-1, vs.shape[2])[rows, h] * live
+                o = o * corr[:, None] + p.bfloat16().float() @ vt
+                m = m_new
+            states.append((m, l, o))
+        M = torch.stack([st[0] for st in states]).max(dim=0).values
+        f = [torch.exp2(st[0] - M) for st in states]
+        parts.append((M, sum(fi * st[1] for fi, st in zip(f, states)),
+                      sum(fi[:, None] * st[2] for fi, st in zip(f, states))))
+    M = torch.stack([pt[0] for pt in parts]).max(dim=0).values
+    f = [torch.exp2(pt[0] - M) for pt in parts]
+    L = sum(fi * pt[1] for fi, pt in zip(f, parts))
+    O = sum(fi[:, None] * pt[2] for fi, pt in zip(f, parts))
+    return (O / L.clamp(min=1e-30)[:, None]).bfloat16().float()
+
+
+def _emulate_per_token(d, G, window, split_blocks, warps):
+    """The per-token read (B2) through :func:`_sweep_emulation`, item by
+    item: one token's G query heads of each kv head."""
+    q = _bf16v(d["q"])
+    k, v, ks, vs = _emulation_pools(d)
+    T = q.shape[0]
+    out = torch.zeros_like(q)
+    for t in range(T):
+        pos = int(d["token_pos"][t])
+        table = torch.from_numpy(d["token_tables"][t])
+        for h in range(HKV):
+            heads = slice(h * G, (h + 1) * G)
+            out[t, heads] = _sweep_emulation(
+                q[t, heads], [pos] * G, table, h, k, v, ks, vs,
+                window=window, split_blocks=split_blocks, warps=warps)
+    return out
+
+
+def _emulate_chunk(d, G, window, split_blocks, warps):
+    """The rectangular read (B3) through :func:`_sweep_emulation`: each
+    lane's real rows (token r // G, query head r % G) in groups of 16."""
+    q = _bf16v(d["q"])
+    k, v, ks, vs = _emulation_pools(d)
+    B, C = q.shape[:2]
+    out = torch.zeros_like(q)
+    for b in range(B):
+        table = torch.from_numpy(d["tables"][b])
+        n = int(d["lens"][b]) * G
+        for h in range(HKV):
+            for r0 in range(0, n, 16):
+                rows = range(r0, min(n, r0 + 16))
+                qr = torch.stack([q[b, r // G, h * G + r % G] for r in rows])
+                pos = [int(d["starts"][b]) + r // G for r in rows]
+                o = _sweep_emulation(qr, pos, table, h, k, v, ks, vs,
+                                     window=window,
+                                     split_blocks=split_blocks, warps=warps)
+                for i, r in enumerate(rows):
+                    out[b, r // G, h * G + r % G] = o[i]
+    return out
+
+
+def _emulation_pools(d):
+    """Pools as the kernels read them: bf16 values (int8 stays int8, with
+    float32 scales)."""
+    if d["ks"] is not None:
+        return (torch.from_numpy(d["k"]), torch.from_numpy(d["v"]),
+                torch.from_numpy(d["ks"]), torch.from_numpy(d["vs"]))
+    return _bf16v(d["k"]), _bf16v(d["v"]), None, None
+
+
+@pytest.mark.parametrize("window", [0, 5])
+@pytest.mark.parametrize("bs", [4, 16])
+def test_split_plan_covers_needed_blocks_once(bs, window):
+    """The host-side split planner: every block a range needs lies in
+    exactly one split, in order, none wholly before the window; with
+    CTAs that fill two waves there is one split; the launch's n_splits
+    bounds every range the span allows."""
+    max_blocks = 64
+    for n_ctas in (10, 263, 264, 5000):
+        for tokens in (1, 5, 17):
+            span = tpa.span_blocks(max_blocks, bs, window, tokens)
+            sb, n_splits = tpa.split_plan(n_ctas, span, bs)
+            if n_ctas >= tpa.FILL_CTAS:
+                assert n_splits == 1
+            else:
+                assert sb * bs == max(bs, tpa.SPLIT_KEYS)
+            for minpos in (0, 3, 15, 16, 255, 256, 300, 700):
+                if minpos >= max_blocks * bs:
+                    continue                    # past the table
+                maxpos = min(minpos + tokens - 1, max_blocks * bs - 1)
+                lo, hi = tpa.needed_keys(minpos, maxpos, window, max_blocks,
+                                         bs)
+                splits = tpa.item_splits(lo, hi, bs, sb)
+                assert 1 <= len(splits) <= n_splits
+                keys = [kk for a, b in splits for kk in range(a, b + 1)]
+                assert keys == list(range(lo, hi + 1))    # once, in order
+                blocks = [sorted({kk // bs for kk in range(a, b + 1)})
+                          for a, b in splits]
+                flat = [j for bl in blocks for j in bl]
+                assert flat == sorted(set(flat))          # whole blocks
+                assert all(len(bl) <= sb for bl in blocks)
+                if window:
+                    assert flat[0] == max(0, minpos - window + 1) // bs
+    assert tpa.item_splits(5, 4, 16, 4) == [(5, 4)]       # empty: one split
+
+
+# the emulation against the oracle: the bf16 roundings of the output and
+# of the softmax weights are the whole difference, each up to 2^-9 of the
+# largest |v| a row mixes (|v| < 4.5 in the bf16 pools, < 2.6 in the
+# int8 ones).  Readings: 7.7e-3 with bf16 pools (the output's rounding:
+# the same without the weights' rounding) and 1.24e-2 with int8 pools,
+# where the weights rounded with v_scale folded in add up to 4e-3 over
+# the output's rounding alone (5.9e-3)
+EMULATION_ATOL = 2e-2
+
+
+@pytest.mark.parametrize("G,window,quantized", [
+    (1, 0, False), (1, 5, True), (9, 5, False), (9, 0, True)],
+    ids=["G1-bf16", "G1-window-int8", "G9-window-bf16", "G9-int8"])
+def test_split_arithmetic_matches_reference_oracle(jax_side, G, window,
+                                                   quantized):
+    """The split sweep's arithmetic (:func:`_sweep_emulation`: tiles dealt
+    to warps, split partials merged, bf16 weights with v_scale folded in
+    for int8) against the reference's jnp oracles on the SEGMENT_MIXES
+    and CHUNK_CASES inputs, rounded to bf16 as the kernels read them:
+    every real row within EMULATION_ATOL, whatever the split size (one
+    block, two, or no cut) and the number of warps (2 at D 256, 4
+    below)."""
+    jnp, jref = jax_side["jnp"], jax_side["oracles"]
+    worst = 0.0
+    for mix in sorted(SEGMENT_MIXES):
+        d = _ragged_setup(mix, G, quantized)
+        for n in ("q", "k", "v"):
+            if d[n].dtype == np.float32:
+                d[n] = _bf16v(d[n]).numpy()
+        want = np.asarray(jref.paged_attention_ragged_reference(
+            *(jnp.asarray(d[n]) for n in ("q", "k", "v", "token_tables",
+                                          "token_pos")),
+            window=window, **_jax_scales(jnp, d)))
+        for split_blocks, warps in ((1, 4), (2, 2), (MAX_BLOCKS, 4)):
+            got = _emulate_per_token(d, G, window, split_blocks, warps)
+            err = np.abs(got.numpy() - want)[:d["T"]].max()
+            worst = max(worst, err)
+    for case in sorted(CHUNK_CASES):
+        d = _chunk_setup(case, G, quantized)
+        for n in ("q", "k", "v"):
+            if d[n].dtype == np.float32:
+                d[n] = _bf16v(d[n]).numpy()
+        want = np.asarray(jref.paged_attention_chunk_reference(
+            *(jnp.asarray(d[n]) for n in ("q", "k", "v", "tables",
+                                          "starts")),
+            window=window, **_jax_scales(jnp, d)))
+        for split_blocks, warps in ((1, 2), (MAX_BLOCKS, 4)):
+            got = _emulate_chunk(d, G, window, split_blocks, warps).numpy()
+            for b, n in enumerate(d["lens"]):
+                worst = max(worst, np.abs(got[b, :n] - want[b, :n]).max(
+                    initial=0.0))
+    assert worst <= EMULATION_ATOL, worst
+    assert worst > 0      # the rounding is there: no exact path slipped in
+
+
+# split-sweep cases on the card (bs 16, so SPLIT_KEYS = 16 blocks): lanes
+# (q_start, q_len) of a C = 5 chunk: a context inside one split (100),
+# one exactly on a split boundary (256) and one key past it (257), deep
+# ones (605, 1024 = four whole splits), an empty lane (ctx 0); C x G rows
+# of 5, 20 and 45 (not multiples of 16); the window of 300 starts inside
+# a split
+SPLIT_LANES = [(95, 5), (251, 5), (252, 5), (600, 5), (0, 0), (1019, 5)]
+SPLIT_BS, SPLIT_MAX_BLOCKS = 16, 64
+
+
+def _split_case(G, dim, pool, seed=0):
+    """numpy inputs of a split-sweep case at bs 16: the rectangular batch
+    of SPLIT_LANES (C = 5) and the same tokens as a per-token stream,
+    padded with null-table, position-0 tokens to a power of two."""
+    rng = np.random.default_rng(seed)
+    B, C = len(SPLIT_LANES), 5
+    num_blocks = B * SPLIT_MAX_BLOCKS + 1
+    shape = (num_blocks, SPLIT_BS, HKV, dim)
+    if pool == "int8_bf16q":
+        k = rng.integers(-127, 128, shape).astype(np.int8)
+        v = rng.integers(-127, 128, shape).astype(np.int8)
+        ks = rng.uniform(0.002, 0.02, shape[:3]).astype(np.float32)
+        vs = rng.uniform(0.002, 0.02, shape[:3]).astype(np.float32)
+    else:
+        k = rng.standard_normal(shape).astype(np.float32)
+        v = rng.standard_normal(shape).astype(np.float32)
+        ks = vs = None
+    tables = np.zeros((B, SPLIT_MAX_BLOCKS), np.int32)
+    free = list(rng.permutation(np.arange(1, num_blocks)))
+    for lane, (start, n) in enumerate(SPLIT_LANES):
+        for j in range(-(-(start + n) // SPLIT_BS)):
+            tables[lane, j] = free.pop()
+    q = rng.standard_normal((B, C, HKV * G, dim)).astype(np.float32)
+    starts = np.array([st for st, _ in SPLIT_LANES], np.int32)
+    lens = np.array([n for _, n in SPLIT_LANES], np.int32)
+    tok = [(b, c) for b, (_, n) in enumerate(SPLIT_LANES) for c in range(n)]
+    T_pad = 1 << (len(tok) - 1).bit_length()
+    qt = np.zeros((T_pad, HKV * G, dim), np.float32)
+    token_tables = np.zeros((T_pad, SPLIT_MAX_BLOCKS), np.int32)
+    token_pos = np.zeros((T_pad,), np.int32)
+    for i, (b, c) in enumerate(tok):
+        qt[i] = q[b, c]
+        token_tables[i] = tables[b]
+        token_pos[i] = starts[b] + c
+    qt[len(tok):] = rng.standard_normal(qt[len(tok):].shape)
+    return dict(q=q, k=k, v=v, ks=ks, vs=vs, tables=tables, starts=starts,
+                lens=lens, qt=qt, token_tables=token_tables,
+                token_pos=token_pos, T=len(tok))
+
+
+# the card tests' limit for bf16 inputs: the plain version rounds scores
+# and weights to bf16, the kernels keep scores in float32
+BF16_TOL = 5e-2
+
+
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("pool", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("pool", ["f32", "bf16", "int8", "int8_bf16q"])
 def test_cuda_per_token_kernel_matches_plain_version(cuda_device, pool):
-    """The per-token Hopper kernel against its plain version on the card,
-    every SEGMENT_MIXES case (padding tokens included), G in {1, 4},
-    window in {0, 5}, head dim 64."""
+    """The per-token Hopper kernels against their plain version on the
+    card, every SEGMENT_MIXES case (padding tokens included), G in {1,
+    4}, window in {0, 5}, head dim 64: float32 q (f32 and int8 pools) on
+    the FMA kernel, bf16 q (bf16 pools, and int8 pools under
+    "int8_bf16q") on the split sweep.  The split sweep also runs the
+    SPLIT_LANES stream at G in {1, 4, 9} and D in {64, 128, 256}, with
+    and without a window, and returns the same bits twice."""
+    tc = pool in ("bf16", "int8_bf16q")
+    before = tpa.launch_counts[tpa.RAGGED]
+    calls = 0
     for mix in sorted(SEGMENT_MIXES):
         for G in (1, 4):
             for window in (0, 5):
-                d = _ragged_setup(mix, G, pool == "int8", dim=64)
+                d = _ragged_setup(mix, G, pool.startswith("int8"), dim=64)
                 p = _cuda_pools(d, cuda_device, pool)
-                q = _t(d["q"], cuda_device)
-                if pool == "bf16":
-                    q = q.bfloat16()
+                q = _cuda_q(d, cuda_device, pool)
                 args = (q, p["k"], p["v"], _t(d["token_tables"], cuda_device),
                         _t(d["token_pos"], cuda_device))
                 kw = dict(window=window, k_scale=p["ks"], v_scale=p["vs"])
                 want = tref.paged_attention_ragged_reference(*args, **kw)
                 got = ops.paged_attention_ragged(*args, **kw)
+                calls += 1
                 torch.cuda.synchronize()
                 assert torch.isfinite(got).all()
-                tol = 5e-2 if pool == "bf16" else 1e-4
+                tol = BF16_TOL if tc else 1e-4
                 T = d["T"]
                 torch.testing.assert_close(got[:T].float(), want[:T].float(),
                                            atol=tol, rtol=tol)
+    assert tpa.launch_counts[tpa.RAGGED] == before + calls
+    if not tc:
+        return
+    for G in (1, 4, 9):
+        for dim in (64, 128, 256):
+            for window in (0, 300):
+                d = _split_case(G, dim, pool)
+                p = _cuda_pools(d, cuda_device, pool)
+                q = _t(d["qt"], cuda_device).bfloat16()
+                args = (q, p["k"], p["v"], _t(d["token_tables"], cuda_device),
+                        _t(d["token_pos"], cuda_device))
+                kw = dict(window=window, k_scale=p["ks"], v_scale=p["vs"])
+                want = tref.paged_attention_ragged_reference(*args, **kw)
+                got = ops.paged_attention_ragged(*args, **kw)
+                again = ops.paged_attention_ragged(*args, **kw)
+                torch.cuda.synchronize()
+                assert torch.isfinite(got).all()    # padding tokens too
+                assert torch.equal(got, again)
+                T = d["T"]
+                torch.testing.assert_close(got[:T].float(), want[:T].float(),
+                                           atol=BF16_TOL, rtol=BF16_TOL)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("pool", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("pool", ["f32", "bf16", "int8", "int8_bf16q"])
 def test_cuda_rows_kernel_matches_plain_version(cuda_device, pool):
-    """The rectangular Hopper kernel against its plain version on the
+    """The rectangular Hopper kernels against their plain version on the
     card: every CHUNK_CASES case and a 70-token chunk beside short lanes
     (several row groups per lane), G in {1, 4}, window in {0, 5}, head
     dim 64; padded rows come back as zeros; C = 1 through the decode
-    wrapper."""
+    wrapper.  float32 q runs the FMA kernel, bf16 q (bf16 pools, and int8
+    pools under "int8_bf16q") the split sweep, which also runs the
+    SPLIT_LANES batch (an empty lane among them) at G in {1, 4, 9} and D
+    in {64, 128, 256}, with and without a window, and its decode, and
+    returns the same bits twice."""
+    tc = pool in ("bf16", "int8_bf16q")
+    tol = BF16_TOL if tc else 1e-4
     cases = [(c, None) for c in sorted(CHUNK_CASES)]
     cases.append((None, (70, [3, 0, 20], [70, 5, 1])))
     for case, custom in cases:
         for G in (1, 4):
             for window in (0, 5):
                 if custom is None:
-                    d = _chunk_setup(case, G, pool == "int8", dim=64)
+                    d = _chunk_setup(case, G, pool.startswith("int8"),
+                                     dim=64)
                 else:
                     C, st, ln = custom
-                    d = _chunk_setup(None, G, pool == "int8", dim=64, C=C,
-                                     starts=st, lens=ln, max_blocks=24)
+                    d = _chunk_setup(None, G, pool.startswith("int8"),
+                                     dim=64, C=C, starts=st, lens=ln,
+                                     max_blocks=24)
                 p = _cuda_pools(d, cuda_device, pool)
-                q = _t(d["q"], cuda_device)
-                if pool == "bf16":
-                    q = q.bfloat16()
+                q = _cuda_q(d, cuda_device, pool)
                 tables = _t(d["tables"], cuda_device)
                 starts = _t(d["starts"], cuda_device)
                 lens = _t(d["lens"], cuda_device)
@@ -480,7 +789,6 @@ def test_cuda_rows_kernel_matches_plain_version(cuda_device, pool):
                 got = ops.paged_attention_chunk(q, p["k"], p["v"], tables,
                                                 starts, lens, **kw)
                 torch.cuda.synchronize()
-                tol = 5e-2 if pool == "bf16" else 1e-4
                 for b, n in enumerate(d["lens"]):
                     torch.testing.assert_close(got[b, :n].float(),
                                                want[b, :n].float(),
@@ -491,3 +799,42 @@ def test_cuda_rows_kernel_matches_plain_version(cuda_device, pool):
                                               tables, starts + 1, **kw)
                     torch.testing.assert_close(dec, got[:, 0], rtol=0,
                                                atol=0)
+    if not tc:
+        return
+    for G in (1, 4, 9):
+        for dim in (64, 128, 256):
+            for window in (0, 300):
+                d = _split_case(G, dim, pool)
+                p = _cuda_pools(d, cuda_device, pool)
+                q = _t(d["q"], cuda_device).bfloat16()
+                tables = _t(d["tables"], cuda_device)
+                starts = _t(d["starts"], cuda_device)
+                lens = _t(d["lens"], cuda_device)
+                kw = dict(window=window, k_scale=p["ks"], v_scale=p["vs"])
+                want = tref.paged_attention_chunk_reference(
+                    q, p["k"], p["v"], tables, starts, **kw)
+                got = ops.paged_attention_chunk(q, p["k"], p["v"], tables,
+                                                starts, lens, **kw)
+                again = ops.paged_attention_chunk(q, p["k"], p["v"], tables,
+                                                  starts, lens, **kw)
+                torch.cuda.synchronize()
+                assert torch.equal(got, again)
+                for b, n in enumerate(d["lens"]):
+                    torch.testing.assert_close(got[b, :n].float(),
+                                               want[b, :n].float(),
+                                               atol=BF16_TOL, rtol=BF16_TOL)
+                    assert (got[b, n:] == 0).all()
+                # decode: the last real token of each lane, C = 1
+                last = (lens - 1).clamp(min=0).long()
+                qd = q[torch.arange(len(last)), last].contiguous()
+                ctx = starts + lens
+                dec = ops.paged_attention(qd, p["k"], p["v"], tables, ctx,
+                                          **kw)
+                dwant = tref.paged_attention_reference(
+                    qd, p["k"], p["v"], tables, ctx, **kw)
+                torch.cuda.synchronize()
+                live = lens > 0
+                torch.testing.assert_close(dec[live].float(),
+                                           dwant[live].float(),
+                                           atol=BF16_TOL, rtol=BF16_TOL)
+                assert (dec[~live] == 0).all()
