@@ -16,12 +16,13 @@ printing its own line(s):
    read (B2) on one mixed flat stream, the rectangular read (B3) on the
    same segments as a (lanes, chunk) batch and as one decode call; each
    with its time, the plain version's, one PyTorch library call's and
-   the least time the card could take; B2 and B3 take bf16 q with bf16
-   or int8 pools through the tensor-core split sweep (the phase counts
-   the ``HMMA`` instructions ``cuobjdump -sass`` finds in their libraries
-   and fails on none, and prints B2's per-token bytes, the bytes its
-   reads must move, beside its bound), and their float32 FMA kernels are
-   checked and timed once on float32 copies of the gemma-7b stream;
+   the least time the card could take; B1, B2 and B3 take bf16 q with
+   bf16 or int8 pools through the tensor-core split sweep (the phase
+   counts the ``HMMA`` instructions ``cuobjdump -sass`` finds in their
+   libraries and fails on none, and prints B2's per-token bytes, the
+   bytes its reads must move, beside its bound), and their float32 FMA
+   kernels are checked and timed once on float32 copies of the gemma-7b
+   stream;
 4. the main paths: ``PagedDecodeEngine`` serving gemma-7b at its
    published width (all 28 layers, random bf16 weights from a seed) on
    requests that share a system prompt, three times from the same
@@ -70,7 +71,10 @@ printing its own line(s):
    at one sequence shorter than a chunk, from float32 inputs and their
    bf16 copies, against their plain versions on the card, with the time,
    the plain version's and the least time the card could take (no
-   PyTorch call computes either scan, so no library time); and B6 at
+   PyTorch call computes either scan, so no library time); B4's bf16
+   inputs run its tensor-core kernels (the phase counts their ``HMMA``
+   and ``HGMMA`` instructions and fails on none of either), float32 ones
+   its FMA kernel, whose time is printed too; and B6 at
    zamba2-2.7b's head dim 80 with SDPA's time; (b) zamba2-2.7b at its
    published width and depth (54 Mamba2 layers and the shared attention
    block, random bf16 weights from a seed): the prefill step
@@ -100,9 +104,10 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
 BF16_FLOPS = 989e12           # H100 SXM dense bf16 tensor-core peak
 F32_FLOPS = 67e12             # H100 SXM float32 peak outside the tensor cores
-# B2 and B3's FMA kernels on float32 copies of the phase-3 stream against
-# their plain versions: the same float32 arithmetic in another order
-# (readings on an H100 at most 1.4e-6, PERF.md), so any dropped key shows
+# B1, B2 and B3's FMA kernels on float32 copies of the phase-3 stream
+# against their plain versions: the same float32 arithmetic in another
+# order (readings on an H100 at most 1.4e-6, PERF.md), so any dropped key
+# shows
 PAGED_F32_TOL = 1e-4
 # the paper's peaks per experiment (src/repro/core/costmodel.py:32)
 PAPER_PEAKS = 800_000
@@ -160,10 +165,12 @@ TOP_KERNELS = 12              # device kernels listed from the profiled step
 # every element within SCAN_F32_TOL * (1 + |plain|) (readings at the
 # full-width shapes on an H100: 1.2e-7 B5, 7.3e-7 B4).  In bf16 the plain
 # versions round their intermediates (decay weights, gated scores, the
-# carried states) to bf16 before their products and the kernels do not:
-# the whole within SCAN_BF16_REL_L2 in the 2-norm (readings 3.0e-3 B5,
-# 3.5e-3 B4) and every element within SCAN_BF16_MAX x the largest |plain|
-# (readings 5.6e-3 both)
+# carried states) and their products' outputs to bf16; B5 rounds none of
+# them, B4's tensor-core kernel rounds q / sqrt(hd), the gated scores and
+# the carried C where the plain version does but keeps its products in
+# float32: the whole within SCAN_BF16_REL_L2 in the 2-norm (readings
+# 3.0e-3 B5, 3.5e-3 B4) and every element within SCAN_BF16_MAX x the
+# largest |plain| (readings 5.6e-3 both)
 SCAN_F32_TOL = 5e-6
 SCAN_BF16_REL_L2 = 1e-2
 SCAN_BF16_MAX = 2e-2
@@ -396,20 +403,21 @@ def _per_token_bytes(s, segments) -> int:
 
 
 def _tensor_core_check() -> None:
-    """The split-sweep libraries of B2 and B3 must hold tensor-core
+    """The split-sweep libraries of B1, B2 and B3 must hold tensor-core
     instructions (SASS HMMA, mma.sync); the FMA ones hold none."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import paged_attention as pa
+    tc = (pa.TILED_TC, pa.RAGGED_TC, pa.ROWS_TC)
     counts = {src: _build.sass_count(src, "HMMA")
-              for src in (pa.ROWS_TC, pa.RAGGED_TC, pa.ROWS, pa.RAGGED)}
+              for src in tc + (pa.TILED, pa.RAGGED, pa.ROWS)}
     print("paged libraries (cuobjdump -sass): " + ", ".join(
         f"{src} HMMA={n}" for src, n in counts.items()), flush=True)
-    if not (counts[pa.ROWS_TC] and counts[pa.RAGGED_TC]):
+    if not all(counts[src] for src in tc):
         raise AssertionError("a bf16 paged-attention library holds no HMMA")
 
 
 def _fma_checks(s, r, tol) -> dict:
-    """B2, B3 chunk and B3 decode on float32 copies of the stream (the
+    """B1, B2, B3 chunk and B3 decode on float32 copies of the stream (the
     FMA kernels), against their plain versions, with their times."""
     import torch
     from repro_torch.kernels import ops
@@ -417,6 +425,16 @@ def _fma_checks(s, r, tol) -> dict:
     f = dict(s, q=s["q"].float(), k=s["k"].float(), v=s["v"].float())
     segs, T = s["segments"], s["T"]
     out = {}
+    targs = (f["q"], f["k"], f["v"], s["tables"], s["meta"], s["row_tile"])
+    tkw = dict(tile=s["tile"], window=s["window"])
+    out[pa.TILED] = _check_kernel(
+        f"{pa.TILED} float32 FMA",
+        lambda: ops.paged_attention_ragged_tiled(*targs, use_kernel=True,
+                                                 **tkw),
+        lambda: ops.paged_attention_ragged_tiled(*targs, use_kernel=False,
+                                                 **tkw),
+        lambda o: o[:T], tol, _library_call(f, segs, f["q"][:T]),
+        _bound(f, segs, s["tables_np"].nbytes + s["meta_np"].nbytes))
     pargs = (f["q"], f["k"], f["v"], s["token_tables"], s["token_pos"])
     kw = dict(window=s["window"])
     out[pa.RAGGED] = _check_kernel(
@@ -473,8 +491,8 @@ def _check_kernel(label, kernel, plain, rows, tol, lib, bound):
 
 def phase_kernel_checks():
     """B1, B2 and B3 against their plain versions at three
-    configurations (B2 and B3 on float32 copies too, once), after the
-    tensor-core count of the B2 and B3 libraries.  Returns {kernel:
+    configurations (on float32 copies too, once), after the tensor-core
+    count of their bf16 libraries.  Returns {kernel:
     {config: numbers}}; raises if any disagrees."""
     import torch
     from repro_torch.kernels import ops
@@ -1500,6 +1518,16 @@ def phase_scan_kernels():
             plain_ms=_median_ms(plain, reps=3, inner=1, warmup=1),
             library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
         del x, xs, xdt, y, Bm, Cm, Bs, Cs
+    # B4: its bf16 library on the tensor cores (SASS HMMA, mma.sync, in the
+    # scores kernel; HGMMA, wgmma, and UTMALDG, TMA loads, in the scan)
+    from repro_torch.kernels import _build
+    counts = {op: _build.sass_count(ml.MLSTM_TC, op)
+              for op in ("HMMA", "HGMMA", "UTMALDG")}
+    print(f"mlstm libraries (cuobjdump -sass): {ml.MLSTM_TC} " + " ".join(
+        f"{op}={n}" for op, n in counts.items()) + f", {ml.MLSTM} "
+          f"HMMA={_build.sass_count(ml.MLSTM, 'HMMA')}", flush=True)
+    if not (counts["HMMA"] and counts["HGMMA"]):
+        raise AssertionError("the bf16 mLSTM library holds no HMMA or HGMMA")
     # B4: B, L, H, hd, chunk
     for L in (PREFILL_SEQ, 64):
         B, H, hd, Q = 1, 4, 1024, 128
@@ -1515,6 +1543,11 @@ def phase_scan_kernels():
                                                  chunk=Q, use_kernel=False)
             err = _scan_compare(f"{label} {str(dtype)[6:]}", kern(),
                                 plain(), dtype == torch.float32)
+            if L == PREFILL_SEQ and dtype == torch.float32:
+                f32_ms = _median_ms(kern, reps=3, inner=2, warmup=1)
+                print(f"kernel time [{label} float32 FMA]: ms={f32_ms:.4f} "
+                      f"bound_ms={_mlstm_bound(B, L, H, hd, Q, 4)[0]:.4f}",
+                      flush=True)
         if L != PREFILL_SEQ:
             continue
         h = torch.empty_like(qs)
@@ -1717,9 +1750,9 @@ def _sync() -> None:
 
 
 # each kernel, its source in csrc/ on the main path (bf16: the flash
-# kernels' and the per-token and rectangular reads' tensor-core sources)
+# kernels', the three paged reads' and the mLSTM's tensor-core sources)
 # and the TPU kernel it replaces
-KERNELS = [("paged_attention_tiled", "paged_attention_tiled",
+KERNELS = [("paged_attention_tiled", "paged_attention_tiled_tc",
             "paged_attention.py:373"),
            ("paged_attention_ragged", "paged_attention_ragged_tc",
             "paged_attention.py:242"),
@@ -1735,7 +1768,7 @@ KERNELS = [("paged_attention_tiled", "paged_attention_tiled",
            ("flash_attention_dkv", "flash_attention_bwd_wgmma",
             "flash_attention.py:337"),
            ("ssd_scan", "ssm_scan", "ssm_scan.py:74"),
-           ("mlstm_scan", "mlstm_scan", "mlstm_scan.py:89")]
+           ("mlstm_scan", "mlstm_scan_tc", "mlstm_scan.py:89")]
 
 
 def main() -> None:

@@ -114,11 +114,6 @@ __device__ __forceinline__ bool visible(int row, int key, int S, int causal,
   return ok;
 }
 
-__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
-  return reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
-}
-
 __device__ __forceinline__ void init_barriers(uint64_t* once, uint64_t* full,
                                               uint64_t* empty) {
   if (threadIdx.x == 0) {

@@ -84,11 +84,6 @@ __device__ __forceinline__ bool visible(int row, int key, int S, int causal,
   return ok;
 }
 
-__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
-  return reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
-}
-
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
     fwd_kernel(const __grid_constant__ FwdParams p) {

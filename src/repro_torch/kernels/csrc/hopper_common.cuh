@@ -119,6 +119,12 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
+// the first 1024-byte boundary at or after p (where a swizzled tile starts)
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
+}
+
 __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
                    smem_u32(bar)), "r"(count) : "memory");
@@ -127,6 +133,12 @@ __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
 // make the initialised barriers visible to the async (TMA) proxy
 __device__ __forceinline__ void fence_barrier_init() {
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// order this thread's ordinary shared-memory writes before later reads of
+// the async proxy (wgmma operands); a barrier then publishes them
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // one arrival that also expects ``bytes`` of TMA transactions
@@ -254,7 +266,8 @@ __device__ __forceinline__ void split_bf16(float x0, float x1,
 
 // D (64 x N, float32, += unless scale_d is 0) = A (64 x 16) . B (16 x N):
 // wgmma_ss reads A and B from shared memory, both K-major; wgmma_rs reads
-// A from registers and B, MN-major, from shared memory
+// A from registers and B, MN-major, from shared memory (wgmma_ss_mn_a80,
+// below, reads A MN-major)
 template <int N>
 __device__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b,
                          int scale_d);
@@ -275,6 +288,46 @@ __device__ __forceinline__ void wgmma_ss<32>(float (&d)[16], uint64_t a,
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
         "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<40>(float (&d)[20], uint64_t a,
+                                            uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %22, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19"
+      "}, %20, %21, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// D (64 x 80) (+)= A (64 x 16) . B (16 x 80), A MN-major (its 64 rows
+// contiguous: a tile whose rows are the contraction, read transposed) and
+// B K-major, both in shared memory
+__device__ __forceinline__ void wgmma_ss_mn_a80(float (&d)[40], uint64_t a,
+                                                uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39"
+      "}, %40, %41, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
       : "l"(a), "l"(b), "r"(scale_d));
 }
 

@@ -1,4 +1,5 @@
-// Chunkwise stabilized mLSTM for Hopper (sm_90a): B4.
+// Chunkwise stabilized mLSTM for Hopper (sm_90a): B4 for float32 inputs
+// (bf16 runs the tensor-core kernel, mlstm_scan_tc.cu).
 //
 // Replaces the TPU kernel repro/kernels/mlstm_scan.py::mlstm_scan (body
 // _mlstm_kernel).  For q, k, v (B, H, L, hd) and the gates log_i, log_f
@@ -32,11 +33,11 @@
 // as one B4 call.
 //
 // What bounds it on the H100: at B 1, L 4096, H 4, hd 1024 a call moves
-// ~134 MB (q, k, v, h in bf16) and does ~77 GFLOP, dominated by q C and
-// the C update (2 x L hd^2 multiply-adds a head), so at the bf16
-// tensor-core rate operations would bound it.  This first version does
-// every product as float32 FMAs on the CUDA cores with register tiles per
-// thread (no mma, no TMA pipelining).
+// ~268 MB (q, k, v, h in float32) and does ~77 GFLOP, dominated by q C and
+// the C update (2 x L hd^2 multiply-adds a head), so operations bound it:
+// ~1.15 ms at the float32 FMA rate.  This kernel does every product as
+// float32 FMAs on the CUDA cores with register tiles per thread (no mma,
+// no TMA pipelining), fed from shared memory, which sets its pace.
 
 #include "scan_common.cuh"
 
@@ -352,8 +353,8 @@ size_t mlstm_scan_smem_bytes(int Q, int hd) {
   return mlstm::scan_smem_bytes(Q, hd);
 }
 
-// q, k, v (B, H, L, hd) and h like them, of one type (dtype 0: float32,
-// 1: bfloat16); log_i, log_f (B, H, L) float32; ``scores`` a float32
+// q, k, v (B, H, L, hd) and h like them, float32 (dtype 0; bf16 inputs
+// run mlstm_scan_tc.cu); log_i, log_f (B, H, L) float32; ``scores`` a float32
 // scratch of B * H * L * chunk values.  ``strides`` holds the (b, head, l)
 // element strides of q, k, v, log_i, log_f and h, 18 values; the last axes
 // are contiguous.  1 <= chunk <= 128, L % chunk == 0, and the scan
@@ -384,7 +385,6 @@ int mlstm_scan_launch(const void* q, const void* k, const void* v,
   a.H = H; a.L = L; a.hd = hd; a.Q = chunk; a.scale = scale;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch<float>(a, B, st);
-  if (dtype == 1) return launch<__nv_bfloat16>(a, B, st);
   return cudaErrorInvalidValue;
 }
 

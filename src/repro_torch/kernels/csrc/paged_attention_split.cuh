@@ -1,6 +1,7 @@
 // Split-key tensor-core paged attention for Hopper (sm_90a): the tile sweep
-// shared by the bf16 rectangular read (paged_attention_rows_tc.cu, B3) and
-// the bf16 per-token read (paged_attention_ragged_tc.cu, B2).
+// shared by the bf16 segment-tiled read (paged_attention_tiled_tc.cu, B1),
+// the bf16 per-token read (paged_attention_ragged_tc.cu, B2) and the bf16
+// rectangular read (paged_attention_rows_tc.cu, B3).
 //
 // A thread block (CTA) attends up to 16 q rows of one kv head (one m16
 // tensor-core tile) over one key range of one block-table row.  The old
@@ -43,6 +44,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "mma_common.cuh"
 
 namespace paged_split {
 
@@ -101,72 +104,22 @@ struct Smem {
 };
 
 // ---------------------------------------------------------------------------
-// device primitives
+// device primitives (mma_common.cuh)
 // ---------------------------------------------------------------------------
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; src_bytes 0 fills zeros and reads nothing
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)), "l"(src), "r"(src_bytes) : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_addr(dst)), "l"(src), "r"(src_bytes) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr,
-                                              uint32_t (&r)[4]) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
-}
-
-// d (16 x 8, float32) += a (16 x 16, bf16, row) . b (16 x 8, bf16, col)
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// (x0, x1) rounded to a bf16 pair, x0 in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float x0, float x1) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(x0, x1);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
+using mma16::cp_async16;
+using mma16::cp_async4;
+using mma16::cp_async_commit;
+using mma16::cp_async_wait;
+using mma16::ldsm_x4;
+using mma16::ldsm_x4_trans;
+using mma16::mma16816;
+using mma16::pack_bf16;
+using mma16::smem_addr;
 
 // byte offset of 16-byte chunk c of row r in a swizzled tile of D columns
 template <int D>
 __device__ __forceinline__ int swz(int r, int c) {
-  return r * Shape<D>::kRowBytes + ((c ^ (r & 7)) << 4);
+  return mma16::swz<Shape<D>::kChunks>(r, c);
 }
 
 // two int8 bytes, each in the low byte of a 16-bit half of t, -> a bf16
@@ -584,7 +537,7 @@ __device__ __forceinline__ void store_bf16x8(__nv_bfloat16* dst,
 // ---------------------------------------------------------------------------
 // the kernels, generic over how a work item finds its rows
 // ---------------------------------------------------------------------------
-// Items (the B2 and B3 sources each define one) answer, for work item i:
+// Items (the B1, B2 and B3 sources each define one) answer, for work item i:
 //   rows(i): its real q rows, a prefix of 0..15;
 //   slots(i): the output rows it owns (rows past rows(i) are padding,
 //     which split 0 writes as zeros);

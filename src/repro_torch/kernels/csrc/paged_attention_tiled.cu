@@ -6,15 +6,15 @@
 // draft segments from many lanes) attends over a paged KV pool through the
 // segment-tile metadata built by serving/batch.py::build_tile_map.
 //
-// What bounds it on the H100: bytes.  Each tile reads its lane's K/V blocks
+// What the function needs is bytes: each tile reads its lane's K/V blocks
 // up to the tile's deepest causal position, about
 //   sum_tiles ceil((maxpos + 1) / bs) * bs * D * 2 * sizeof(pool elem)
-// per kv head, against ~4 * rows * keys * D FLOPs, so at serving shapes
-// the arithmetic intensity is a few FLOPs per byte, far below the ~295 at
-// which the tensor cores would bind.  The design therefore reads every KV
-// block of a tile exactly once into shared memory and keeps scores, the
-// online softmax state and the accumulator on chip (paged_attention_common
-// .cuh holds that sweep).
+// per kv head, against ~4 * rows * keys * D FLOPs, a few FLOPs per byte at
+// serving shapes.  What bounds this FMA kernel on the H100 is shared-memory
+// traffic and the serial sweep of paged_attention_common.cuh (one block
+// sweeps a lane's blocks for a whole tile, loads and compute alternating;
+// PERF.md).  It stays for float32 inputs; bf16 q with bf16 or int8 pools
+// runs the tensor-core split sweep, paged_attention_tiled_tc.cu.
 //
 // Schedule: one thread block per (tile, kv head).  The block reads its own
 // tile_meta column and block-table row from global memory (no scalar

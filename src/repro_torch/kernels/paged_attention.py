@@ -1,10 +1,9 @@
-"""Paged attention: the wrappers of the port's three Hopper kernels.
+"""Paged attention: the wrappers of the port's three Hopper reads.
 
 Each replaces one TPU kernel of ``repro/kernels/paged_attention.py``:
 
-  * :func:`paged_attention_ragged_tiled` (``csrc/paged_attention_tiled.cu``)
-    — ``paged_attention_ragged_tiled``, the segment-tiled flat-stream read
-    of the default paged step;
+  * :func:`paged_attention_ragged_tiled` — ``paged_attention_ragged_tiled``,
+    the segment-tiled flat-stream read of the default paged step;
   * :func:`paged_attention_ragged` — ``paged_attention_ragged``, the
     per-token flat-stream read of the ``tiled=False`` step;
   * :func:`paged_attention_chunk` and :func:`paged_attention` —
@@ -12,16 +11,16 @@ Each replaces one TPU kernel of ``repro/kernels/paged_attention.py``:
     ``paged_attention``, the rectangular read of the ``ragged=False`` step
     (C = 1 is decode).
 
-The last two have two kernels each, as the flash kernels do: bf16 q with
-bf16 or int8 pools (the serving path's types) runs the tensor-core split
-sweep (``csrc/paged_attention_ragged_tc.cu``,
+Each read has two kernels, as the flash kernels do: bf16 q with bf16 or
+int8 pools (the serving path's types) runs the tensor-core split sweep
+(``csrc/paged_attention_tiled_tc.cu``, ``csrc/paged_attention_ragged_tc.cu``,
 ``csrc/paged_attention_rows_tc.cu`` on ``paged_attention_split.cuh``),
-float32 q or pools the FMA kernels (``csrc/paged_attention_ragged.cu``,
-``csrc/paged_attention_rows.cu``).  The split sweep cuts each key range
-into splits of whole blocks when its CTAs would not fill two waves of the
-card (:func:`split_plan`, :func:`item_splits`) and merges them with a
-second kernel of the same library; a read counts as one launch all the
-same.
+float32 q or pools the FMA kernels (``csrc/paged_attention_tiled.cu``,
+``csrc/paged_attention_ragged.cu``, ``csrc/paged_attention_rows.cu``).
+The split sweep cuts each key range into splits of whole blocks when its
+CTAs would not fill two waves of the card (:func:`split_plan`,
+:func:`item_splits`) and merges them with a second kernel of the same
+library; a read counts as one launch all the same.
 
 For CUDA tensors a wrapper checks its inputs, allocates the output (and
 the split scratch) and launches its kernel on the current stream, or
@@ -43,6 +42,7 @@ from repro_torch.kernels import ref as _ref
 TILED = "paged_attention_tiled"
 RAGGED = "paged_attention_ragged"
 ROWS = "paged_attention_rows"
+TILED_TC = "paged_attention_tiled_tc"
 RAGGED_TC = "paged_attention_ragged_tc"
 ROWS_TC = "paged_attention_rows_tc"
 HEAD_DIMS = (64, 128, 256)
@@ -56,7 +56,7 @@ _POOL_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 # pointer and int arguments of each C launch function, before the float
 # scale and the stream
 _ARITY = {TILED: (8, 10), RAGGED: (8, 9), ROWS: (9, 11),
-          RAGGED_TC: (10, 10), ROWS_TC: (11, 11)}
+          TILED_TC: (10, 11), RAGGED_TC: (10, 10), ROWS_TC: (11, 11)}
 
 launch_counts: Dict[str, int] = {name: 0 for name in (TILED, RAGGED, ROWS)}
 _fns: Dict[str, tuple] = {}
@@ -74,7 +74,7 @@ def _kernel(name: str):
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         smem = None
-        if name not in (RAGGED_TC, ROWS_TC):
+        if name not in (TILED_TC, RAGGED_TC, ROWS_TC):
             smem = getattr(lib, f"{name}_smem_bytes")
             smem.argtypes = [ctypes.c_int] * 3
             smem.restype = ctypes.c_size_t
@@ -220,16 +220,19 @@ def _launch_split(name: str, count_as: str, q: torch.Tensor,
                   k_scale: Optional[torch.Tensor],
                   v_scale: Optional[torch.Tensor], ptrs, n_items: int,
                   rows: int, span: int, ints, max_blocks: int, window: int,
-                  out: torch.Tensor) -> torch.Tensor:
+                  out: torch.Tensor, live_items: Optional[int] = None
+                  ) -> torch.Tensor:
     """Launch the split sweep ``name`` over ``n_items`` items of at most
     ``rows`` q rows whose ranges touch at most ``span`` blocks: the
     pointers are q, the pools, the scales, ``ptrs`` (metadata; None
     passes a null pointer), out and the split scratch; the ints the pool
     dtype code, D, ``ints``, bs, ``max_blocks``, ``window`` and the split
-    plan.  Counts one launch of ``count_as``."""
+    plan, decided from ``live_items`` (default ``n_items``), the most
+    items that can have rows.  Counts one launch of ``count_as``."""
     fn, _ = _kernel(name)
     D, Hkv, bs = q.shape[-1], k_pool.shape[2], k_pool.shape[1]
-    split_blocks, n_splits = split_plan(n_items * Hkv, span, bs)
+    split_blocks, n_splits = split_plan(
+        (n_items if live_items is None else live_items) * Hkv, span, bs)
     acc = ml = None
     if n_splits > 1:
         acc = torch.empty((n_splits, n_items, Hkv, rows, D),
@@ -284,9 +287,23 @@ def paged_attention_ragged_tiled(q: torch.Tensor, k_pool: torch.Tensor,
     if tile_meta.shape[0] != 5:
         raise ValueError(f"tile_meta must be (5, n_tiles), got "
                          f"{tuple(tile_meta.shape)}")
+    n_tiles = tile_meta.shape[1]
+    if _tensor_cores(q, k_pool):
+        # of the n_windows + n_lanes capacity tiles at most T have rows
+        # (each owns one row or more): the plan counts those, from shapes
+        groups = -(-tile * G // TC_ROWS)
+        max_blocks = block_tables.shape[1]
+        tokens = min(tile, (TC_ROWS - 1) // G + 2)   # an item's positions
+        return _launch_split(
+            TILED_TC, TILED, q, k_pool, v_pool, k_scale, v_scale,
+            (block_tables, tile_meta), n_tiles * groups,
+            min(tile * G, TC_ROWS),
+            span_blocks(max_blocks, k_pool.shape[1], window, tokens),
+            (n_tiles, Hkv, G, tile), max_blocks, window,
+            torch.zeros_like(q), live_items=min(n_tiles, T) * groups)
     return _launch(TILED, tile * G, q, k_pool, v_pool, k_scale, v_scale,
                    (block_tables, tile_meta), (
-                       tile_meta.shape[1], Hkv, G, k_pool.shape[1],
+                       n_tiles, Hkv, G, k_pool.shape[1],
                        block_tables.shape[1], tile, window),
                    torch.zeros_like(q))
 

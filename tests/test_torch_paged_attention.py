@@ -218,34 +218,55 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("pool", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("pool", ["f32", "bf16", "int8", "int8_bf16q"])
 def test_cuda_kernel_matches_plain_version(cuda_device, pool):
-    """The Hopper kernel against its plain version on the card, every
-    TILED_MIXES case, G in {1, 4}, window in {0, 5}, head dim 64 (the
-    kernel is built for 64, 128 and 256)."""
+    """The segment-tiled Hopper kernels against their plain version on the
+    card, every TILED_MIXES case, G in {1, 4}, window in {0, 5}, head dim
+    64 (the kernels are built for 64, 128 and 256): float32 q (f32 and
+    int8 pools) on the FMA kernel, bf16 q (bf16 pools, and int8 pools
+    under "int8_bf16q") on the split sweep, which also runs every mix at
+    G 9 (tiles of up to 144 rows, 9 items each) and head dims 128 and 256,
+    and returns the same bits twice.  Each call counts one launch."""
+    tc = pool in ("bf16", "int8_bf16q")
+    # bf16: the plain version rounds scores and weights to bf16, the
+    # kernels keep scores in float32.  Largest readings on an H100 (the
+    # test prints them): 3.1e-2 bf16, 1.6e-2 int8_bf16q, 9.5e-7 f32,
+    # 8.3e-7 int8
+    tol = 5e-2 if tc else 1e-4
+    shapes = [(G, 64) for G in (1, 4)]
+    if tc:
+        shapes += [(9, 128), (9, 256)]
+    before = tpa.launch_counts[tpa.TILED]
+    calls, worst = 0, 0.0
     for mix in sorted(TILED_MIXES):
-        for G in (1, 4):
+        for G, dim in shapes:
             for window in (0, 5):
-                d = _setup(mix, G, pool == "int8", dim=64)
+                d = _setup(mix, G, pool.startswith("int8"), dim=dim)
                 t = _torch_args(d, cuda_device)
-                if pool == "bf16":
-                    t["q"] = t["q"].bfloat16()
-                    t["k"], t["v"] = t["k"].bfloat16(), t["v"].bfloat16()
-                args = (t["q"], t["k"], t["v"], t["tables"], t["meta"],
-                        t["row_tile"])
-                kw = dict(tile=d["tile"], window=window, k_scale=t["ks"],
-                          v_scale=t["vs"])
+                p = _cuda_pools(d, cuda_device, pool)
+                args = (_cuda_q(d, cuda_device, pool), p["k"], p["v"],
+                        t["tables"], t["meta"], t["row_tile"])
+                kw = dict(tile=d["tile"], window=window, k_scale=p["ks"],
+                          v_scale=p["vs"])
                 want = tref.paged_attention_ragged_tiled_reference(
                     *args, **kw)
                 got = ops.paged_attention_ragged_tiled(*args, **kw)
+                calls += 1
+                if tc:
+                    again = ops.paged_attention_ragged_tiled(*args, **kw)
+                    calls += 1
                 torch.cuda.synchronize()
                 T = d["T"]
-                # bf16: the plain version rounds scores and weights to
-                # bf16, the kernel keeps scores in float32
-                tol = 5e-2 if pool == "bf16" else 1e-4
+                assert torch.isfinite(got[:T]).all()
+                if tc:
+                    assert torch.equal(got, again)
+                worst = max(worst, (got[:T].float() - want[:T].float()
+                                    ).abs().max().item())
                 torch.testing.assert_close(got[:T].float(),
                                            want[:T].float(), atol=tol,
                                            rtol=tol)
+    print(f"B1 {pool}: largest |kernel - plain| {worst:.2e}")
+    assert tpa.launch_counts[tpa.TILED] == before + calls
 
 
 # ---------------------------------------------------------------------------
@@ -540,6 +561,32 @@ def _emulate_chunk(d, G, window, split_blocks, warps):
     return out
 
 
+def _emulate_tiled(d, G, window, split_blocks, warps):
+    """The segment-tiled read (B1) through :func:`_sweep_emulation`: each
+    real tile's rows (token lo + r // G, query head r % G, at position
+    pos0 + r // G) in items of 16 of its (hi - lo) x G rows."""
+    q = _bf16v(d["q"])
+    k, v, ks, vs = _emulation_pools(d)
+    meta = d["meta"]
+    out = torch.zeros_like(q)
+    for t in range(meta.shape[1]):
+        lo, hi = int(meta[tref.TILE_LO, t]), int(meta[tref.TILE_HI, t])
+        pos0, lane = int(meta[tref.TILE_POS0, t]), int(meta[tref.TILE_LANE, t])
+        table = torch.from_numpy(d["tables"][lane])
+        n = (hi - lo) * G
+        for h in range(HKV):
+            for r0 in range(0, n, 16):
+                rows = range(r0, min(n, r0 + 16))
+                qr = torch.stack([q[lo + r // G, h * G + r % G] for r in rows])
+                pos = [pos0 + r // G for r in rows]
+                o = _sweep_emulation(qr, pos, table, h, k, v, ks, vs,
+                                     window=window,
+                                     split_blocks=split_blocks, warps=warps)
+                for i, r in enumerate(rows):
+                    out[lo + r // G, h * G + r % G] = o[i]
+    return out
+
+
 def _emulation_pools(d):
     """Pools as the kernels read them: bf16 values (int8 stays int8, with
     float32 scales)."""
@@ -638,6 +685,38 @@ def test_split_arithmetic_matches_reference_oracle(jax_side, G, window,
                     initial=0.0))
     assert worst <= EMULATION_ATOL, worst
     assert worst > 0      # the rounding is there: no exact path slipped in
+
+
+@pytest.mark.parametrize("G,window,quantized", [
+    (1, 0, False), (1, 5, True), (9, 5, False), (9, 0, True)],
+    ids=["G1-bf16", "G1-window-int8", "G9-window-bf16", "G9-int8"])
+def test_tiled_split_arithmetic_matches_reference_oracle(jax_side, G, window,
+                                                         quantized):
+    """The segment-tiled read's split sweep (:func:`_emulate_tiled`: each
+    tile cut into items of 16 rows, tiles dealt to warps, split partials
+    merged, bf16 weights with v_scale folded in for int8) against the
+    reference's tiled jnp oracle on every TILED_MIXES case (windows
+    straddling segment boundaries, segments smaller and larger than a
+    tile, all decodes), inputs rounded to bf16 as the kernel reads them:
+    every real row within EMULATION_ATOL, whatever the split size (one
+    block, two, or no cut) and the number of warps."""
+    jnp = jax_side["jnp"]
+    worst = 0.0
+    for mix in sorted(TILED_MIXES):
+        d = _setup(mix, G, quantized)
+        for n in ("q", "k", "v"):
+            if d[n].dtype == np.float32:
+                d[n] = _bf16v(d[n]).numpy()
+        want = np.asarray(jax_side["ref"](
+            *(jnp.asarray(d[n]) for n in ("q", "k", "v", "tables", "meta",
+                                          "row_tile")),
+            tile=d["tile"], window=window, **_jax_scales(jnp, d)))
+        for split_blocks, warps in ((1, 4), (2, 2), (MAX_BLOCKS, 4)):
+            got = _emulate_tiled(d, G, window, split_blocks, warps)
+            err = np.abs(got.numpy() - want)[:d["T"]].max()
+            worst = max(worst, err)
+    assert worst <= EMULATION_ATOL, worst
+    assert worst > 0
 
 
 # split-sweep cases on the card (bs 16, so SPLIT_KEYS = 16 blocks): lanes
