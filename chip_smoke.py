@@ -35,9 +35,12 @@ printing its own line(s):
    on the plain path, on the same pools;
 6. (run right after 3) the pseudo-Voigt fit (B7) against its plain
    version on the card, on the port's ``bragg_patches`` at the paper's
-   800,000 peaks, at a ragged count and on all-zero patches, with its
-   time, the plain version's and the least time the card could take (no
-   single PyTorch call computes the fit, so it has no library time);
+   800,000 peaks, at a ragged count and on all-zero patches (all 11 x 11,
+   the kernel's own instantiation; the card tests hold its other one),
+   with its time, the plain version's and the least time the card could
+   take (no single PyTorch call computes the fit, so it has no library
+   time), and at 800,000 once more with no Gauss-Newton step (the fit's
+   share);
 7. the paper's loop for BraggNN at the paper's scale, in float32: S
    simulates 800,000 training and 800,000 held-out patches, A labels the
    training set through B7 (``label_for_braggnn``), T trains BraggNN at
@@ -71,18 +74,24 @@ printing its own line(s):
    at one sequence shorter than a chunk, from float32 inputs and their
    bf16 copies, against their plain versions on the card, with the time,
    the plain version's and the least time the card could take (no
-   PyTorch call computes either scan, so no library time); B4's bf16
-   inputs run its tensor-core kernels (the phase counts their ``HMMA``
-   and ``HGMMA`` instructions and fails on none of either), float32 ones
-   its FMA kernel, whose time is printed too; and B6 at
+   PyTorch call computes either scan, so no library time); bf16 inputs
+   run each scan's tensor-core kernels (the phase counts the ``HMMA``
+   instructions of B5's library and fails on none, and the ``HMMA`` and
+   ``HGMMA`` of B4's and fails on none of either), float32 ones their
+   FMA kernels, whose times are printed too, and B5 once more on as many
+   heads as give one CTA a SM; and B6 at
    zamba2-2.7b's head dim 80 with SDPA's time; (b) zamba2-2.7b at its
    published width and depth (54 Mamba2 layers and the shared attention
    block, random bf16 weights from a seed): the prefill step
    (``make_prefill_step_fn``, no grad) at batch 1 x 4096 tokens must
    launch B5 54 times and the B6 forward 9 times and no other kernel, and
    agree with the plain path (``use_kernel=False``) in bf16 and in
-   float32; then ``SlotDecodeEngine`` serves 3 requests on 2 slots, every
-   request to its end; (c) xlstm-1.3b likewise (48 layers; B4 42 times).
+   float32; one more kernel prefill runs under ``torch.profiler`` and
+   prints its device time by kernel family (SSD scan, flash attention,
+   GEMMs, the rest) and its idle share; then ``SlotDecodeEngine`` serves
+   3 requests on 2 slots, every request to its end; (c) xlstm-1.3b
+   likewise (48 layers; B4 42 times; not profiled: its sLSTM loop
+   launches ~370,000 kernels a prefill).
 
 Then one JSON line of per-kernel numbers, and last
 ``{"ok": true, "device": {...}}``.  Any failed phase raises, so the run
@@ -161,16 +170,16 @@ TRAIN_STEPS = 10
 TRAIN_LR = 3e-4               # the training launcher's default
 TOP_KERNELS = 12              # device kernels listed from the profiled step
 # B5 and B4 against their plain versions (phase 9a; the readings are
-# printed).  float32 inputs run the same arithmetic in another order:
-# every element within SCAN_F32_TOL * (1 + |plain|) (readings at the
-# full-width shapes on an H100: 1.2e-7 B5, 7.3e-7 B4).  In bf16 the plain
-# versions round their intermediates (decay weights, gated scores, the
-# carried states) and their products' outputs to bf16; B5 rounds none of
-# them, B4's tensor-core kernel rounds q / sqrt(hd), the gated scores and
-# the carried C where the plain version does but keeps its products in
-# float32: the whole within SCAN_BF16_REL_L2 in the 2-norm (readings
-# 3.0e-3 B5, 3.5e-3 B4) and every element within SCAN_BF16_MAX x the
-# largest |plain| (readings 5.6e-3 both)
+# printed).  float32 inputs run the FMA kernels, the same arithmetic in
+# another order: every element within SCAN_F32_TOL * (1 + |plain|)
+# (readings at the full-width shapes on an H100: 1.2e-7 B5, 7.3e-7 B4).
+# In bf16 the plain versions round their intermediates (decay weights, W
+# or the gated scores, the carried states) and their products' outputs to
+# bf16; the tensor-core kernels round the intermediates where the plain
+# versions do (B5: W, the decays, B o decay and S; B4: q / sqrt(hd), the
+# gated scores and C) but keep their products in float32: the whole
+# within SCAN_BF16_REL_L2 in the 2-norm and every element within
+# SCAN_BF16_MAX x the largest |plain| (PERF.md has the readings)
 SCAN_F32_TOL = 5e-6
 SCAN_BF16_REL_L2 = 1e-2
 SCAN_BF16_MAX = 2e-2
@@ -794,6 +803,14 @@ def phase_pv_kernel():
             lambda: ops.pseudo_voigt_fit(p, use_kernel=False), reps=5,
             inner=3)
         bound_ms, bound_by, byte_ms, op_ms = _pv_bound(p, 5)
+        if label.startswith(f"Np={PAPER_PEAKS}"):
+            # the fit's share: the same call with no Gauss-Newton step
+            # (marginals, starting moments and stores only)
+            from repro_torch.kernels import pseudo_voigt as pv
+            ms0 = _median_ms(lambda: pv.pseudo_voigt_fit(p, n_iter=0),
+                             reps=20)
+            print(f"kernel time [pseudo_voigt {label} n_iter=0]: "
+                  f"ms={ms0:.4f}", flush=True)
         print(f"kernel check [pseudo_voigt {label}]: max_abs_err per column "
               f"(y0, x0, gy, gx, Ay, Ax)="
               f"{', '.join(f'{e:.3e}' for e in col_err)} "
@@ -1503,6 +1520,11 @@ def phase_scan_kernels():
                                                use_kernel=False)
             err = _scan_compare(f"{label} {str(dtype)[6:]}", kern(),
                                 plain(), dtype == torch.float32)
+            if L == PREFILL_SEQ and dtype == torch.float32:
+                f32_ms = _median_ms(kern, reps=3, inner=2, warmup=1)
+                print(f"kernel time [{label} float32 FMA]: ms={f32_ms:.4f} "
+                      f"bound_ms={_ssd_bound(B, L, H, P, G, N, Q, 4)[0]:.4f}",
+                      flush=True)
         if L != PREFILL_SEQ:
             continue
         # the kernel alone on the inputs the path hands it, bf16
@@ -1517,10 +1539,29 @@ def phase_scan_kernels():
             max_abs_err=err, ms=_median_ms(call, reps=10, inner=5),
             plain_ms=_median_ms(plain, reps=3, inner=1, warmup=1),
             library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
+        # the same heads cut to one CTA a SM (a CTA takes 32 columns of P
+        # of one head): how much the SMs that hold two CTAs cost
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        hs = sms // -(-P // 32)
+        few = lambda: ssd.ssd_scan(
+            xdt[:, :, :hs].transpose(1, 2), dA[:, :, :hs].transpose(1, 2),
+            Bs.transpose(1, 2), Cs.transpose(1, 2), chunk=Q,
+            out=y[:, :, :hs].transpose(1, 2))
+        print(f"kernel time [{label} bfloat16, {hs} of {H} heads: "
+              f"{hs * -(-P // 32)} CTAs on {sms} SMs]: ms="
+              f"{_median_ms(few, reps=10, inner=5):.4f} (all {H} heads, "
+              f"{H * -(-P // 32)} CTAs: {results[ssd.SSD]['ms']:.4f})",
+              flush=True)
         del x, xs, xdt, y, Bm, Cm, Bs, Cs
+    # B5: its bf16 library on the tensor cores (SASS HMMA, mma.sync)
+    from repro_torch.kernels import _build
+    hmma = _build.sass_count(ssd.SRC_TC, "HMMA")
+    print(f"ssd libraries (cuobjdump -sass): {ssd.SRC_TC} HMMA={hmma}, "
+          f"{ssd.SRC} HMMA={_build.sass_count(ssd.SRC, 'HMMA')}", flush=True)
+    if not hmma:
+        raise AssertionError("the bf16 SSD library holds no HMMA")
     # B4: its bf16 library on the tensor cores (SASS HMMA, mma.sync, in the
     # scores kernel; HGMMA, wgmma, and UTMALDG, TMA loads, in the scan)
-    from repro_torch.kernels import _build
     counts = {op: _build.sass_count(ml.MLSTM_TC, op)
               for op in ("HMMA", "HGMMA", "UTMALDG")}
     print(f"mlstm libraries (cuobjdump -sass): {ml.MLSTM_TC} " + " ".join(
@@ -1626,6 +1667,49 @@ def _logits_gap(a, b) -> tuple:
     return ((a - b).norm() / b.norm()).item(), (a - b).abs().max().item()
 
 
+def _group_prefill(name: str) -> str:
+    """Kernel family of a device kernel name in a recurrent prefill."""
+    if "ssd" in name:
+        return "ssd scan"
+    if "flash" in name:
+        return "flash attention"
+    return _group_train(name)
+
+
+def _profile_prefill(arch, step, params, batch) -> None:
+    """One more kernel prefill under ``torch.profiler``: device time by
+    kernel family, the busy time and the idle share of the wall."""
+    import torch
+    from repro_torch.launch.profile_serve import _busy_us
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=acts) as prof:
+        step(params, batch)
+        _sync()
+    wall = time.perf_counter() - t0
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = _busy_us(kernels) / 1e6
+    groups = {"ssd scan": [0.0, 0], "flash attention": [0.0, 0],
+              "gemm": [0.0, 0], "other": [0.0, 0]}
+    by_name = {}
+    for e in kernels:
+        ms_e = (e.time_range.end - e.time_range.start) / 1e3
+        for acc in (groups[_group_prefill(e.name)],
+                    by_name.setdefault(e.name, [0.0, 0])):
+            acc[0] += ms_e
+            acc[1] += 1
+    print(f"{arch} prefill profile [kernel, bf16]: wall_ms={wall * 1e3:.2f} "
+          f"device_busy_ms={busy * 1e3:.2f} idle_share="
+          f"{1 - busy / wall:.4f} kernels={len(kernels)} " + " ".join(
+              f"{g.replace(' ', '_')}_ms={v[0]:.2f} ({v[1]})"
+              for g, v in groups.items()), flush=True)
+    for name, (t_ms, n) in sorted(by_name.items(),
+                                  key=lambda kv: -kv[1][0])[:TOP_KERNELS]:
+        print(f"  {t_ms:9.3f} ms {n:5d} calls  {name[:100]}", flush=True)
+
+
 def phase_recurrent(arch: str, want: dict) -> dict:
     """``arch`` at its published width and depth, random bf16 weights from
     SEED: the prefill step (``make_prefill_step_fn``, no grad) at batch 1
@@ -1687,6 +1771,8 @@ def phase_recurrent(arch: str, want: dict) -> dict:
             if not bool(torch.isfinite(out).all()) or \
                     tuple(out.shape) != (1, cfg.vocab_size):
                 raise AssertionError(f"{arch} {label} prefill logits")
+            if label == "kernel" and arch == "zamba2-2.7b":
+                _profile_prefill(arch, step, params, batch)
         rel16, max16 = _logits_gap(runs["kernel"], runs["plain"])
         f32 = {}
         for label, kw in (("kernel", {}), ("plain", {"use_kernel": False})):
@@ -1750,7 +1836,7 @@ def _sync() -> None:
 
 
 # each kernel, its source in csrc/ on the main path (bf16: the flash
-# kernels', the three paged reads' and the mLSTM's tensor-core sources)
+# kernels', the three paged reads' and the two scans' tensor-core sources)
 # and the TPU kernel it replaces
 KERNELS = [("paged_attention_tiled", "paged_attention_tiled_tc",
             "paged_attention.py:373"),
@@ -1767,7 +1853,7 @@ KERNELS = [("paged_attention_tiled", "paged_attention_tiled_tc",
             "flash_attention.py:316"),
            ("flash_attention_dkv", "flash_attention_bwd_wgmma",
             "flash_attention.py:337"),
-           ("ssd_scan", "ssm_scan", "ssm_scan.py:74"),
+           ("ssd_scan", "ssm_scan_tc", "ssm_scan.py:74"),
            ("mlstm_scan", "mlstm_scan_tc", "mlstm_scan.py:89")]
 
 

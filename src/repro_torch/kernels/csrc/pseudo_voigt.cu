@@ -10,31 +10,38 @@
 // kernels/ref.py::pv_fit_1d, term for term: the same clamps, the same
 // determinant rule (|det| < 1e-20 becomes +1e-20), true division and expf.
 //
-// What bounds it on the H100: bytes.  The patch is read once (121 floats
-// at 11 x 11) and six floats are written; the fit is ~7 k float operations
-// a patch, all in registers, which at 67 TFLOP/s stays under the byte
-// time.  The TPU kernel vectorises a 256-patch VMEM block across lanes; here
-// each thread owns one patch, so the math needs no cross-thread traffic.
+// What bounds it on the H100: the fit.  The patch is read once (121 floats
+// at 11 x 11) and six floats are written (0.12 ms at 800,000 patches), but
+// each 1-D fit runs n_iter Gauss-Newton steps of ~6 true divisions and an
+// expf a point, serial chains that only many threads in flight can hide.
 //
-// Schedule: a block of up to 128 threads, one patch each, first stages its
-// patches (contiguous in memory) into shared memory with coalesced 16-byte
-// loads: 62 KB at 11 x 11, over the 48 KB default, so the launch opts in
-// to more dynamic shared memory.  Larger patches take 64 or 32 threads a
-// block so the stage fits 227 KB.  Thread t then reads its own patch at a
-// stride of ph * pw floats (odd at 11 x 11, so free of bank conflicts),
-// sums its two marginals into registers and runs both fits there.  The
-// marginal arrays have the compile-time size kMaxN and every loop over
-// them is unrolled with a guard on the runtime length, so they stay in
-// registers.  Threads past the last patch (the ragged tail) only help
-// with the stage.
+// Schedule (redesigned for occupancy): a block of 256 threads takes 128
+// patches, in two phases.
+//   * Marginals.  The block stages its patches, a few at a time, into a
+//     16 KB shared tile with coalesced 16-byte loads (a sub-tile of
+//     ~4,096 floats, reused), and reduces each to its row and column
+//     marginals, one thread a (patch, row) and a (patch, column), summing
+//     in the plain version's order; the 128 x (ph + pw) marginals stay in
+//     shared memory (rows of an odd stride: conflict-free reads).
+//   * Fits.  Thread t fits one profile: the row marginal of patch t for
+//     t < 128, the column marginal of patch t - 128 else (warp-uniform),
+//     so 1.6 M independent fits at 800,000 peaks.  The fit is a template
+//     on the profile length: 11 x 11 (the paper's patches) has its own
+//     instantiation, 11 registers of profile and loops unrolled without
+//     guards; a 32-slot instantiation with guarded loops takes the other
+//     shapes.  The six results of a patch meet in shared memory and leave
+//     in one coalesced store.  Threads past the last patch (the ragged
+//     tail) only help with the stage.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int kMaxN = 32;           // largest ph and pw the kernel takes
-constexpr int kMaxThreads = 128;    // patches (threads) per block
-constexpr size_t kSmemLimit = 232448;
+constexpr int kThreads = 256;       // one a profile: two a patch
+constexpr int kTile = kThreads / 2; // patches a block
+constexpr int kPaper = 11;          // the paper's patch side
 constexpr float kEta = 0.5f;        // fixed Lorentzian fraction
 // sigma = C * gamma with C = 1 / sqrt(2 ln 2); the reference forms C * C
 // in double before it meets a float32 tensor, so C2 is rounded once
@@ -53,18 +60,20 @@ __device__ __forceinline__ float at_least(float v, float lo) {
 }
 
 // Gauss-Newton fit of y[0:n] (overwritten with y - min y); returns
-// (x0, gamma, A) as kernels/ref.py::pv_fit_1d does.
-__device__ __forceinline__ void fit_1d(float (&y)[kMaxN], const int n,
+// (x0, gamma, A) as kernels/ref.py::pv_fit_1d does.  kExact: n == N, so
+// no loop needs a guard.
+template <int N, bool kExact>
+__device__ __forceinline__ void fit_1d(float (&y)[N], const int n,
                                        const int n_iter, float& x0_out,
                                        float& gamma_out, float& A_out) {
   float bg = y[0];
 #pragma unroll
-  for (int i = 1; i < kMaxN; ++i)
-    if (i < n) bg = y[i] < bg ? y[i] : bg;
+  for (int i = 1; i < N; ++i)
+    if (kExact || i < n) bg = y[i] < bg ? y[i] : bg;
   float total = 0.f, sx = 0.f, peak = y[0] - bg;
 #pragma unroll
-  for (int i = 0; i < kMaxN; ++i) {
-    if (i < n) {
+  for (int i = 0; i < N; ++i) {
+    if (kExact || i < n) {
       y[i] = y[i] - bg;
       total += y[i];
       sx += y[i] * static_cast<float>(i);
@@ -75,14 +84,15 @@ __device__ __forceinline__ void fit_1d(float (&y)[kMaxN], const int n,
   float x0 = sx / total;
   float sv = 0.f;
 #pragma unroll
-  for (int i = 0; i < kMaxN; ++i) {
-    if (i < n) {
+  for (int i = 0; i < N; ++i) {
+    if (kExact || i < n) {
       const float d = static_cast<float>(i) - x0;
       sv += y[i] * (d * d);
     }
   }
   float gamma = sqrtf(at_least(sv / total, 0.25f));
   float A = at_least(peak, 1e-12f);
+  const float nf = static_cast<float>(kExact ? N : n);
 
   for (int it = 0; it < n_iter; ++it) {
     const float g2 = gamma * gamma;
@@ -94,8 +104,8 @@ __device__ __forceinline__ void fit_1d(float (&y)[kMaxN], const int n,
     float a00 = 0.f, a01 = 0.f, a02 = 0.f, a11 = 0.f, a12 = 0.f, a22 = 0.f;
     float b0 = 0.f, b1 = 0.f, b2 = 0.f;
 #pragma unroll
-    for (int i = 0; i < kMaxN; ++i) {
-      if (i < n) {
+    for (int i = 0; i < N; ++i) {
+      if (kExact || i < n) {
         const float u = static_cast<float>(i) - x0;
         const float uu = u * u;
         const float lor = g2 / (uu + g2);
@@ -136,76 +146,104 @@ __device__ __forceinline__ void fit_1d(float (&y)[kMaxN], const int n,
     const float dx0 = (i01 * b0 + i11 * b1 + i12 * b2) / det;
     const float dg = (i02 * b0 + i12 * b1 + i22 * b2) / det;
     A = at_least(A + dA, 1e-12f);
-    x0 = clampf(x0 + dx0, 0.0f, static_cast<float>(n) - 1.0f);
-    gamma = clampf(gamma + dg, 0.3f, static_cast<float>(n));
+    x0 = clampf(x0 + dx0, 0.0f, nf - 1.0f);
+    gamma = clampf(gamma + dg, 0.3f, nf);
   }
   x0_out = x0;
   gamma_out = gamma;
   A_out = A;
 }
 
-__global__ void __launch_bounds__(kMaxThreads)
+// N: profile slots (kPaper with kExact for 11 x 11 patches, else kMaxN);
+// kStage: floats of the shared sub-tile the patches are staged through;
+// ``sub`` patches (sub * ph * pw <= kStage) are staged at a time.  The
+// 11 x 11 instantiation keeps to 48 registers a thread: five blocks, 40
+// warps, a SM.
+template <int N, bool kExact, int kStage>
+__global__ void __launch_bounds__(kThreads, kExact ? 5 : 1)
 pseudo_voigt_kernel(const float* __restrict__ patches,
                     float* __restrict__ out, int Np, int ph, int pw,
-                    int n_iter) {
-  extern __shared__ float4 stage4[];
-  float* stage = reinterpret_cast<float*>(stage4);
-  const int per = ph * pw;
-  const long long first = static_cast<long long>(blockIdx.x) * blockDim.x;
+                    int n_iter, int sub) {
+  __shared__ __align__(16) float stage[kStage];
+  __shared__ float marg[kTile * ((2 * N) | 1)];
+  __shared__ float res[kTile * 6];
+  if (kExact) ph = pw = N;
+  const int per = ph * pw, nm = ph + pw, ld = nm | 1;
+  const int tid = threadIdx.x;
+  const long long first = static_cast<long long>(blockIdx.x) * kTile;
   const long long left = Np - first;
-  const int count = left < blockDim.x ? static_cast<int>(left) : blockDim.x;
-  // the block's patches are contiguous; blockDim.x is a multiple of 4, so
-  // with a 16-byte aligned base (the wrapper checks it) so is src
-  const float* src = patches + first * per;
-  const int total = count * per;
-  const int n4 = total / 4;
-  const float4* src4 = reinterpret_cast<const float4*>(src);
-  for (int i = threadIdx.x; i < n4; i += blockDim.x) stage4[i] = src4[i];
-  for (int i = 4 * n4 + threadIdx.x; i < total; i += blockDim.x)
-    stage[i] = src[i];
-  __syncthreads();
-  if (static_cast<int>(threadIdx.x) >= count) return;
+  const int count = left < kTile ? static_cast<int>(left) : kTile;
 
-  const float* mine = stage + static_cast<size_t>(threadIdx.x) * per;
-  float m[kMaxN];
-  float res[6];
-  // row marginal: the y profile
-#pragma unroll
-  for (int r = 0; r < kMaxN; ++r) {
-    if (r < ph) {
-      float s = 0.f;
-      for (int c = 0; c < pw; ++c) s += mine[r * pw + c];
-      m[r] = s;
+  // marginals, sub patches at a time: row sums (the y profile) then
+  // column sums (the x profile), each in index order as the plain version
+  for (int k0 = 0; k0 < count; k0 += sub) {
+    const int ks = count - k0 < sub ? count - k0 : sub;
+    const float* src = patches + (first + k0) * per;
+    const int total = ks * per;
+    // the sub-tile is contiguous; copy it 16 bytes at a time from the
+    // first 16-byte aligned float on (the base is 16-byte aligned)
+    const int head = static_cast<int>(
+        (16 - reinterpret_cast<uintptr_t>(src) % 16) % 16 / 4);
+    const int lead = head < total ? head : total;
+    const int n4 = (total - lead) / 4;
+    const float4* src4 = reinterpret_cast<const float4*>(src + lead);
+    for (int i = tid; i < lead; i += kThreads) stage[i] = src[i];
+    for (int i = tid; i < n4; i += kThreads) {
+      const float4 v = src4[i];
+      float* d = stage + lead + 4 * i;
+      d[0] = v.x; d[1] = v.y; d[2] = v.z; d[3] = v.w;
     }
+    for (int i = lead + 4 * n4 + tid; i < total; i += kThreads)
+      stage[i] = src[i];
+    __syncthreads();
+    for (int task = tid; task < ks * nm; task += kThreads) {
+      float s = 0.f;
+      int k, slot;
+      if (task < ks * ph) {
+        k = task / ph;
+        const int r = task - k * ph;
+        const float* row = stage + k * per + r * pw;
+#pragma unroll
+        for (int c = 0; c < N; ++c)
+          if (kExact || c < pw) s += row[c];
+        slot = r;
+      } else {
+        const int t = task - ks * ph;
+        k = t / pw;
+        const int c = t - k * pw;
+        const float* col = stage + k * per + c;
+#pragma unroll
+        for (int r = 0; r < N; ++r)
+          if (kExact || r < ph) s += col[r * pw];
+        slot = ph + c;
+      }
+      marg[(k0 + k) * ld + slot] = s;
+    }
+    __syncthreads();
   }
-  fit_1d(m, ph, n_iter, res[0], res[2], res[4]);
-  // column marginal: the x profile
+
+  // one profile a thread
+  const int axis = tid / kTile, k = tid - axis * kTile;
+  if (k < count) {
+    const int n = axis ? pw : ph;
+    const float* m = marg + k * ld + (axis ? ph : 0);
+    float y[N];
 #pragma unroll
-  for (int c = 0; c < kMaxN; ++c) m[c] = 0.f;
-  for (int r = 0; r < ph; ++r) {
-#pragma unroll
-    for (int c = 0; c < kMaxN; ++c)
-      if (c < pw) m[c] += mine[r * pw + c];
+    for (int i = 0; i < N; ++i) y[i] = (kExact || i < n) ? m[i] : 0.f;
+    float x0, gamma, A;
+    fit_1d<N, kExact>(y, n, n_iter, x0, gamma, A);
+    res[k * 6 + axis] = x0;
+    res[k * 6 + 2 + axis] = gamma;
+    res[k * 6 + 4 + axis] = A;
   }
-  fit_1d(m, pw, n_iter, res[1], res[3], res[5]);
-  float* dst = out + (first + threadIdx.x) * 6;
-#pragma unroll
-  for (int k = 0; k < 6; ++k) dst[k] = res[k];
+  __syncthreads();
+  float* dst = out + first * 6;
+  for (int i = tid; i < count * 6; i += kThreads) dst[i] = res[i];
 }
 
 }  // namespace
 
 extern "C" {
-
-// Threads (patches) per block for (ph, pw) patches: 128, halved while the
-// staged patches would not fit the opt-in shared memory (32 always fits).
-int pseudo_voigt_threads(int ph, int pw) {
-  int threads = kMaxThreads;
-  while (threads > 32 &&
-         static_cast<size_t>(threads) * ph * pw * sizeof(float) > kSmemLimit)
-    threads /= 2;
-  return threads;
-}
 
 // patches (Np, ph, pw) float32, contiguous, 16-byte aligned; out (Np, 6)
 // float32.  1 <= ph, pw <= 32.  Returns cudaGetLastError() after the
@@ -215,21 +253,21 @@ int pseudo_voigt_launch(const void* patches, void* out, int Np, int ph,
   if (ph < 1 || pw < 1 || ph > kMaxN || pw > kMaxN || n_iter < 0)
     return cudaErrorInvalidValue;
   if (Np <= 0) return 0;
-  const int threads = pseudo_voigt_threads(ph, pw);
-  const size_t smem = static_cast<size_t>(threads) * ph * pw * sizeof(float);
-  static size_t granted = 48 * 1024;
-  if (smem > granted) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        pseudo_voigt_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-    granted = smem;
+  const int blocks = (Np + kTile - 1) / kTile;
+  const float* p = static_cast<const float*>(patches);
+  float* o = static_cast<float*>(out);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (ph == kPaper && pw == kPaper) {
+    constexpr int kStage = 4096;
+    const int sub = kStage / (kPaper * kPaper);
+    pseudo_voigt_kernel<kPaper, true, kStage>
+        <<<blocks, kThreads, 0, st>>>(p, o, Np, ph, pw, n_iter, sub);
+  } else {
+    constexpr int kStage = 2048;     // shared memory stays under 48 KB
+    const int sub = kStage / (ph * pw);
+    pseudo_voigt_kernel<kMaxN, false, kStage>
+        <<<blocks, kThreads, 0, st>>>(p, o, Np, ph, pw, n_iter, sub);
   }
-  const int blocks = (Np + threads - 1) / threads;
-  pseudo_voigt_kernel<<<blocks, threads, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(patches), static_cast<float*>(out), Np, ph,
-      pw, n_iter);
   return cudaGetLastError();
 }
 

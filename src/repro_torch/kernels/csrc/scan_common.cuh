@@ -1,10 +1,13 @@
 // Shared pieces of the port's chunked-scan kernels for Hopper (sm_90a):
-// ssm_scan.cu (B5, the Mamba2 SSD scan) and mlstm_scan.cu (B4, the
-// chunkwise mLSTM).  Both read logical (B, heads, L, width) tensors given
-// by their element strides over (b, head, position), with the last axis
-// contiguous, so the models' (B, L, heads, width) activations are read in
-// place through transposed views; both compute in float32 whatever the
-// input type (float32 or bfloat16) and round only their output.
+// B5, the Mamba2 SSD scan (ssm_scan.cu in float32, ssm_scan_tc.cu in
+// bf16), and B4, the chunkwise mLSTM (mlstm_scan.cu in float32,
+// mlstm_scan_tc.cu in bf16).  All read logical (B, heads, L, width)
+// tensors given by their element strides over (b, head, position), with
+// the last axis contiguous, so the models' (B, L, heads, width)
+// activations are read in place through transposed views.  The float32
+// kernels compute in float32 throughout; the bf16 ones run their products
+// on the tensor cores (bf16 operands, float32 sums) and round their
+// intermediates where the models' plain versions round them.
 #pragma once
 
 #include <cuda_bf16.h>

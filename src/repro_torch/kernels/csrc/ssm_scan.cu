@@ -1,4 +1,5 @@
-// Mamba2 SSD chunked scan for Hopper (sm_90a): B5.
+// Mamba2 SSD chunked scan for Hopper (sm_90a): B5 for float32 inputs
+// (bf16 runs the tensor-core kernel, ssm_scan_tc.cu).
 //
 // Replaces the TPU kernel repro/kernels/ssm_scan.py::ssd_scan (body
 // _ssd_kernel).  For xdt (B, H, L, P) (inputs already multiplied by dt),
@@ -25,11 +26,9 @@
 // conflicts.
 //
 // What bounds it on the H100: at zamba2-2.7b's shapes (H 80, P 64, N 64,
-// Q 128, L 4096) a call moves ~86 MB (xdt and y in bf16, B, C and dA) and
-// does ~16 GFLOP, so at the bf16 tensor-core rate bytes would bound it.
-// This first version does its products as float32 FMAs on the CUDA cores
-// (no mma, no TMA pipelining), so operations bound it; and with B = 1 only
-// 80 of the 132 SMs have a block.
+// Q 128, L 4096) a call does ~16 GFLOP.  This kernel does its products as
+// float32 FMAs on the CUDA cores (no mma, no pipelining), so operations
+// bound it; and with B = 1 only 80 of the 132 SMs have a block.
 
 #include "scan_common.cuh"
 
@@ -255,8 +254,8 @@ size_t ssm_scan_smem_bytes(int Q, int P, int N) {
   return ssd::smem_bytes(Q, P, N);
 }
 
-// xdt (B, H, L, P) and y like it, of one type (dtype 0: float32, 1:
-// bfloat16); dA (B, H, L) float32; Bm, Cm (B, G, L, N) of xdt's type.
+// xdt (B, H, L, P) and y like it, float32 (dtype 0; bf16 inputs run
+// ssm_scan_tc.cu); dA (B, H, L) float32; Bm, Cm (B, G, L, N) float32.
 // ``strides`` holds the (b, head, l) element strides of xdt, dA, Bm, Cm
 // and y, 15 values; the last axes are contiguous.  1 <= chunk <= 128,
 // L % chunk == 0, P, N <= 128, H % G == 0, and the shared memory of
@@ -283,7 +282,6 @@ int ssm_scan_launch(const void* xdt, const void* dA, const void* Bm,
   a.H = H; a.G = G; a.L = L; a.P = P; a.N = N; a.Q = chunk;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_p<float>(a, B, st);
-  if (dtype == 1) return launch_p<__nv_bfloat16>(a, B, st);
   return cudaErrorInvalidValue;
 }
 

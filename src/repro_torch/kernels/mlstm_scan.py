@@ -28,7 +28,8 @@ from typing import Dict
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ssm_scan import check_scan_inputs, strides
+from repro_torch.kernels.ssm_scan import (check_scan_inputs, rows_aligned,
+                                          strides)
 
 MLSTM = "mlstm_scan"           # float32 source in csrc/ and launch counter
 MLSTM_TC = "mlstm_scan_tc"     # bfloat16 source in csrc/
@@ -59,14 +60,6 @@ def _lib(name: str):
             lib.mlstm_scan_tc_workspace_bytes.restype = ctypes.c_size_t
         _fns[name] = lib
     return _fns[name]
-
-
-def _aligned(*ts: torch.Tensor) -> bool:
-    """Whether every row of these (B, H, L, hd) bf16 views starts on 16
-    bytes, so the tensor-core kernel copies them 16 bytes at a time."""
-    return all(t.data_ptr() % 16 == 0 and all(st % 8 == 0
-                                              for st in t.stride()[:3])
-               for t in ts)
 
 
 def reset_launch_counts() -> None:
@@ -117,7 +110,7 @@ def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"chunk <= {MAX_CHUNK} and hd <= {MAX_TC_HD}")
         work = torch.empty(lib.mlstm_scan_tc_workspace_bytes(B, H, L, hd, Q),
                            dtype=torch.uint8, device=q.device)
-        vec = hd % 8 == 0 and _aligned(q, k, v, h)
+        vec = hd % 8 == 0 and rows_aligned(q, k, v, h)
         err = lib.mlstm_scan_tc_launch(
             *args, work.data_ptr(), strides(q, k, v, log_i, log_f, h), B, H,
             L, hd, Q, int(vec), 1.0 / hd ** 0.5, stream)

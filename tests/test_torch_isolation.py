@@ -111,16 +111,16 @@ def test_kernel_build_needs_nvcc_and_is_keyed_by_source(monkeypatch,
     assert set(_build.sources()) == {pa.TILED, pa.RAGGED, pa.ROWS,
                                      pa.TILED_TC, pa.RAGGED_TC, pa.ROWS_TC,
                                      pv.PV, fa.FWD, fa.BWD, fa.FWD_TC,
-                                     fa.BWD_TC, ssd.SRC, ml.MLSTM,
-                                     ml.MLSTM_TC}
+                                     fa.BWD_TC, ssd.SRC, ssd.SRC_TC,
+                                     ml.MLSTM, ml.MLSTM_TC}
 
 
 def test_kernel_build_key_covers_shared_headers(monkeypatch, tmp_path):
     """The paged-attention kernels include their shared headers (the FMA
     one, the split sweep of the bf16 ones), the float32 and the
-    tensor-core flash-attention kernels theirs, the scans theirs and the
-    bf16 mLSTM the mma.sync (which the split sweep includes) and Hopper
-    building blocks: editing any changes every library path, so no stale
+    tensor-core flash-attention kernels theirs, the scans theirs, the bf16
+    mLSTM and SSD scans the mma.sync ones (which the split sweep includes)
+    and the bf16 mLSTM the Hopper building blocks: editing any changes every library path, so no stale
     library is reused."""
     import shutil
     from repro_torch.kernels import _build
@@ -136,12 +136,12 @@ def test_kernel_build_key_covers_shared_headers(monkeypatch, tmp_path):
                            (pa.TILED, pa.RAGGED, pa.ROWS)),
                           ("paged_attention_split.cuh",
                            (pa.TILED_TC, pa.RAGGED_TC, pa.ROWS_TC)),
-                          ("mma_common.cuh", (ml.MLSTM_TC,)),
+                          ("mma_common.cuh", (ml.MLSTM_TC, ssd.SRC_TC)),
                           ("flash_attention_common.cuh", (fa.FWD, fa.BWD)),
                           ("hopper_common.cuh", (fa.FWD_TC, fa.BWD_TC,
                                                  ml.MLSTM_TC)),
-                          ("scan_common.cuh", (ssd.SRC, ml.MLSTM,
-                                               ml.MLSTM_TC))):
+                          ("scan_common.cuh", (ssd.SRC, ssd.SRC_TC,
+                                               ml.MLSTM, ml.MLSTM_TC))):
         assert all(f'#include "{header}"' in (csrc / f"{n}.cu").read_text()
                    for n in users)
         before = {n: _build.library_path(n) for n in names}

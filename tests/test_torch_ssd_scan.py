@@ -5,9 +5,11 @@ CPU the port's plain path (``ops.ssd_scan_heads``, i.e.
 ``models/ssm.py::ssd_chunked``) is held to the reference's Pallas kernel
 in interpret mode on the sweep of ``tests/test_kernels_ssm.py`` at its
 tolerance (atol 5e-5, rtol 5e-4: float32 summed in other orders), and the
-port's sequential oracle ``ref.ssd_reference`` to the reference's.  The
-CUDA kernel is held to the plain path on the card; those cases are
-marked ``cuda`` and skip where there is no card.  The JAX side is
+port's sequential oracle ``ref.ssd_reference`` to the reference's, and
+the bf16 tensor-core kernel's roundings, emulated in plain PyTorch, to
+the reference's float32 chunked form.  The CUDA kernels are held to the
+plain path on the card; those cases are marked ``cuda`` and skip where
+there is no card.  The JAX side is
 imported by the tests that use it, so that the CUDA cases also run on a
 machine that has no JAX:
 
@@ -154,7 +156,82 @@ def test_cpu_dispatch():
 
 
 # ---------------------------------------------------------------------------
-# The CUDA kernel (run only where there is a card)
+# The tensor-core kernel's arithmetic (bf16 inputs), emulated on the CPU
+# ---------------------------------------------------------------------------
+def _bf(x):
+    """float32 values rounded to bf16 (kept as float32)."""
+    return x.bfloat16().float()
+
+
+def _emulate_tc(x, dt, A, Bm, Cm, chunk):
+    """The bf16 kernel's arithmetic (csrc/ssm_scan_tc.cu) in plain
+    PyTorch: x, Bm, Cm (B, L, ., .) bf16 values, dt and A float32, handed
+    over as ``ops.ssd_scan_heads`` hands them (xdt = x * dt rounded to
+    bf16, dA = dt * A).  Per chunk: W = (C B^T) o exp(cum_i - cum_j) for
+    j <= i, rounded to bf16; y = exp(cum_i) (C bf16(S)^T) + W xdt in
+    float32, rounded to bf16; the decay exp(cum_last - cum_j) and B o decay
+    rounded to bf16; S = exp(cum_last) S + xdt^T (B o decay) in float32."""
+    B, L, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    Q = min(chunk, L)
+    rep = H // G
+    xdt = _bf(x * _bf(dt)[..., None])
+    dA = dt * A
+    Bh = torch.repeat_interleave(Bm, rep, dim=2)
+    Ch = torch.repeat_interleave(Cm, rep, dim=2)
+    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool))
+    S = torch.zeros((B, H, P, N))
+    ys = []
+    for c in range(L // Q):
+        sl = slice(c * Q, (c + 1) * Q)
+        xc, bc, cc = (t[:, sl].transpose(1, 2) for t in (xdt, Bh, Ch))
+        cum = torch.cumsum(dA[:, sl].transpose(1, 2), dim=-1)    # (B, H, Q)
+        diff = torch.where(tri, cum[..., :, None] - cum[..., None, :], 0.)
+        W = _bf(torch.where(tri, (cc @ bc.transpose(-1, -2))
+                            * torch.exp(diff), 0.))
+        y = torch.exp(cum)[..., None] * (cc @ _bf(S).transpose(-1, -2)) \
+            + W @ xc
+        ys.append(_bf(y).transpose(1, 2))
+        last = cum[..., -1:]
+        dec = _bf(torch.exp(last - cum))
+        S = torch.exp(last)[..., None] * S \
+            + xc.transpose(-1, -2) @ _bf(bc * dec[..., None])
+    return torch.cat(ys, dim=1)
+
+
+# the emulation against the reference's float32 chunked form on the same
+# bf16-valued inputs: the roundings of xdt, W, the decays, B o decay, S and
+# the output are the whole difference.  Readings over SWEEP: rel_l2 at most
+# 3.5e-3, max err at most 7.8e-3 x max |reference|; the plain bf16 path,
+# which also rounds its products' outputs, reads 3.9e-3 and 7.8e-3
+EMU_REL_L2 = 1e-2
+EMU_MAX = 2e-2
+
+
+@pytest.mark.parametrize("B,L,H,P,G,N,chunk", SWEEP)
+def test_tensor_core_arithmetic_matches_reference(jax_side, B, L, H, P, G, N,
+                                                  chunk):
+    """The bf16 kernel's roundings (:func:`_emulate_tc`) against the
+    reference's chunked SSD in float32 on bf16-valued inputs: the whole
+    within EMU_REL_L2 in the 2-norm, every element within EMU_MAX x the
+    largest |reference|."""
+    jnp, jssm = jax_side["jnp"], jax_side["ssm"]
+    x, dt, A, Bm, Cm = _mk(40 + L + P, B, L, H, P, G, N)
+    x, Bm, Cm = (_bf(torch.from_numpy(a)).numpy() for a in (x, Bm, Cm))
+    want = torch.from_numpy(np.array(jssm.ssd_chunked(
+        *map(jnp.asarray, (x, dt, A, Bm, Cm)), chunk=chunk)[0]))
+    got = _emulate_tc(*_t(x, dt, A, Bm, Cm), chunk)
+    err = got - want
+    assert bool(torch.isfinite(got).all())
+    assert err.norm() <= EMU_REL_L2 * want.norm(), (
+        (err.norm() / want.norm()).item())
+    assert err.abs().max() <= EMU_MAX * want.abs().max(), (
+        (err.abs().max() / want.abs().max()).item())
+    assert err.abs().max() > 0       # the roundings are there
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernels (run only where there is a card)
 # ---------------------------------------------------------------------------
 @pytest.fixture
 def cuda_device():
@@ -173,14 +250,18 @@ CUDA_CASES = [(1, 512, 80, 64, 1, 64, 128),
               (1, 96, 6, 24, 3, 40, 32),
               (2, 48, 4, 64, 1, 64, 128),
               (1, 256, 2, 128, 1, 128, 64)]
-# float32 kernel against float32 plain: the same arithmetic in another
-# order; bfloat16: the plain path rounds its intermediates (the decay
-# weights, the per-chunk state inputs, the carried state) to bfloat16 and
-# the kernel does not, so they differ by a few bfloat16 roundings of the
-# output: a relative 2-norm limit for the whole and a per-element limit
-# relative to the output's largest |value|
-# Largest readings over CUDA_CASES on an H100: float32 err / (1 + |plain|)
-# 9.3e-8; bfloat16 rel_l2 3.0e-3, max err / max |plain| 4.7e-3.
+# float32 kernel (FMA) against float32 plain: the same arithmetic in
+# another order; bfloat16 (the tensor-core kernel): both round W, the
+# decays exp(cum_last - cum_j), B o decay and the carried state to
+# bfloat16 before their products, but the plain path also rounds each
+# product's output (and exp(cum_i)) and the kernel keeps them in float32,
+# so they differ by a few bfloat16 roundings of the output: a relative
+# 2-norm limit for the whole and a per-element limit relative to the
+# output's largest |value|
+# Largest readings over CUDA_CASES on an H100 (the test prints them):
+# float32 err / (1 + |plain|) 9.3e-8; bfloat16 rel_l2 2.1e-3, max err /
+# max |plain| 4.3e-3 (the FMA kernel, which rounded nothing, read 3.0e-3
+# and 4.7e-3).
 F32_TOL = 2e-6
 BF16_REL_L2 = 1e-2
 BF16_MAX = 2e-2
@@ -191,7 +272,8 @@ BF16_MAX = 2e-2
 def test_cuda_kernel_matches_plain_path(cuda_device, dtype):
     """B5 on the card against the plain path on the card, on the same
     inputs (float32: F32_TOL * (1 + |plain|); bfloat16: BF16_REL_L2 and
-    BF16_MAX x max |plain|), in the model layout the path hands over."""
+    BF16_MAX x max |plain|), in the model layout the path hands over; the
+    bf16 kernel returns the same bits twice (it has no atomics)."""
     for i, (B, L, H, P, G, N, chunk) in enumerate(CUDA_CASES):
         x, dt, A, Bm, Cm = (t.to(cuda_device) for t in
                             _t(*_mk(20 + i, B, L, H, P, G, N)))
@@ -200,10 +282,17 @@ def test_cuda_kernel_matches_plain_path(cuda_device, dtype):
                                  use_kernel=True)
         want = ops.ssd_scan_heads(x, dt, A, Bm, Cm, chunk=chunk,
                                   use_kernel=False)
+        if dtype == torch.bfloat16:
+            assert torch.equal(got, ops.ssd_scan_heads(
+                x, dt, A, Bm, Cm, chunk=chunk, use_kernel=True)), i
         torch.cuda.synchronize()
         assert got.dtype == want.dtype == dtype
         a, b = got.float(), want.float()
         err = (a - b).abs()
+        print(f"B5 {dtype} case {i}: err/(1+|plain|) "
+              f"{(err / (1 + b.abs())).max().item():.2e} rel_l2 "
+              f"{(err.norm() / b.norm()).item():.2e} max/max|plain| "
+              f"{(err.max() / b.abs().max()).item():.2e}")
         assert bool(torch.isfinite(a).all()), i
         if dtype == torch.float32:
             assert bool((err <= F32_TOL * (1 + b.abs())).all()), (
@@ -235,3 +324,37 @@ def test_cuda_launch_counts_and_refusals(cuda_device):
         tssd.ssd_scan(x.transpose(1, 2).half(), (dt * A).transpose(1, 2),
                       Bm.transpose(1, 2).half(), Cm.transpose(1, 2).half())
     assert tssd.launch_counts[tssd.SSD] == 1
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_runs_the_tensor_core_kernel(cuda_device, monkeypatch):
+    """bf16 inputs launch the tensor-core library (csrc/ssm_scan_tc.cu),
+    float32 ones the FMA library, once a call each; a bf16 view whose rows
+    do not start on 16 bytes raises instead of falling back."""
+    used = []
+    lib = tssd._lib
+    monkeypatch.setattr(tssd, "_lib", lambda name: used.append(name)
+                        or lib(name))
+    x, dt, A, Bm, Cm = (t.to(cuda_device) for t in
+                        _t(*_mk(31, 1, 64, 4, 16, 1, 16)))
+    tssd.reset_launch_counts()
+    ops.ssd_scan_heads(x.bfloat16(), dt, A, Bm.bfloat16(), Cm.bfloat16(),
+                       chunk=32)
+    assert used == [tssd.SRC_TC]
+    ops.ssd_scan_heads(x, dt, A, Bm, Cm, chunk=32)
+    assert used == [tssd.SRC_TC, tssd.SRC]
+    assert tssd.launch_counts[tssd.SSD] == 2
+    xdt = (x * dt[..., None]).bfloat16().transpose(1, 2)
+    dA = (dt * A).transpose(1, 2)
+    Bt, Ct = (m.bfloat16().transpose(1, 2) for m in (Bm, Cm))
+    wide = torch.zeros((1, 4, 64, 20), dtype=torch.bfloat16,
+                       device=cuda_device)
+    wide[..., :16] = xdt
+    with pytest.raises(ValueError, match="16 bytes"):
+        tssd.ssd_scan(wide[..., 2:18], dA, Bt, Ct, chunk=32)
+    with pytest.raises(ValueError, match="16 bytes"):
+        tssd.ssd_scan(wide[..., :16], dA, Bt, Ct, chunk=32)
+    assert tssd.launch_counts[tssd.SSD] == 2
+    torch.testing.assert_close(
+        tssd.ssd_scan(xdt.contiguous(), dA, Bt, Ct, chunk=32).float(),
+        tssd.ssd_scan(xdt, dA, Bt, Ct, chunk=32).float(), atol=0, rtol=0)
