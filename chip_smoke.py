@@ -12,17 +12,19 @@ printing its own line(s):
 2. build: every kernel of the port from the sources in the checkout;
 3. each kernel against its plain PyTorch version on the card, at the
    main paths' shapes (gemma-7b bf16 and int8 pools, starcoder2-7b GQA
-   with a sliding window): the segment-tiled read (B1) and the per-token
-   read (B2) on one mixed flat stream, the rectangular read (B3) on the
-   same segments as a (lanes, chunk) batch and as one decode call; each
-   with its time, the plain version's, one PyTorch library call's and
-   the least time the card could take; B1, B2 and B3 take bf16 q with
-   bf16 or int8 pools through the tensor-core split sweep (the phase
-   counts the ``HMMA`` instructions ``cuobjdump -sass`` finds in their
-   libraries and fails on none, and prints B2's per-token bytes, the
-   bytes its reads must move, beside its bound), and their float32 FMA
-   kernels are checked and timed once on float32 copies of the gemma-7b
-   stream;
+   with a sliding window, and phase 10's: deepseek-moe-16b at D 128,
+   G 1, command-r-35b at G 8, llava-next-mistral-7b's backbone at G 4
+   with its 4096-token window): the segment-tiled read (B1) and the
+   per-token read (B2) on one mixed flat stream, the rectangular read
+   (B3) on the same segments as a (lanes, chunk) batch and as one decode
+   call; each with its time, the plain version's, one PyTorch library
+   call's and the least time the card could take; B1, B2 and B3 take
+   bf16 q with bf16 or int8 pools through the tensor-core split sweep
+   (the phase counts the ``HMMA`` instructions ``cuobjdump -sass`` finds
+   in their libraries and fails on none, and prints B2's per-token
+   bytes, the bytes its reads must move, beside its bound), and their
+   float32 FMA kernels are checked and timed once on float32 copies of
+   the gemma-7b stream;
 4. the main paths: ``PagedDecodeEngine`` serving gemma-7b at its
    published width (all 28 layers, random bf16 weights from a seed) on
    requests that share a system prompt, three times from the same
@@ -91,7 +93,30 @@ printing its own line(s):
    GEMMs, the rest) and its idle share; then ``SlotDecodeEngine`` serves
    3 requests on 2 slots, every request to its end; (c) xlstm-1.3b
    likewise (48 layers; B4 42 times; not profiled: its sLSTM loop
-   launches ~370,000 kernels a prefill).
+   launches ~370,000 kernels a prefill);
+10. the MoE family, the VLM backbone and command-r-35b on the paged
+   path, at their published widths with random bf16 weights from a seed:
+   (a) deepseek-moe-16b (28 layers: 1 dense, 27 of 64 routed experts,
+   top-6 + 2 shared) serves phase 4's fleet in the three layouts with
+   the engine's own proposer, each through its own paged read only
+   (layers x steps), and after each fleet two requests are drained
+   without drafts and then with drafts replaying those greedy tokens,
+   which must be verified and in part accepted, through the same read
+   only; (b) its mixed batch of phase 5, kernel against plain path, in
+   bf16 at full depth and in float32 cut to 4 layers: the plain run
+   takes the kernel run's routes (by wrapping the router's top-k,
+   ``moe.route_topk``, for the phase) with its own gate values; the
+   logits of every row are held within phase 5's gate in float32 and as
+   a relative 2-norm in bf16, and the share of (token, MoE layer) whose
+   own top-k on the plain path differs is gated; (c)
+   llava-next-mistral-7b's image prefill (``make_prefill_step_fn`` on
+   2880 seeded patch embeddings + 1216 tokens, window 4096) must launch
+   B6 once a layer and no other kernel and agree with the plain path in
+   bf16 and float32, then one default-layout fleet through the text
+   backbone (B1 only); (d) command-r-35b (40 layers, G 8, parallel block,
+   layernorm, tied 256,000-token vocab) serves one default-layout fleet
+   (B1 only); (c) and (d) drain the speculation requests of (a) too.
+   Each part prints its wall time and peak memory.
 
 Then one JSON line of per-kernel numbers, and last
 ``{"ok": true, "device": {...}}``.  Any failed phase raises, so the run
@@ -199,6 +224,37 @@ SERVE_REQUESTS = 3            # more requests than slots: a slot is reused
 SERVE_NEW = 8
 SEED = 0
 DEVICE = "cuda"
+# phase 10: the MoE family, the VLM backbone and command-r-35b.
+# deepseek-moe-16b's kernel-vs-plain steps: routing is discrete, so where
+# the two paths' attention rounds differently a token whose k-th and
+# (k+1)-th expert probabilities are that close takes another expert, and
+# its logits, its lane's later tokens and its group's later capacity slots
+# move by O(1) (on the card, left free, bf16 routes differed in 6-7 % of
+# the first MoE layer's tokens and 70-82 % of the last's).  So the plain
+# run takes the kernel run's routes (``_RoutePin``), and the share of
+# (token, MoE layer) whose own top-k on the plain path differs from the
+# kernel path's is gated (MOE_ROUTE_SHARE).  In float32, at MOE_F32_LAYERS
+# (1 dense + 3 MoE layers; ~9 GB of weights), phase 5's logits gate (max
+# err <= 0.05 x max |logit|, argmax agreement >= 0.9) holds on every row
+# (readings: no route differed, max err < 1e-4).  In bf16 at full depth
+# the logits are gated as the repo's other full-depth bf16 steps are, as
+# a relative 2-norm (MOE_BF16_REL_L2), phase 5's numbers printed: these
+# random logits are small and near-tied (max |logit| 4.6 against
+# gemma-7b's 29), and with routes pinned the first card run read rel_l2
+# 5.33e-2, max err 0.064 x max |logit| and argmax agreement 0.886.  The
+# bf16 limits are about 3.5x those first readings (PERF.md)
+MOE_F32_LAYERS = 4
+MOE_ROUTE_SHARE = {"float32": 1e-2, "bfloat16": 6e-1}   # reading 0.187
+MOE_BF16_REL_L2 = 2e-1
+# tokens a request of the speculation drains after each phase-10 fleet
+SPEC_NEW = 16
+# llava-next-mistral-7b's image prefill: anyres patches + text = 4096
+VLM_PATCHES, VLM_TEXT = 2880, 1216
+# its kernel-vs-plain last-position logits, relative 2-norm
+# (limits about 3.5-4x the first card readings, 4.28e-2 and 1.75e-5;
+# both bf16 prefills read 3.8e-2 from the float32 kernel forward)
+VLM_BF16_REL_L2 = 1.5e-1
+VLM_F32_REL_L2 = 7e-5
 
 
 def _median_ms(fn, reps: int, inner: int = 10, warmup: int = 2) -> float:
@@ -499,7 +555,7 @@ def _check_kernel(label, kernel, plain, rows, tol, lib, bound):
 
 
 def phase_kernel_checks():
-    """B1, B2 and B3 against their plain versions at three
+    """B1, B2 and B3 against their plain versions at the main paths'
     configurations (on float32 copies too, once), after the tensor-core
     count of their bf16 libraries.  Returns {kernel:
     {config: numbers}}; raises if any disagrees."""
@@ -512,6 +568,11 @@ def phase_kernel_checks():
         ("gemma-7b bf16", 16, 1, 256, torch.bfloat16, 0, 5e-2),
         ("gemma-7b int8", 16, 1, 256, torch.int8, 0, 5e-2),
         ("starcoder2-7b bf16 window", 4, 9, 128, torch.bfloat16, 256, 5e-2),
+        # phase 10's paged reads
+        ("deepseek-moe-16b bf16", 16, 1, 128, torch.bfloat16, 0, 5e-2),
+        ("command-r-35b bf16", 8, 8, 128, torch.bfloat16, 0, 5e-2),
+        ("llava-next-mistral-7b bf16 window", 8, 4, 128, torch.bfloat16,
+         4096, 5e-2),
     ]
     _tensor_core_check()
     results = {pa.TILED: {}, pa.RAGGED: {}, pa.ROWS: {},
@@ -607,10 +668,15 @@ PATHS = [("default (segment-tiled)", {}, "paged_attention_tiled"),
           "paged_attention_rows")]
 
 
-def phase_main_path(api, params, label, engine_kw, kernel):
-    """Serve gemma-7b requests through the paged engine with
-    ``engine_kw``; every step must launch ``kernel`` once per layer and
-    no other attention kernel.  Returns that kernel's launches."""
+def phase_main_path(api, params, label, engine_kw, kernel, *,
+                    speculates: bool = True):
+    """Serve the arch's shared-prefix fleet (``profile_serve.serve_fleet``)
+    through the paged engine with ``engine_kw``; every step must launch
+    ``kernel`` once per layer and no other paged read, and the prefix
+    cache and copy-on-write must have run, and with ``speculates``
+    speculation too (gemma-7b's random greedy tokens repeat, so the
+    engine's n-gram proposer drafts on this fleet).  Returns that
+    kernel's launches."""
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.launch.profile_serve import serve_fleet
     cfg = api.cfg
@@ -620,9 +686,9 @@ def phase_main_path(api, params, label, engine_kw, kernel):
                                       seed=SEED, device=DEVICE, **engine_kw)
     launches = dict(pa.launch_counts)
     s = eng.stats()
-    print(f"main path [{label}]: gemma-7b full width (d_model={cfg.d_model}, "
-          f"{cfg.n_heads}x{cfg.resolved_head_dim} heads, d_ff={cfg.d_ff}, "
-          f"vocab={cfg.vocab_size}, layers={cfg.n_layers}) "
+    print(f"main path [{label}]: {cfg.name} full width (d_model="
+          f"{cfg.d_model}, {cfg.n_heads}x{cfg.resolved_head_dim} heads, "
+          f"d_ff={cfg.d_ff}, vocab={cfg.vocab_size}, layers={cfg.n_layers}) "
           f"requests={len(finished)} steps={eng.steps} "
           f"tokens={eng.tokens_decoded} prefilled={eng.tokens_prefilled} "
           f"wall_s={wall:.3f} tok_per_s={eng.tokens_decoded / wall:.2f} "
@@ -640,7 +706,7 @@ def phase_main_path(api, params, label, engine_kw, kernel):
         raise AssertionError(f"[{label}] kernel launches {launches} != "
                              f"{want} (layers x steps on its own kernel)")
     if not (s["prefix_hits"] > 0 and s["cow_copies"] > 0
-            and s["spec_verifications"] > 0):
+            and (s["spec_verifications"] > 0 or not speculates)):
         raise AssertionError(f"[{label}] prefix cache, CoW or speculation "
                              "did not run")
     return launches[kernel]
@@ -649,11 +715,15 @@ def phase_main_path(api, params, label, engine_kw, kernel):
 # ---------------------------------------------------------------------------
 # phase 5: full-width steps, kernel against plain path
 # ---------------------------------------------------------------------------
-def phase_step_vs_plain(api, params):
+def _step_runs(api, params, *, dtype=None, routes=None):
     """One mixed batch through ``ragged_step`` (segment-tiled, then
     per-token) and through ``paged_step`` (the same segments as a
-    rectangle), each with the kernel and on the plain path from the same
-    pools; logits must agree."""
+    rectangle), each with the kernel and then on the plain path from the
+    same pools (pools and compute in ``dtype``, default the parameters').
+    Yields (label, T, out): ``out[use_kernel]`` holds the real rows'
+    logits, and with ``routes`` (a ``_RoutePin``, started before each
+    run) ``out[use_kernel, "routes"]`` that run's own top-k indices of
+    each MoE layer, cut to its real rows."""
     import numpy as np
     import torch
     from repro_torch.serving.batch import build_tile_map
@@ -683,7 +753,8 @@ def phase_step_vs_plain(api, params):
     cache = api.init_paged_cache(n_lanes, num_blocks=n_lanes * max_blocks
                                  + 1, block_size=bs,
                                  max_blocks_per_lane=max_blocks,
-                                 dtype=torch.bfloat16, device=DEVICE)
+                                 dtype=dtype or torch.bfloat16,
+                                 device=DEVICE)
     g = torch.Generator(device=DEVICE)
     g.manual_seed(SEED)
     for pool in cache["scan"].values():     # earlier context, unit scale
@@ -701,10 +772,10 @@ def phase_step_vs_plain(api, params):
         rect_tokens[lane, :n] = tokens[off:off + n]
     rect = dict(block_tables=t32(tables), pos=t32(pos0), q_lens=t32(lens))
 
-    def real_rows(logits):
-        if logits.dim() == 2:
-            return logits[:T]
-        return torch.cat([logits[b, :n] for b, n in enumerate(lens)])
+    def real_rows(x, flat_stream):
+        if flat_stream:                      # (T_pad, ...) or (1, T_pad, ...)
+            return x[0, :T] if x.shape[0] == 1 and x.dim() > 2 else x[:T]
+        return torch.cat([x[b, :n] for b, n in enumerate(lens)])
 
     for label, meta, step, toks, kw in (
             ("ragged_step tiled", tiled, api.ragged_step,
@@ -713,18 +784,34 @@ def phase_step_vs_plain(api, params):
              t32(tokens + pad), {}),
             (f"paged_step rectangular C={C}", rect, api.paged_step,
              t32(rect_tokens), {})):
+        flat_stream = label.startswith("ragged")
         out = {}
         for use_kernel in (True, False):
             for k, v in saved.items():
                 cache["scan"][k].copy_(v)
             cache.update(meta)
+            if routes is not None:
+                routes.start(use_kernel)
             logits, _ = step(params, cache, toks, use_kernel=use_kernel,
                              **kw)
-            out[use_kernel] = real_rows(logits)
+            out[use_kernel] = real_rows(logits, flat_stream)
+            if routes is not None:
+                out[use_kernel, "routes"] = [real_rows(t, flat_stream)
+                                             for t in routes.own]
             for k in ("tile_meta", "row_tile", "token_lane", "token_pos",
                       "slot_mapping", "q_lens"):
                 cache.pop(k, None)
         _sync()
+        yield label, T, out
+        del out
+        torch.cuda.empty_cache()
+
+
+def phase_step_vs_plain(api, params):
+    """The mixed batch of ``_step_runs`` through each step with the kernel
+    and on the plain path from the same pools; logits must agree."""
+    import torch
+    for label, T, out in _step_runs(api, params):
         a, b = out[True], out[False]
         err = (a - b).abs().max().item()
         scale = b.abs().max().item()
@@ -737,8 +824,7 @@ def phase_step_vs_plain(api, params):
         if not finite or err > 0.05 * scale or agree < 0.9:
             raise AssertionError(f"full-width {label} disagrees with the "
                                  "plain path")
-        del out, a, b
-        torch.cuda.empty_cache()
+        del a, b
 
 
 # ---------------------------------------------------------------------------
@@ -1835,6 +1921,346 @@ def _sync() -> None:
         torch.cuda.synchronize()
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the MoE family, the VLM backbone and command-r-35b
+# ---------------------------------------------------------------------------
+def _init_full(arch: str, dtype_name: str = "bfloat16", **cfg_updates):
+    """(api, params): ``arch`` at its published width (``cfg_updates``
+    cut it), random weights from SEED in ``dtype_name``; prints the size,
+    the time and the card's memory."""
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+    # an engine and its block manager reference each other (the swap
+    # callback), so the last model's weights wait for a collection
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config(arch), **cfg_updates)
+    api = build_model(cfg)
+    t0 = time.perf_counter()
+    params = api.init(seed=SEED, device=DEVICE,
+                      dtype=getattr(torch, dtype_name))
+    _sync()
+    n = sum(t.numel() for t in _leaves(params))
+    print(f"{arch}: d_model={cfg.d_model} layers={cfg.n_layers} heads="
+          f"{cfg.n_heads}/{cfg.n_kv_heads}x{cfg.resolved_head_dim} vocab="
+          f"{cfg.vocab_size} {n / 1e9:.3f} B params {dtype_name} in "
+          f"{time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card",
+          flush=True)
+    return api, params
+
+
+def _spec_drain(api, params, label, engine_kw, kernel) -> None:
+    """Speculative decoding on the path, apart from the timed fleet (in
+    which the engine's n-gram proposer seldom finds a match in these
+    random models' tokens): two of the fleet's prompts drained with
+    ``spec=False``, then again with drafts that replay the first drain's
+    greedy tokens, as a draft model that agrees with the target would
+    propose them.  Each drain must run through ``kernel`` only (layers x
+    steps); the second must verify drafts and accept some (not all need
+    be: the draft rows change the batch, and so bf16 rounding and, in an
+    MoE, the capacity groups)."""
+    from repro_torch.launch.profile_serve import shared_prefix_fleet
+    from repro_torch.serving.engine import PagedDecodeEngine
+    from repro_torch.serving.spec import Proposer
+    cfg = api.cfg
+    first, others = shared_prefix_fleet(cfg.vocab_size, SEED)
+    greedy = []                      # prompt + spec=False tokens, a request
+
+    class Replay(Proposer):
+        def propose(self, tokens, k):
+            n = len(tokens)
+            for seq in greedy:
+                if n < len(seq) and seq[:n] == [int(t) for t in tokens]:
+                    return seq[n:n + k]
+            return []
+
+    runs = {}
+    for spec in (False, True):
+        _zero_counts()
+        eng = PagedDecodeEngine(api, params, n_slots=8, cache_len=512,
+                                window=api.effective_window(512),
+                                device=DEVICE, spec=spec,
+                                proposer=Replay() if spec else None,
+                                **engine_kw)
+        for prompt in (first, others[1]):
+            eng.submit(prompt, SPEC_NEW)
+        done = sorted(eng.run_until_drained(), key=lambda r: r.request_id)
+        counts = {k: v for k, v in _read_counts().items() if v}
+        s = eng.stats()
+        runs[spec] = [list(r.generated) for r in done]
+        if not spec:
+            greedy.extend([int(t) for t in r.prompt] + list(r.generated)
+                          for r in done)
+        print(f"speculation [{label}, spec={spec}]: requests={len(done)} "
+              f"steps={eng.steps} tokens={eng.tokens_decoded} drafted="
+              f"{s['tokens_drafted']} accepted={s['draft_tokens_accepted']} "
+              f"verifications={s['spec_verifications']} kernel_launches="
+              f"{json.dumps(counts)}", flush=True)
+        want = {kernel: cfg.n_layers * eng.steps}
+        if counts != want or len(done) != 2 or any(
+                len(g) != SPEC_NEW for g in runs[spec]):
+            raise AssertionError(f"[{label}] speculation drain: launches "
+                                 f"{counts} != {want}, or its requests")
+        if spec and not (s["spec_verifications"] > 0
+                         and s["draft_tokens_accepted"] > 0):
+            raise AssertionError(f"[{label}] no draft verified or accepted")
+    same = sum(a == b for x, y in zip(runs[False], runs[True])
+               for a, b in zip(x, y))
+    print(f"speculation [{label}]: {same}/{2 * SPEC_NEW} tokens as without "
+          "drafts", flush=True)
+
+
+def _serve_paths(api, params, paths) -> dict:
+    """For each (label, engine options, kernel) of ``paths``: the fleet
+    (``phase_main_path`` with the engine's own proposer, which need not
+    draft here), then ``_spec_drain``; every kernel count zeroed just
+    before each and read just after: no kernel but the path's read may
+    launch.  Returns the fleets' launches."""
+    out = {}
+    for label, kw, kernel in paths:
+        _zero_counts()
+        out[label] = phase_main_path(api, params, label, kw, kernel,
+                                     speculates=False)
+        others = {k: v for k, v in _read_counts().items()
+                  if v and k != kernel}
+        if others:
+            raise AssertionError(f"[{label}] launched {others}")
+        _spec_drain(api, params, label, kw, kernel)
+    return out
+
+
+class _RoutePin:
+    """Wraps the port's MoE router (``moe.route_topk``) for the phase, so
+    that the plain path routes as the kernel path did: on a kernel run
+    each call's top-k indices are kept; on the plain run after it, the
+    i-th call takes the kernel run's i-th indices, with its own gate
+    values at them (its own float32 softmax, renormalised over the k),
+    and the capacity bookkeeping follows from them.  Logits then stay
+    comparable at any depth, where one flipped route would otherwise move
+    its token's later layers, its lane's later tokens and its group's
+    capacity slots by O(1).  Either way ``own`` logs each call's own
+    top-k, and ``dropped`` counts the (token, choice) pairs of the run's
+    routes past their expert's capacity, padding rows included."""
+
+    def __init__(self, mo):
+        self.mo, self.kernel, self.own = mo, [], []
+        self.replay, self.dropped = False, 0
+
+    def start(self, use_kernel: bool) -> None:
+        self.replay, self.own, self.dropped = not use_kernel, [], 0
+        if use_kernel:
+            self.kernel = []
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import moe
+        inner = self.inner = moe.route_topk
+
+        def route_topk(logits, k):
+            gates, idx = inner(logits, k)
+            self.own.append(idx)
+            if self.replay:
+                idx = self.kernel[len(self.own) - 1]
+                gates = torch.softmax(logits.to(torch.float32), -1) \
+                    .gather(-1, idx)
+                gates = gates / torch.clamp_min(
+                    gates.sum(-1, keepdim=True), 1e-9)
+            else:
+                self.kernel.append(idx)
+            G, S, _ = logits.shape
+            choice = torch.nn.functional.one_hot(
+                idx.reshape(G, S * k), self.mo.n_experts)
+            claims = torch.cumsum(choice, 1) - choice
+            C = moe.expert_capacity(S, self.mo)
+            self.dropped += int(((claims >= C) & (choice > 0)).sum())
+            return gates, idx
+
+        moe.route_topk = route_topk
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.route_topk = self.inner
+
+
+def _moe_steps_vs_plain(api, params, dtype_name: str) -> None:
+    """``_step_runs``'s mixed batch, kernel against plain path, the plain
+    path routed as the kernel path was (``_RoutePin``): the share of
+    (token, MoE layer) whose own top-k set on the plain path differs from
+    the kernel path's within MOE_ROUTE_SHARE[dtype_name], and the logits
+    of every row within phase 5's gate in float32, within
+    MOE_BF16_REL_L2 in bf16."""
+    import torch
+    mo, E = api.cfg.moe, api.cfg.moe.n_experts
+    tag = f"{api.cfg.name} step vs plain [{{}}, {dtype_name}, " \
+          f"{api.cfg.n_layers} layers]"
+    lim = MOE_ROUTE_SHARE[dtype_name]
+    sets = lambda idx: torch.nn.functional.one_hot(idx, E).sum(-2) > 0
+    with _RoutePin(mo) as pin:
+        for label, T, out in _step_runs(api, params,
+                                        dtype=getattr(torch, dtype_name),
+                                        routes=pin):
+            own_k = torch.stack([sets(t) for t in out[True, "routes"]])
+            own_p = torch.stack([sets(t) for t in out[False, "routes"]])
+            differ = (own_k != own_p).any(-1)          # (MoE layers, T)
+            share = differ.float().mean().item()
+            a, b = out[True], out[False]
+            err = (a - b).abs().max().item()
+            scale = b.abs().max().item()
+            rel = ((a - b).norm() / b.norm()).item()
+            agree = (a.argmax(-1) == b.argmax(-1)).float().mean().item()
+            finite = bool(torch.isfinite(a).all())
+            f32 = dtype_name == "float32"
+            tol = ("err <= 0.05 * max_abs_logit, agreement >= 0.9" if f32
+                   else f"rel_l2 <= {MOE_BF16_REL_L2:g}")
+            print(f"{tag.format(label)}: T={T} logits {tuple(a.shape)} "
+                  f"max_abs_err={err:.4f} max_abs_logit={scale:.4f} "
+                  f"rel_l2={rel:.4e} argmax_agreement={agree:.4f} (tol: "
+                  f"{tol}); routes "
+                  f"pinned to the kernel path's, (token, choice) pairs past "
+                  f"capacity {pin.dropped}; (token, MoE layer) whose own "
+                  f"top-k differs on the plain path {int(differ.sum())}/"
+                  f"{differ.numel()}, share {share:.4e} (limit {lim:g}); by "
+                  f"MoE layer " + " ".join(
+                      f"{x:.3f}" for x in differ.float().mean(1).tolist()),
+                  flush=True)
+            close = (err <= 0.05 * scale and agree >= 0.9) if f32 else \
+                rel <= MOE_BF16_REL_L2
+            if not (finite and close and share <= lim):
+                raise AssertionError(f"{tag.format(label)} disagrees with "
+                                     "the plain path")
+            del a, b, out
+
+
+def phase_moe() -> dict:
+    """deepseek-moe-16b at its published width and depth in bf16: the
+    shared-prefix fleet and the speculation drains in the three layouts,
+    each through its own paged read only (layers x steps); then the mixed
+    batch kernel against plain: bf16 at full depth and float32 at
+    MOE_F32_LAYERS layers.  Returns the launches by path."""
+    import torch
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    api, params = _init_full("deepseek-moe-16b")
+    launches = _serve_paths(api, params, [
+        (f"deepseek-moe-16b {label}", kw, kernel)
+        for label, kw, kernel in PATHS])
+    _moe_steps_vs_plain(api, params, "bfloat16")
+    print(f"deepseek-moe-16b: peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    api, params = _init_full("deepseek-moe-16b", "float32",
+                             n_layers=MOE_F32_LAYERS)
+    _moe_steps_vs_plain(api, params, "float32")
+    del params
+    torch.cuda.empty_cache()
+    print(f"phase 10a-b: {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
+def phase_vlm() -> dict:
+    """llava-next-mistral-7b at its published width, random bf16 weights
+    from SEED: the prefill step (``make_prefill_step_fn``, no grad) on
+    VLM_PATCHES seeded-normal patch embeddings and VLM_TEXT tokens must
+    launch B6 once a layer and no other kernel, and agree with the plain
+    path on the last position's logits in bf16 and in float32; then one
+    default-layout fleet through the text backbone (B1 only)."""
+    import torch
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.launch.specs import make_prefill_step_fn
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    api, params = _init_full("llava-next-mistral-7b")
+    cfg = api.cfg
+    S = VLM_PATCHES + VLM_TEXT
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED)
+    batch = {"patches": torch.randn((1, VLM_PATCHES, cfg.frontend.d_embed),
+                                    generator=gen, device=DEVICE),
+             "tokens": torch.randint(0, cfg.vocab_size, (1, VLM_TEXT),
+                                     generator=gen, device=DEVICE)}
+    shape = InputShape(f"prefill_{S}", S, 1, "prefill")
+    window = api.effective_window(S)
+    runs, f32 = {}, {}
+    with torch.no_grad():
+        for label, kw in (("kernel", {}), ("plain", {"use_kernel": False})):
+            step = make_prefill_step_fn(api, shape, **kw)
+            times = []
+            for _ in range(2):
+                _zero_counts()
+                t1 = time.perf_counter()
+                out = step(params, batch)
+                _sync()
+                times.append((time.perf_counter() - t1) * 1e3)
+                counts = {k: v for k, v in _read_counts().items() if v}
+            runs[label] = out
+            print(f"{cfg.name} prefill [{label}, bf16]: batch 1 x "
+                  f"({VLM_PATCHES} patches + {VLM_TEXT} tokens), window "
+                  f"{window}, logits {tuple(out.shape)} finite="
+                  f"{bool(torch.isfinite(out).all())} wall_ms="
+                  f"{times[0]:.2f} (first), {times[1]:.2f} "
+                  f"({S / times[1] * 1e3:.1f} positions/s) "
+                  f"kernel_launches={json.dumps(counts)}", flush=True)
+            expect = {"flash_attention": cfg.n_layers} \
+                if label == "kernel" else {}
+            if counts != expect or not bool(torch.isfinite(out).all()) \
+                    or tuple(out.shape) != (1, cfg.vocab_size):
+                raise AssertionError(f"{cfg.name} {label} prefill: launches "
+                                     f"{counts} != {expect}, or its logits")
+        for label, kw in (("kernel", {}), ("plain", {"use_kernel": False})):
+            logits, _ = api.forward(params, batch["tokens"],
+                                    patches=batch["patches"], window=window,
+                                    compute_dtype=torch.float32,
+                                    remat=False, **kw)
+            f32[label] = logits[:, -1].clone()
+            del logits
+            torch.cuda.empty_cache()
+    rel16, max16 = _logits_gap(runs["kernel"], runs["plain"])
+    rel32, max32 = _logits_gap(f32["kernel"], f32["plain"])
+    to32 = {k: _logits_gap(v, f32["kernel"])[0] for k, v in runs.items()}
+    print(f"{cfg.name} prefill kernel vs plain, last position: bf16 "
+          f"rel_l2={rel16:.3e} max_abs={max16:.3e} (limit {VLM_BF16_REL_L2:g}"
+          f"); float32 rel_l2={rel32:.3e} max_abs={max32:.3e} (limit "
+          f"{VLM_F32_REL_L2:g}); from the float32 kernel forward: bf16 "
+          f"kernel rel_l2={to32['kernel']:.3e}, bf16 plain rel_l2="
+          f"{to32['plain']:.3e}; peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    if not (rel16 <= VLM_BF16_REL_L2 and rel32 <= VLM_F32_REL_L2):
+        raise AssertionError(f"{cfg.name}: the kernel prefill disagrees "
+                             "with the plain one")
+    del runs, f32
+    torch.cuda.empty_cache()
+    launches = _serve_paths(api, params, [
+        (f"{cfg.name} default (segment-tiled)", {}, "paged_attention_tiled")])
+    del params
+    torch.cuda.empty_cache()
+    print(f"phase 10c: {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
+def phase_command_r() -> dict:
+    """command-r-35b at its published width (parallel block, layernorm,
+    tied 256,000-token vocab, 64/8 heads: G 8), random bf16 weights from
+    SEED: one default-layout fleet, through B1 only."""
+    import torch
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    api, params = _init_full("command-r-35b")
+    launches = _serve_paths(api, params, [
+        ("command-r-35b default (segment-tiled)", {},
+         "paged_attention_tiled")])
+    print(f"command-r-35b: peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; phase 10d: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
 # each kernel, its source in csrc/ on the main path (bf16: the flash
 # kernels', the three paged reads' and the two scans' tensor-core sources)
 # and the TPU kernel it replaces
@@ -1931,6 +2357,13 @@ def main() -> None:
     launches["ssd_scan"] = zamba["ssd_scan"]
     launches["mlstm_scan"] = xlstm["mlstm_scan"]
 
+    # 10. the MoE family, the VLM backbone and command-r-35b on the paged
+    # path at their published widths
+    torch.cuda.empty_cache()
+    phase_moe()
+    phase_vlm()
+    phase_command_r()
+
     # each kernel's numbers at its main path's shapes
     numbers = {name: c["gemma-7b bf16"] for name, c in checks.items()}
     numbers["pseudo_voigt"] = pv_check
@@ -1959,8 +2392,8 @@ def main() -> None:
 
 
 def _leaves(tree):
-    for v in tree.values():
-        if isinstance(v, dict):
+    for v in (tree.values() if isinstance(tree, dict) else tree):
+        if isinstance(v, (dict, list)):
             yield from _leaves(v)
         else:
             yield v

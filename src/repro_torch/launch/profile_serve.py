@@ -1,15 +1,16 @@
 """Where a serving step's time goes on the card:
-``python -m repro_torch.launch.profile_serve``.
+``python -m repro_torch.launch.profile_serve [--arch gemma-7b]``.
 
-Serves the shared-prefix gemma-7b fleet of ``chip_smoke.py`` (published
-width, random bf16 weights from a seed) through ``PagedDecodeEngine`` in
-each of its three layouts -- the default (segment-tiled), ``tiled=False``
-(per-token) and ``ragged=False`` (rectangular) -- twice per layout: a
-warm-up drain, then a drain under ``torch.profiler``.  Prints, per
-layout, the wall time per step, the device's busy share of the profiled
-window (union of kernel intervals over the wall), the device time of the
-attention kernel, the GEMMs and everything else, and the top device
-kernels by total time.  Then it drains the fleet unprofiled
+Serves the shared-prefix fleet of ``chip_smoke.py`` (the arch at its
+published width, gemma-7b by default, random bf16 weights from a seed)
+through ``PagedDecodeEngine`` in each of its three layouts -- the default
+(segment-tiled), ``tiled=False`` (per-token) and ``ragged=False``
+(rectangular) -- twice per layout: a warm-up drain, then a drain under
+``torch.profiler``.  Prints, per layout, the wall time per step, the
+device's busy share of the profiled window (union of kernel intervals over
+the wall), the device time of the attention kernel, the GEMMs, an MoE
+arch's router and dispatch kernels and everything else, and the top
+device kernels by total time.  Then it drains the fleet unprofiled
 ``ROUNDS`` times per layout, rotating which layout goes first, and
 prints each layout's wall ms/step and their median (the host clock of a
 shared host varies between drains, so one drain per layout is not a
@@ -17,6 +18,7 @@ comparison).  Needs a CUDA card.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import statistics
 import time
@@ -73,14 +75,28 @@ def serve_fleet(api, params, *, max_new: int = 32, seed: int = 0,
     return eng, finished, time.perf_counter() - t0
 
 
-def _group(name: str) -> str:
+# device kernels of the MoE router (models/moe.py: the softmaxes, top-k
+# and its sort, the capacity cumsum, the experts' one-hot), by the names
+# the deepseek-moe-16b profiles on an H100 showed.  The router's float32
+# logits product counts as a GEMM; its slot compares, sums and products
+# run PyTorch's generic elementwise and reduce kernels, which norms and
+# RoPE share, and stay in "other"
+ROUTER_KERNELS = ("softmax_warp_forward", "gatherTopK",
+                  "bitonicSortKVInPlace", "tensor_kernel_scan_outer_dim",
+                  "_cuda_scatter_fill")
+
+
+def _group(name: str, moe: bool = False) -> str:
     """Kernel family of a device kernel name (the paged reads: the FMA
-    kernels and the bf16 split sweep with its combine)."""
+    kernels and the bf16 split sweep with its combine; with ``moe``, the
+    router and dispatch: ROUTER_KERNELS)."""
     if any(k in name for k in ("paged_attention_kernel",
                                "paged_split::split_")):
         return "attention"
     if any(k in name for k in ("nvjet", "gemm", "splitKreduce", "cutlass")):
         return "gemm"
+    if moe and any(k in name for k in ROUTER_KERNELS):
+        return "router"
     return "other"
 
 
@@ -119,14 +135,15 @@ def profile_layout(api, params, label: str, engine_kw) -> dict:
           f"device_busy_s={busy:.4f} busy_share={busy / wall:.4f} "
           f"idle_share={1 - busy / wall:.4f} kernels={len(kernels)}",
           flush=True)
+    moe = api.cfg.moe is not None
     totals = {}
-    groups = {"attention": 0.0, "gemm": 0.0, "other": 0.0}
+    groups = {"attention": 0.0, "gemm": 0.0, "router": 0.0, "other": 0.0}
     for e in kernels:
         t = totals.setdefault(e.name, [0.0, 0])
         us = e.time_range.end - e.time_range.start
         t[0] += us
         t[1] += 1
-        groups[_group(e.name)] += us
+        groups[_group(e.name, moe)] += us
     total_us = sum(groups.values())
     for g, us in groups.items():
         print(f"  group {g}: {us / 1e3 / eng.steps:.3f} ms/step, "
@@ -134,18 +151,26 @@ def profile_layout(api, params, label: str, engine_kw) -> dict:
     rows = sorted(totals.items(), key=lambda kv: -kv[1][0])[:TOP]
     for name, (us, n) in rows:
         print(f"  {us / 1e3:10.3f} ms  {n:6d} calls  "
-              f"{us / 1e3 / eng.steps:8.3f} ms/step  {name[:90]}")
+              f"{us / 1e3 / eng.steps:8.3f} ms/step  {_group(name, moe):9s} "
+              f"{name[:120]}")
     return {"steps": eng.steps, "wall_s": wall, "device_busy_s": busy,
             "groups_ms": {g: us / 1e3 for g, us in groups.items()},
             "top": [[n[:90], us / 1e3, c] for n, (us, c) in rows]}
 
 
-def main() -> None:
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="gemma-7b")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve needs a CUDA card")
-    cfg = get_config("gemma-7b")
+    cfg = get_config(args.arch)
     api = build_model(cfg)
     params = api.init(seed=0, device="cuda", dtype=torch.bfloat16)
+    print(f"{cfg.name}: layers={cfg.n_layers} d_model={cfg.d_model} "
+          f"heads={cfg.n_heads}/{cfg.n_kv_heads}x{cfg.resolved_head_dim} "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB of weights",
+          flush=True)
     out = {label: profile_layout(api, params, label, kw)
            for label, kw in LAYOUTS}
     walls = {label: [] for label, _ in LAYOUTS}

@@ -2,7 +2,9 @@
 ``python -m repro_torch.launch.serve --arch gemma-7b [--full] [--device cuda|cpu]``.
 
 Builds the port's DecodeEngine (the paged engine with its defaults for
-the dense family; the dense-slot engine for the recurrent families,
+the dense and MoE families and the VLM's text backbone, e.g. ``--arch
+gemma-7b``, ``deepseek-moe-16b``, ``llava-next-mistral-7b`` or
+``command-r-35b``; the dense-slot engine for the recurrent families,
 ``--arch zamba2-2.7b`` and ``--arch xlstm-1.3b``) on the smoke variant of
 the arch, or at its published width with ``--full``, with random bf16
 weights from seed 0, and serves a batch of synthetic requests.  It runs

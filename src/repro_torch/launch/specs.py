@@ -65,16 +65,19 @@ def make_prefill_step_fn(api: ModelAPI, shape: InputShape, *,
     """prefill_step(params, batch) -> the last position's logits (B, V) in
     bfloat16, from a no-remat forward over ``batch["tokens"]`` at the
     window ``shape``'s sequence length gives the arch: what serving
-    admission needs for next-token sampling.  The encoder-decoder and VLM
-    families' extra inputs are not ported (ROADMAP A6)."""
+    admission needs for next-token sampling.  The VLM family's forward
+    also takes ``batch["patches"]`` (prepended to the tokens); the
+    encoder-decoder family's frames are not ported (ROADMAP A6b)."""
     window = api.effective_window(shape.seq_len)
-    if api.cfg.family in ("audio", "vlm"):
-        raise NotImplementedError(f"{api.cfg.family} prefill is ROADMAP A6")
+    if api.cfg.family == "audio":
+        raise NotImplementedError("audio prefill is ROADMAP A6b")
+    vlm = api.cfg.family == "vlm"
 
     def prefill_step(params, batch):
+        extra = {"patches": batch["patches"]} if vlm else {}
         logits, _ = api.forward(params, batch["tokens"], window=window,
                                 attn_chunk=attn_chunk, remat=False,
-                                **model_kw)
+                                **extra, **model_kw)
         return logits[:, -1].to(torch.bfloat16)
 
     return prefill_step

@@ -1,5 +1,5 @@
-"""Unified model API of the port: the dense, hybrid (zamba2) and ssm
-(xLSTM) branches of ``repro/models/api.py::build_model``.
+"""Unified model API of the port: the dense, moe, vlm, hybrid (zamba2) and
+ssm (xLSTM) branches of ``repro/models/api.py::build_model``.
 
 ``build_model(cfg)`` returns a :class:`ModelAPI` with:
   * ``init(seed=0, device="cuda", dtype=torch.bfloat16)`` -> params
@@ -15,9 +15,12 @@
     speculative-decode verification contract.
   * ``effective_window(seq_len)`` -> attention window for a shape
 
-The recurrent families have no paged steps (their decode state is O(1)
-recurrent, not a growing KV sequence), so they serve through the
-dense-slot engine; their ``loss`` raises (training them is ROADMAP A7).
+The MoE family serves through the transformer's API and the VLM through
+``models/vlm.py``'s, whose paged steps serve the text backbone (patches
+enter through ``forward``).  The recurrent families have no paged steps
+(their decode state is O(1) recurrent, not a growing KV sequence), so
+they serve through the dense-slot engine; their ``loss`` raises
+(training them is ROADMAP A7).
 """
 from __future__ import annotations
 
@@ -25,7 +28,7 @@ import dataclasses
 from typing import Any, Callable, Optional, Tuple
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import recurrent, transformer
+from repro_torch.models import recurrent, transformer, vlm
 
 # full-attention archs switch to their long-context SWA variant above this
 LONG_CONTEXT_THRESHOLD = 65_536
@@ -102,25 +105,22 @@ def build_model(cfg: ArchConfig) -> ModelAPI:
             decode_step=lambda p, c, t, **kw: decode_step(p, c, t, cfg,
                                                           **kw),
         )
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe", "vlm"):
         raise NotImplementedError(
-            f"{cfg.family} models ({cfg.name}) are not ported yet: MoE, VLM "
-            "and the encoder-decoder family are ROADMAP item A6")
+            f"{cfg.family} models ({cfg.name}) are not ported yet: the "
+            "audio (encoder-decoder) family is ROADMAP item A6b")
+    # dense / moe through the transformer, vlm through its own module
+    m = vlm if cfg.family == "vlm" else transformer
     return ModelAPI(
         cfg=cfg,
-        init=lambda **kw: transformer.init_params(cfg, **kw),
-        loss=lambda p, b, **kw: transformer.loss_fn(p, b, cfg, **kw),
-        forward=lambda p, t, **kw: transformer.forward(p, t, cfg, **kw),
-        init_cache=lambda b, n, **kw: transformer.init_cache(cfg, b, n,
-                                                             **kw),
-        decode_step=lambda p, c, t, **kw: transformer.decode_step(
+        init=lambda **kw: m.init_params(cfg, **kw),
+        loss=lambda p, b, **kw: m.loss_fn(p, b, cfg, **kw),
+        forward=lambda p, t, **kw: m.forward(p, t, cfg, **kw),
+        init_cache=lambda b, n, **kw: m.init_cache(cfg, b, n, **kw),
+        decode_step=lambda p, c, t, **kw: m.decode_step(p, c, t, cfg, **kw),
+        init_paged_cache=lambda b, **kw: m.init_paged_cache(cfg, b, **kw),
+        paged_step=lambda p, c, t, **kw: m.paged_step(p, c, t, cfg, **kw),
+        paged_decode_step=lambda p, c, t, **kw: m.paged_decode_step(
             p, c, t, cfg, **kw),
-        init_paged_cache=lambda b, **kw: transformer.init_paged_cache(
-            cfg, b, **kw),
-        paged_step=lambda p, c, t, **kw: transformer.paged_step(
-            p, c, t, cfg, **kw),
-        paged_decode_step=lambda p, c, t, **kw: transformer.paged_decode_step(
-            p, c, t, cfg, **kw),
-        ragged_step=lambda p, c, t, **kw: transformer.ragged_step(
-            p, c, t, cfg, **kw),
+        ragged_step=lambda p, c, t, **kw: m.ragged_step(p, c, t, cfg, **kw),
     )

@@ -74,16 +74,30 @@ def keeps_float32(key: str) -> bool:
     return is_norm_key(key) or key in FLOAT32_KEYS
 
 
+# parameters the reference reads in float32 from their stored precision
+# (the MoE router): a forward leaves them as stored, neither cast to the
+# compute dtype nor widened, so float32 masters route in float32 and a
+# bfloat16 serving checkpoint routes on its bfloat16 weights
+STORED_PRECISION_KEYS = frozenset({"router"})
+
+
 def cast_weights(tree: Dict, dtype: torch.dtype, *,
                  keep_norms: bool = True) -> Dict:
-    """Every float leaf (outside the norms and the other float32 keys,
-    with ``keep_norms``: :func:`keeps_float32`) cast to ``dtype`` with a
-    differentiable ``.to`` (a leaf already in ``dtype`` is returned as
-    is), so gradients reach the masters."""
+    """Every float leaf cast to ``dtype`` with a differentiable ``.to`` (a
+    leaf already in ``dtype`` is returned as is), so gradients reach the
+    masters.  With ``keep_norms`` the norms and the other float32 keys
+    (:func:`keeps_float32`) and :data:`STORED_PRECISION_KEYS` stay as
+    stored.  Lists (an MoE config's ``head_blocks``) are walked like
+    dicts."""
+    def keep(k: str) -> bool:
+        return keep_norms and (keeps_float32(k)
+                               or k in STORED_PRECISION_KEYS)
+
     def conv(node, is_norm: bool):
         if isinstance(node, dict):
-            return {k: conv(v, is_norm or (keep_norms and keeps_float32(k)))
-                    for k, v in node.items()}
+            return {k: conv(v, is_norm or keep(k)) for k, v in node.items()}
+        if isinstance(node, list):
+            return [conv(v, is_norm) for v in node]
         if is_norm or not node.is_floating_point():
             return node
         return node.to(dtype)

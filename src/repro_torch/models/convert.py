@@ -26,19 +26,21 @@ def from_reference_params(tree: Dict[str, Any], *, device="cuda",
     (the compute dtype, or float32 for training masters); norm parameters
     and the recurrent families' gate and decay parameters
     (``common.keeps_float32``) stay float32, as the port's own inits keep
-    them.  The stacked layouts are kept: the dense family's ``blocks``
-    (leading layer axis), zamba2's ``segments`` (n_seg, per, ...) and
+    them; the MoE router takes ``dtype`` like any weight.  The reference's
+    layouts are kept: the transformer's stacked ``blocks`` (leading layer
+    axis; the MoE layer's ``router`` and ``experts_w_*`` stacks and
+    ``shared`` MLP among them) and the MoE family's unstacked
+    ``head_blocks`` list, the VLM's ``projector`` and ``lm`` (a
+    transformer tree), zamba2's ``segments`` (n_seg, per, ...) and
     xLSTM's ``mlstm`` (n_seg, n_mlstm, ...) and ``slstm`` (n_seg, ...)."""
-    if "head_blocks" in tree:
-        raise NotImplementedError(
-            "unstacked leading dense blocks belong to the MoE family "
-            "(ROADMAP item A6)")
     dev = resolve_device(device)
 
     def conv(node, is_norm: bool):
         if isinstance(node, dict):
             return {k: conv(v, is_norm or keeps_float32(k))
                     for k, v in node.items()}
+        if isinstance(node, list):
+            return [conv(v, is_norm) for v in node]
         arr = np.asarray(node)
         return torch.from_numpy(np.array(arr, copy=True)).to(
             device=dev, dtype=torch.float32 if is_norm else dtype)

@@ -1,14 +1,17 @@
-"""Decoder-only transformer LM (dense family): parameters, the training
-forward and loss, the dense-slot decode step and the paged serving steps
-(rectangular ``paged_step`` and flat-token ``ragged_step``).
+"""Decoder-only transformer LM (dense and MoE families, and the VLM's
+text backbone): parameters, the training forward and loss, the dense-slot
+decode step and the paged serving steps (rectangular ``paged_step`` and
+flat-token ``ragged_step``).
 
 The counterpart of ``repro/models/transformer.py``.  Parameters keep the
-reference's layer-stacked layout (every leaf of ``params["blocks"]`` has a
-leading layer axis), but the port runs eagerly: a Python loop over layers
-takes the place of ``lax.scan`` (and ``torch.utils.checkpoint`` per block
-that of ``jax.checkpoint``), and the KV pools are one
-``(L, num_blocks, bs, Hkv, D)`` tensor per leaf, updated in place through
-per-layer views instead of being rebuilt and donated every step.
+reference's layout: every leaf of ``params["blocks"]`` has a leading
+layer axis, and an MoE config's ``first_dense_layers`` are an unstacked
+list, ``params["head_blocks"]``, run before them.  The port runs eagerly:
+a Python loop over layers takes the place of ``lax.scan`` (and
+``torch.utils.checkpoint`` per block that of ``jax.checkpoint``), and the
+KV caches are one ``(n_layers, ...)`` tensor per leaf over all layers
+(head block i uses layer i), updated in place through per-layer views
+instead of being rebuilt and donated every step.
 """
 from __future__ import annotations
 
@@ -19,7 +22,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import layers
+from repro_torch.models import layers, moe as moe_lib
 from repro_torch.models.common import (apply_norm, cast_weights, dense_init_,
                                        embed_init_, fan_in_std, norm_params)
 
@@ -28,11 +31,11 @@ from repro_torch.models.common import (apply_norm, cast_weights, dense_init_,
 # Parameter init
 # ---------------------------------------------------------------------------
 def _check_family(cfg: ArchConfig) -> None:
-    if cfg.moe is not None or cfg.family != "dense":
+    if cfg.family not in ("dense", "moe", "vlm"):
         raise NotImplementedError(
-            f"{cfg.name}: this module serves the dense transformer family "
-            "(zamba2 and xLSTM are models/recurrent.py); MoE is ROADMAP "
-            "item A6")
+            f"{cfg.name}: this module serves the dense and MoE transformer "
+            "families and the VLM's text backbone (zamba2 and xLSTM are "
+            "models/recurrent.py; the audio family is ROADMAP item A6b)")
 
 
 def attention_params(cfg: ArchConfig, n: int, g: torch.Generator, *,
@@ -69,10 +72,11 @@ def attention_params(cfg: ArchConfig, n: int, g: torch.Generator, *,
 
 
 def mlp_params(cfg: ArchConfig, n: int, g: torch.Generator, *, device,
-               dtype: torch.dtype) -> Dict:
-    """``n`` stacked MLPs with the reference's init scales
-    (``layers.mlp_params``), weights in ``dtype``."""
-    d, ff = cfg.d_model, cfg.d_ff
+               dtype: torch.dtype, d_ff: Optional[int] = None) -> Dict:
+    """``n`` stacked MLPs of width ``d_ff`` (default ``cfg.d_ff``) with the
+    reference's init scales (``layers.mlp_params``), weights in
+    ``dtype``."""
+    d, ff = cfg.d_model, d_ff or cfg.d_ff
     gated = cfg.mlp_type in ("swiglu", "geglu")
 
     def empty(*shape):
@@ -92,28 +96,52 @@ def mlp_params(cfg: ArchConfig, n: int, g: torch.Generator, *, device,
     return mlp
 
 
+def _stacked_blocks(cfg: ArchConfig, n: int, g: torch.Generator, *,
+                    use_moe: bool, device, dtype: torch.dtype) -> Dict:
+    """``n`` stacked blocks: norms, attention, and an MoE layer or a dense
+    MLP (of ``moe.dense_d_ff`` for an MoE config's leading dense layers,
+    as the reference's ``_block_params``)."""
+    d, kw = cfg.d_model, dict(device=device, dtype=dtype)
+    blocks = {"attn_norm": norm_params(cfg.norm_type, d, cfg.use_bias, n=n,
+                                       device=device),
+              "attn": attention_params(cfg, n, g, **kw)}
+    if not cfg.parallel_block:
+        blocks["mlp_norm"] = norm_params(cfg.norm_type, d, cfg.use_bias,
+                                         n=n, device=device)
+    if use_moe:
+        blocks["moe"] = moe_lib.moe_params(cfg, n, g, **kw)
+    else:
+        d_ff = cfg.d_ff
+        if cfg.moe is not None and cfg.moe.first_dense_layers:
+            d_ff = cfg.moe.dense_d_ff or cfg.moe.d_expert
+        blocks["mlp"] = mlp_params(cfg, n, g, d_ff=d_ff, **kw)
+    return blocks
+
+
 def init_params(cfg: ArchConfig, *, seed: int = 0, device="cuda",
                 dtype: torch.dtype = torch.bfloat16) -> Dict:
     """Random parameters with the reference's shapes and init scales, from
     a ``torch.Generator`` seeded with ``seed`` on ``device``.  Weights are
-    stored in ``dtype`` (the compute dtype); norms stay float32."""
+    stored in ``dtype`` (the compute dtype); norms stay float32.  An MoE
+    config's ``first_dense_layers`` become the list ``head_blocks``."""
     _check_family(cfg)
     dev = resolve_device(device)
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
-    L, d, V = cfg.n_layers, cfg.d_model, cfg.vocab_size
+    d, V = cfg.d_model, cfg.vocab_size
     kw = dict(device=dev, dtype=dtype)
-    blocks = {"attn_norm": norm_params(cfg.norm_type, d, cfg.use_bias, n=L,
-                                       device=dev),
-              "attn": attention_params(cfg, L, g, **kw),
-              "mlp": mlp_params(cfg, L, g, **kw)}
-    if not cfg.parallel_block:
-        blocks["mlp_norm"] = norm_params(cfg.norm_type, d, cfg.use_bias,
-                                         n=L, device=dev)
+    n_head = cfg.moe.first_dense_layers if cfg.moe else 0
+    head_blocks = [
+        layer_params(_stacked_blocks(cfg, 1, g, use_moe=False, **kw), 0)
+        for _ in range(n_head)]
+    blocks = _stacked_blocks(cfg, cfg.n_layers - n_head, g,
+                             use_moe=cfg.moe is not None, **kw)
     final = norm_params(cfg.norm_type, d, cfg.use_bias, n=1, device=dev)
     p = {"embed": {"embedding": embed_init_(torch.empty((V, d), **kw), g)},
          "final_norm": {k: v[0] for k, v in final.items()},
          "blocks": blocks}
+    if head_blocks:
+        p["head_blocks"] = head_blocks
     if not cfg.tie_embeddings:
         p["head"] = {"w": dense_init_(torch.empty((d, V), **kw), g,
                                       std=fan_in_std((d,)))}
@@ -124,6 +152,15 @@ def layer_params(blocks: Dict, l: int) -> Dict:
     """Layer ``l``'s parameters: views into the stacked leaves."""
     return {k: layer_params(v, l) if isinstance(v, dict) else v[l]
             for k, v in blocks.items()}
+
+
+def _layers(params: Dict, cfg: ArchConfig):
+    """Each layer's parameters in order: the unstacked ``head_blocks``,
+    then views into the stacked ``blocks``."""
+    head = params.get("head_blocks", [])
+    yield from head
+    for l in range(cfg.n_layers - len(head)):
+        yield layer_params(params["blocks"], l)
 
 
 def _embed(params: Dict, tokens: torch.Tensor,
@@ -142,12 +179,21 @@ def _finish(params: Dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
 
 
 def _mlp_residual(bp: Dict, x: torch.Tensor, xn: torch.Tensor,
-                  attn: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+                  attn: torch.Tensor, cfg: ArchConfig
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The residual adds after attention: (x, the MoE layer's
+    load-balance loss, or None for a dense MLP).  The MoE layer's capacity
+    groups are x's leading axis; the flat stream (T, d) of ``ragged_step``
+    is one group, as the reference's (1, T, d)."""
     if cfg.parallel_block:
-        return x + attn + layers.apply_mlp(bp["mlp"], xn, cfg)
+        return x + attn + layers.apply_mlp(bp["mlp"], xn, cfg), None
     x = x + attn
     xm = apply_norm(cfg.norm_type, bp["mlp_norm"], x)
-    return x + layers.apply_mlp(bp["mlp"], xm, cfg)
+    if "moe" in bp:
+        flat = xm.dim() == 2
+        y, aux = moe_lib.apply_moe(bp["moe"], xm[None] if flat else xm, cfg)
+        return x + (y[0] if flat else y), aux
+    return x + layers.apply_mlp(bp["mlp"], xm, cfg), None
 
 
 # ---------------------------------------------------------------------------
@@ -155,50 +201,62 @@ def _mlp_residual(bp: Dict, x: torch.Tensor, xn: torch.Tensor,
 # ---------------------------------------------------------------------------
 def _apply_block(bp: Dict, x: torch.Tensor, positions: torch.Tensor,
                  cfg: ArchConfig, *, window: int, attn_chunk: int = 512,
-                 use_kernel: Optional[bool] = None) -> torch.Tensor:
+                 use_kernel: Optional[bool] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One layer over x (B, S, d): norm -> QKV (RoPE at ``positions``) ->
-    causal attention -> out projection -> MLP."""
+    causal attention -> out projection -> MLP or MoE.  Returns (x, the
+    layer's MoE aux loss, 0 for a dense MLP)."""
     xn = apply_norm(cfg.norm_type, bp["attn_norm"], x)
     q, k, v = layers.project_qkv(bp["attn"], xn, positions, cfg)
     attn = layers.causal_attention(q, k, v, window=window, chunk=attn_chunk,
                                    use_kernel=use_kernel)
     attn = layers.project_out(bp["attn"], attn, cfg)
-    return _mlp_residual(bp, x, xn, attn, cfg)
+    x, aux = _mlp_residual(bp, x, xn, attn, cfg)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 def forward(params: Dict, tokens: torch.Tensor, cfg: ArchConfig, *,
-            window: int = 0, compute_dtype: torch.dtype = torch.bfloat16,
+            window: int = 0, extra_embeds: Optional[torch.Tensor] = None,
+            compute_dtype: torch.dtype = torch.bfloat16,
             attn_chunk: int = 512, remat: bool = True,
             use_kernel: Optional[bool] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens (B, S) -> (logits (B, S, V) float32, aux scalar): the
-    training and prefill forward.
+    """tokens (B, S) -> (logits (B, S_extra + S, V) float32, MoE aux
+    scalar): the training and prefill forward.  ``extra_embeds``
+    (B, S_extra, d_model), already-projected frontend embeddings (the
+    VLM's patches), are prepended to the token embeddings.
 
-    Every float leaf of ``params`` but the norms is cast to
-    ``compute_dtype`` once per call, differentiably, so float32 masters
-    train as the reference's do (a leaf already in ``compute_dtype`` is
-    used as is).  With ``remat`` each block runs under non-reentrant
-    ``torch.utils.checkpoint`` when autograd records, so the backward
-    pass recomputes its insides.  Attention follows
-    ``layers.causal_attention``'s ``use_kernel`` rule.  The dense family
-    has no auxiliary loss: aux is 0, kept for the reference's signature."""
+    Every float leaf of ``params`` but the norms, the other float32 keys
+    and the MoE router (read in float32 from its stored precision, as the
+    reference reads it) is cast to ``compute_dtype`` once per call,
+    differentiably, so float32 masters train as the reference's do (a
+    leaf already in ``compute_dtype`` is used as is).  With ``remat`` each
+    block runs under non-reentrant ``torch.utils.checkpoint`` when
+    autograd records, so the backward pass recomputes its insides.
+    Attention follows ``layers.causal_attention``'s ``use_kernel`` rule.
+    aux sums the MoE layers' load-balance losses (0 for the dense
+    family)."""
     _check_family(cfg)
     p = cast_weights(params, compute_dtype)
     x = _embed(p, tokens, cfg)
+    if extra_embeds is not None:
+        x = torch.cat([extra_embeds.to(compute_dtype), x], dim=1)
     positions = torch.arange(x.shape[1], device=x.device)
 
     def block(bp, x_):
         return _apply_block(bp, x_, positions, cfg, window=window,
                             attn_chunk=attn_chunk, use_kernel=use_kernel)
 
-    for l in range(cfg.n_layers):
-        bp = layer_params(p["blocks"], l)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for bp in _layers(p, cfg):
         if remat and torch.is_grad_enabled():
-            x = checkpoint(block, bp, x, use_reentrant=False)
+            x, aux = checkpoint(block, bp, x, use_reentrant=False)
         else:
-            x = block(bp, x)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return _finish(p, x, cfg), aux
+            x, aux = block(bp, x)
+        aux_total = aux_total + aux
+    return _finish(p, x, cfg), aux_total
 
 
 def lm_loss(logits: torch.Tensor, labels: torch.Tensor,
@@ -227,15 +285,24 @@ def loss_fn(params: Dict, batch: Dict, cfg: ArchConfig, *, window: int = 0,
             attn_chunk: int = 512, remat: bool = True,
             compute_dtype: torch.dtype = torch.bfloat16,
             use_kernel: Optional[bool] = None) -> Tuple[torch.Tensor, Dict]:
-    """:func:`forward` on ``batch["tokens"]`` then :func:`lm_loss` against
-    ``batch["labels"]``.  The reference always computes in bfloat16 here;
-    ``compute_dtype`` lets a float32 run compare against its float32
-    forward."""
+    """:func:`forward` on ``batch["tokens"]`` (after
+    ``batch["extra_embeds"]``, if given) then :func:`lm_loss` against
+    ``batch["labels"]``, the frontend positions labelled -1 (no loss),
+    with the MoE aux loss at ``router_aux_weight``.  The reference always
+    computes in bfloat16 here; ``compute_dtype`` lets a float32 run
+    compare against its float32 forward."""
+    extra = batch.get("extra_embeds")
     logits, aux = forward(params, batch["tokens"], cfg, window=window,
-                          compute_dtype=compute_dtype,
+                          extra_embeds=extra, compute_dtype=compute_dtype,
                           attn_chunk=attn_chunk, remat=remat,
                           use_kernel=use_kernel)
-    return lm_loss(logits, batch["labels"], aux, 0.0)
+    labels = batch["labels"]
+    if extra is not None:
+        pad = -torch.ones(extra.shape[:2], dtype=labels.dtype,
+                          device=labels.device)
+        labels = torch.cat([pad, labels], dim=1)
+    aw = cfg.moe.router_aux_weight if cfg.moe else 0.0
+    return lm_loss(logits, labels, aux, aw)
 
 
 # ---------------------------------------------------------------------------
@@ -306,7 +373,7 @@ def _apply_block_paged(bp: Dict, x: torch.Tensor, cache_l: Dict,
         q, cache_l["k"], cache_l["v"], block_tables, pos, q_lens,
         window=window, use_kernel=use_kernel, **_pool_scales(cache_l))
     attn = layers.project_out(bp["attn"], attn, cfg)
-    return _mlp_residual(bp, x, xn, attn, cfg)
+    return _mlp_residual(bp, x, xn, attn, cfg)[0]
 
 
 def _apply_block_ragged(bp: Dict, x: torch.Tensor, cache_l: Dict,
@@ -336,7 +403,7 @@ def _apply_block_ragged(bp: Dict, x: torch.Tensor, cache_l: Dict,
             q, cache_l["k"], cache_l["v"], token_tables, token_pos,
             window=window, use_kernel=use_kernel, **_pool_scales(cache_l))
     attn = layers.project_out(bp["attn"], attn, cfg)
-    return _mlp_residual(bp, x, xn, attn, cfg)
+    return _mlp_residual(bp, x, xn, attn, cfg)[0]
 
 
 def _apply_block_decode(bp: Dict, x: torch.Tensor, cache_l: Dict,
@@ -354,7 +421,7 @@ def _apply_block_decode(bp: Dict, x: torch.Tensor, cache_l: Dict,
     attn = layers.decode_attention(q, cache_l["k"], cache_l["v"],
                                    slot_positions, pos, window=window)
     attn = layers.project_out(bp["attn"], attn, cfg)
-    return _mlp_residual(bp, x, xn, attn, cfg)
+    return _mlp_residual(bp, x, xn, attn, cfg)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -392,10 +459,9 @@ def decode_step(params: Dict, cache: Dict, tokens: torch.Tensor,
     n_slots = cache["scan"]["k"].shape[2]
     bidx = torch.arange(B, device=tokens.device)
     cache["slot_positions"][bidx, pos.long() % n_slots] = pos
-    for l in range(cfg.n_layers):
+    for l, bp in enumerate(_layers(params, cfg)):
         cl = {name: arr[l] for name, arr in cache["scan"].items()}
-        x = _apply_block_decode(layer_params(params["blocks"], l), x, cl,
-                                cache["slot_positions"], pos, cfg,
+        x = _apply_block_decode(bp, x, cl, cache["slot_positions"], pos, cfg,
                                 window=window)
     cache["pos"] = pos + 1
     return _finish(params, x, cfg), cache
@@ -456,11 +522,10 @@ def paged_step(params: Dict, cache: Dict, tokens: torch.Tensor,
     if q_lens is None:
         q_lens = torch.full((B,), C, dtype=torch.int32, device=pos.device)
     x = _embed(params, tokens, cfg)
-    for l in range(cfg.n_layers):
+    for l, bp in enumerate(_layers(params, cfg)):
         cl = {name: arr[l] for name, arr in cache["scan"].items()}
-        x = _apply_block_paged(layer_params(params["blocks"], l), x, cl,
-                               cache["block_tables"], pos, q_lens, cfg,
-                               window=window, use_kernel=use_kernel)
+        x = _apply_block_paged(bp, x, cl, cache["block_tables"], pos, q_lens,
+                               cfg, window=window, use_kernel=use_kernel)
     cache["pos"] = pos + q_lens
     return _finish(params, x, cfg), cache
 
@@ -499,10 +564,9 @@ def ragged_step(params: Dict, cache: Dict, tokens: torch.Tensor,
         tile_spec = None
         token_tables = tables[cache["token_lane"].long()]   # (T, max_blocks)
     x = _embed(params, tokens, cfg)
-    for l in range(cfg.n_layers):
+    for l, bp in enumerate(_layers(params, cfg)):
         cl = {name: arr[l] for name, arr in cache["scan"].items()}
-        x = _apply_block_ragged(layer_params(params["blocks"], l), x, cl,
-                                token_tables, cache["token_pos"],
+        x = _apply_block_ragged(bp, x, cl, token_tables, cache["token_pos"],
                                 cache["slot_mapping"], tile_spec, cfg,
                                 window=window, use_kernel=use_kernel)
     return _finish(params, x, cfg), cache

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.models import common
 from repro_torch.serving.batch import RaggedBatch, padded_pow2
 from repro_torch.serving.blocks import KVCacheManager
 from repro_torch.serving.scheduler import (Request, RequestState, Scheduler,
@@ -62,6 +63,25 @@ def _emit_token(engine, req: "Request", tok: int) -> bool:
 def _not_ported(what: str, item: str):
     return NotImplementedError(
         f"{what} is not ported to repro_torch yet (ROADMAP {item})")
+
+
+def _weight(params) -> Optional[torch.Tensor]:
+    """The first weight of a parameter tree of any model family that
+    takes the compute dtype (norms, the float32 keys and the router keep
+    their own), whose device and dtype the engines take."""
+    items = params.items() if isinstance(params, dict) else \
+        enumerate(params)
+    for key, node in items:
+        if isinstance(key, str) and (common.keeps_float32(key) or
+                                     key in common.STORED_PRECISION_KEYS):
+            continue
+        if isinstance(node, (dict, list)):
+            leaf = _weight(node)
+            if leaf is not None:
+                return leaf
+        elif node.is_floating_point():
+            return node
+    return None
 
 
 def DecodeEngine(model_api, params, *, paged: Optional[bool] = None,
@@ -131,7 +151,7 @@ class PagedDecodeEngine:
         self.device = resolve_device(device)
         self.api = model_api
         self.params = params
-        emb = params["embed"]["embedding"]
+        emb = _weight(params)
         if emb.device != self.device:
             raise ValueError(f"parameters live on {emb.device}, the engine "
                              f"runs on {self.device}")
@@ -613,7 +633,7 @@ class SlotDecodeEngine:
         self.device = resolve_device(device)
         self.api = model_api
         self.params = params
-        emb = params["embed"]["embedding"]
+        emb = _weight(params)
         self.n_slots = n_slots
         self.cache_len = cache_len
         self.eos = eos_token

@@ -156,7 +156,7 @@ def _jax_scales(jnp, d):
 
 @pytest.mark.parametrize("quantized", [False, True], ids=["f32", "int8"])
 @pytest.mark.parametrize("window", [0, 5])
-@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("G", [1, 4, 8])
 @pytest.mark.parametrize("mix", sorted(TILED_MIXES))
 def test_port_reference_matches_reference_kernel_and_oracle(jax_side, mix, G,
                                                             window,
@@ -313,7 +313,7 @@ def _chunk_setup(case, G, quantized, seed=0, dim=D, C=None, starts=None,
 
 @pytest.mark.parametrize("quantized", [False, True], ids=["f32", "int8"])
 @pytest.mark.parametrize("window", [0, 5])
-@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("G", [1, 4, 8])
 @pytest.mark.parametrize("mix", sorted(SEGMENT_MIXES))
 def test_per_token_reference_matches_reference_kernel_and_oracle(
         jax_side, mix, G, window, quantized):
@@ -343,7 +343,7 @@ def test_per_token_reference_matches_reference_kernel_and_oracle(
 
 @pytest.mark.parametrize("quantized", [False, True], ids=["f32", "int8"])
 @pytest.mark.parametrize("window", [0, 5])
-@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("G", [1, 4, 8])
 @pytest.mark.parametrize("case", sorted(CHUNK_CASES))
 def test_rows_references_match_reference_kernel_and_oracle(
         jax_side, case, G, window, quantized):
