@@ -116,7 +116,34 @@ printing its own line(s):
    backbone (B1 only); (d) command-r-35b (40 layers, G 8, parallel block,
    layernorm, tied 256,000-token vocab) serves one default-layout fleet
    (B1 only); (c) and (d) drain the speculation requests of (a) too.
-   Each part prints its wall time and peak memory.
+   Each part prints its wall time and peak memory;
+11. the data-center/edge bridge, each line tagged with the card's name and
+   power limit: (a) the paper's DNNTrainerFlow on the port's
+   ``repro_torch.core`` (``launch/remote_retrain_flow.run``) at the
+   paper's scale: BraggNN at its published width on PAPER_PEAKS patches
+   collected at the edge, TransferData, LabelData (B7), TrainModel (300
+   ``adam(1e-3)`` steps at batch 64), TransferModel, RegisterModel as v1,
+   then v2 warm-started from the repository (100 steps), then A||T over 8
+   shards, then E on PAPER_PEAKS held-out patches: every run must succeed,
+   B7 must launch in each LabelData and exactly 8 times over A||T and
+   nowhere else, the labels and E must pass phase 7's gates, and the
+   repository must hold v1 and v2; each state's charged seconds, the
+   clock's split, A||T's saving and the cost model's strategies at
+   PAPER_PEAKS are printed; (b) gemma-7b at full width and depth in bf16:
+   one set of weights serves a "dc" and an "edge" ``PagedDecodeEngine``
+   (phase 4's shape and fleet) through ``DisaggregatedEngine``, a
+   one-engine run of the same fleet being the baseline: each engine must
+   launch B1 layers x its steps and nothing else, every imported block
+   must hold the exported block's bytes bit for bit, and the shared system
+   prompt must cross once; the handoff check is off in bf16 and the
+   agreement with the one-engine run is gated instead; the coordinator's
+   stats, the turnaround priced at 1.25 and 12.5 GB/s and the crossover
+   bandwidth are printed; (c) the same in float32 with the depth cut to
+   DIS_F32_LAYERS layers, the handoff check on and every token the
+   one-engine run's; (d) the edge engine's prefix-cache snapshot loaded
+   by a fresh engine, whose warm prompt must hit the cache with the
+   one-engine tokens, and an int8-pool shipment round trip (k, v and
+   their scales), bit for bit.
 
 Then one JSON line of per-kernel numbers, and last
 ``{"ok": true, "device": {...}}``.  Any failed phase raises, so the run
@@ -2261,6 +2288,345 @@ def phase_command_r() -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the data-center/edge bridge
+# ---------------------------------------------------------------------------
+# the card as nvidia-smi names it (name, power limit), set by main; every
+# phase-11 line carries it
+CARD = ""
+DIS_NEW = 32                  # new tokens a request (phase 4's fleet)
+DIS_F32_LAYERS = 4            # 11c: float32 at full width, depth cut
+# 11b serves in bf16 with the handoff check off: the DC's prefill batch
+# and the edge's tail recompute run GEMMs of other shapes, and on these
+# random, near-tied logits a rounding can flip a greedy token.  The
+# agreement of the disaggregated run with the one-engine run is gated
+# instead: the share of requests whose first token agrees, and of all
+# tokens that agree position by position.  The first card reading was
+# 8/8 and 256/256 (PERF.md); the limits let one request's first token
+# flip, and two requests' tails (a flipped greedy token changes the rest
+# of its request: 32 of the 256 tokens)
+DIS_BF16_FIRST_AGREE = 7 / 8
+DIS_BF16_TOKEN_AGREE = 0.75
+
+
+def _p11(msg: str) -> None:
+    print(f"{msg} [{CARD}]", flush=True)
+
+
+def phase_bridge_flow() -> dict:
+    """11a: the paper's DNNTrainerFlow on the port's ``repro_torch.core``
+    at the paper's scale (``launch/remote_retrain_flow.run``: BraggNN at
+    its published width, PAPER_PEAKS patches a dataset, 300 steps for v1,
+    100 for the warm-started v2, A||T over 8 shards, E on PAPER_PEAKS
+    held-out patches).  B7's counts are zeroed just before and read just
+    after; each labelling call's launches are counted by wrapping the
+    launcher's ``label_for_braggnn``.  Returns B7's launches."""
+    import torch
+    from repro_torch.kernels import pseudo_voigt as pv
+    from repro_torch.launch import remote_retrain_flow as rrf
+    t0 = time.perf_counter()
+    inner = rrf.label_for_braggnn
+    calls = []
+
+    def counted(patches):
+        before = pv.launch_counts[pv.PV]
+        out = inner(patches)
+        calls.append(pv.launch_counts[pv.PV] - before)
+        return out
+
+    rrf.label_for_braggnn = counted
+    _zero_counts()
+    try:
+        res = rrf.run(steps=300, peaks=PAPER_PEAKS, device=DEVICE,
+                      log=lambda m: _p11(f"bridge flow: {m}"))
+    finally:
+        rrf.label_for_braggnn = inner
+    counts = _nonzero(_read_counts())
+    label_errs = [run.output["LabelData"]["result"]["label_err"]
+                  for run in (res["v1"], res["v2"])]
+    versions = [e.version_tag for e in res["system"].repo.versions("braggnn")]
+    err_px = res["edge"]["err_px"]
+    br = res["clock"]
+    ov = res["overlap"]
+    for tag in ("v1", "v2"):
+        run = res[tag]
+        _p11(f"bridge flow {tag}: status={run.status} turnaround_s="
+             f"{run.turnaround:.6f} " + " ".join(
+                 f"{e.state}={e.duration:.6f}" for e in run.log))
+    _p11(f"bridge flow: clock real_s={br['real']:.6f} modeled_s="
+         f"{br['modeled']:.6f} sim_s={br['sim']:.6f} total_s="
+         f"{br['total']:.6f}; A||T serial_s={ov['serial_s']:.6f} "
+         f"pipelined_s={ov['pipelined_s']:.6f} saving_s="
+         f"{ov['saving_s']:.6f}; cost model at {PAPER_PEAKS} peaks "
+         + " ".join(f"{k}_s={v:.6f}" for k, v in res["strategies"].items())
+         + f" vs the measured v1 turnaround {res['v1'].turnaround:.6f} s")
+    _p11(f"bridge flow: pseudo_voigt launches per labelling call {calls}, "
+         f"kernel_launches={json.dumps(counts)}, mean |label - truth| "
+         f"{label_errs} (limit 0.05), E mean |err| {err_px:.4f} px (limit "
+         f"0.5), repository {versions}; phase 11a: "
+         f"{time.perf_counter() - t0:.1f} s")
+    if not (len(calls) == 10 and calls[0] >= 1 and calls[1] >= 1
+            and calls[2:] == [1] * 8 and counts == {pv.PV: sum(calls)}):
+        raise AssertionError(f"B7 launches {calls}, {counts}: want >= 1 "
+                             "in each LabelData, 8 over A||T, none else")
+    if not all(e < 0.05 for e in label_errs) or not err_px < 0.5:
+        raise AssertionError(f"labels {label_errs} or E {err_px} px")
+    if versions != ["v1", "v2"]:
+        raise AssertionError(f"repository holds {versions}")
+    del res
+    torch.cuda.empty_cache()
+    return counts[pv.PV]
+
+
+def _dis_engine(api, params, **kw):
+    """A paged engine of phase 4's shape (8 lanes, 512 tokens, blocks of
+    16, the prefix cache on)."""
+    from repro_torch.serving.engine import PagedDecodeEngine
+    return PagedDecodeEngine(api, params, n_slots=8, cache_len=512,
+                             block_size=16, window=api.effective_window(512),
+                             device=DEVICE, **kw)
+
+
+def _count_steps(eng, tally: dict) -> None:
+    """Attribute every kernel launched inside ``eng.step`` to ``eng``."""
+    inner = eng.step
+
+    def step():
+        before = _read_counts()
+        out = inner()
+        for k, v in _read_counts().items():
+            tally[k] = tally.get(k, 0) + v - before.get(k, 0)
+        return out
+
+    eng.step = step
+
+
+def _nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def _same_bits(a, b) -> bool:
+    import torch
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.bfloat16:
+        a, b = a.view(torch.int16), b.view(torch.int16)
+    return torch.equal(a.cpu(), b.cpu())
+
+
+def _check_imports(dis, checked: list) -> None:
+    """Wrap the coordinator's export and import: right after each import,
+    every block the decode engine took must hold the exported block's
+    bytes, bit for bit (counted in ``checked``)."""
+    exported = {}
+    export, imp = dis.prefill.export_kv_prefix, dis.decode.import_kv_shipment
+
+    def export_and_keep(feed):
+        ship = export(feed)
+        exported.update({b.digest: b.payload for b in ship.blocks})
+        return ship
+
+    def import_and_check(ship):
+        stats = imp(ship)
+        for rec in ship.blocks:
+            if rec.payload is None:
+                continue
+            blk = dis.decode.kv.digest_block(rec.digest)
+            got = dis.decode._read_block_payload(blk)
+            want = exported[rec.digest]
+            if set(got) != set(want) or not all(
+                    _same_bits(got[p][n], want[p][n])
+                    for p in want for n in want[p]):
+                raise AssertionError(f"imported block {rec.digest[:12]} "
+                                     "differs from the exported one")
+            checked.append(rec.digest)
+        return stats
+
+    dis.prefill.export_kv_prefix = export_and_keep
+    dis.decode.import_kv_shipment = import_and_check
+
+
+def _one_engine_fleet(api, params, prompts, label):
+    """The fleet through one engine (all requests submitted at once), its
+    counts zeroed just before and read just after: (tokens by request,
+    wall s, engine)."""
+    import torch
+    eng = _dis_engine(api, params)
+    for p in prompts:
+        eng.submit(p, DIS_NEW)
+    _zero_counts()
+    _sync()
+    t0 = time.perf_counter()
+    done = eng.run_until_drained()
+    _sync()
+    wall = time.perf_counter() - t0
+    counts = _nonzero(_read_counts())
+    want = {"paged_attention_tiled": api.cfg.n_layers * eng.steps}
+    _p11(f"bridge [{label}] one engine: {len(done)} requests, {eng.steps} "
+         f"steps, wall_s={wall:.6f}, kernel_launches={json.dumps(counts)}")
+    if counts != want:
+        raise AssertionError(f"[{label}] one engine launched {counts} != "
+                             f"{want}")
+    return {r.request_id: list(r.generated) for r in done}, wall, eng
+
+
+def _disaggregated_fleet(api, params, prompts, label, base, base_wall,
+                         check_handoff: bool):
+    """The fleet through ``DisaggregatedEngine`` ("dc" and "edge" share
+    the weights): launches by engine (B1 only, layers x that engine's
+    steps), imported blocks bit for bit as exported, the shared system
+    prompt shipped once.  Returns (coordinator, token agreement with the
+    one-engine run: (first tokens, all tokens))."""
+    import torch
+    from repro_torch.serving.transfer import DisaggregatedEngine
+    dis = DisaggregatedEngine(_dis_engine(api, params),
+                              _dis_engine(api, params),
+                              check_handoff=check_handoff)
+    tallies = ({}, {})
+    _count_steps(dis.prefill, tallies[0])
+    _count_steps(dis.decode, tallies[1])
+    checked = []
+    _check_imports(dis, checked)
+    for p in prompts:
+        dis.submit(p, DIS_NEW)
+    _zero_counts()
+    _sync()
+    t0 = time.perf_counter()
+    done = dis.run_until_drained()
+    wall = time.perf_counter() - t0
+    counts = _nonzero(_read_counts())
+    got = {r.request_id: list(r.generated) for r in done}
+    first = sum(got[i][:1] == base[i][:1] for i in base) / len(base)
+    same = sum(a == b for i in base for a, b in zip(got[i], base[i]))
+    total = sum(len(base[i]) for i in base)
+    s = dis.stats()
+    _p11(f"bridge [{label}] disaggregated: wall_s={wall:.6f} "
+         f"first-token agreement {first:.4f}, tokens {same}/{total}, "
+         f"handoff check {'on' if check_handoff else 'off'}; dc steps "
+         f"{dis.prefill.steps} launches {json.dumps(_nonzero(tallies[0]))}, "
+         f"edge steps {dis.decode.steps} launches "
+         f"{json.dumps(_nonzero(tallies[1]))}; "
+         f"{len(checked)} imported blocks bit-exact")
+    _p11(f"bridge [{label}] stats: {json.dumps(s)}")
+    t_paper = dis.priced_turnaround(1.25e9)
+    t_fast = dis.priced_turnaround(12.5e9)
+    xo = dis.crossover_bandwidth(base_wall)
+    _p11(f"bridge [{label}] priced turnaround at 1.25 GB/s "
+         f"{json.dumps(t_paper)}, at 12.5 GB/s {json.dumps(t_fast)}; "
+         f"crossover bandwidth against the one-engine wall "
+         f"{base_wall:.6f} s: {xo if xo is None else f'{xo:.6g} B/s'}")
+    L = api.cfg.n_layers
+    for eng, tally, side in ((dis.prefill, tallies[0], "dc"),
+                             (dis.decode, tallies[1], "edge")):
+        want = {"paged_attention_tiled": L * eng.steps}
+        if _nonzero(tally) != want:
+            raise AssertionError(f"[{label}] {side} launched {tally} != "
+                                 f"{want}")
+    if counts != {"paged_attention_tiled": L * (dis.prefill.steps
+                                                + dis.decode.steps)}:
+        raise AssertionError(f"[{label}] launches outside the steps: "
+                             f"{counts}")
+    if not (len(done) == len(prompts) and checked
+            and len(checked) == s["blocks_imported"]
+            and s["blocks_dedup_skipped"] > 0
+            and s["bytes_shipped"] < s["bytes_naive"]):
+        raise AssertionError(f"[{label}] requests, imports or dedup: {s}")
+    return dis, (first, same / total)
+
+
+def _int8_round_trip(api, params, prompt) -> None:
+    """11d: an int8-pool shipment (k, v, k_scale, v_scale) serialized,
+    deserialized and imported into a second int8 engine, bit for bit."""
+    import torch
+    from repro_torch.serving.transfer import KVShipment
+    src, dst = (_dis_engine(api, params, cache_dtype=torch.int8)
+                for _ in range(2))
+    src.submit(prompt, 1)
+    _zero_counts()
+    src.run_until_drained()
+    counts = _nonzero(_read_counts())
+    if counts != {"paged_attention_tiled": api.cfg.n_layers * src.steps}:
+        raise AssertionError(f"int8 prefill launched {counts}")
+    ship = src.export_kv_prefix(prompt)
+    data = ship.serialize()
+    back = KVShipment.deserialize(data)
+    stats = dst.import_kv_shipment(back)
+    bad = 0
+    for rec in ship.blocks:
+        got = dst._read_block_payload(dst.kv.digest_block(rec.digest))
+        bad += sum(not _same_bits(got[p][n], rec.payload[p][n])
+                   for p in rec.payload for n in rec.payload[p])
+    names = sorted(ship.blocks[0].payload["scan"])
+    _p11(f"bridge int8: {ship.n_blocks} blocks, arrays {names}, "
+         f"{len(data)} wire bytes, import {json.dumps(stats)}, "
+         f"{bad} arrays differ")
+    if names != ["k", "k_scale", "v", "v_scale"] or bad or \
+            stats["imported"] != ship.n_blocks:
+        raise AssertionError("int8 shipment did not round-trip bit-exact")
+
+
+def phase_bridge_serving() -> None:
+    """11b-11d: gemma-7b through ``DisaggregatedEngine`` at full width.
+    11b: bf16, all 28 layers, the handoff check off, agreement with one
+    engine gated; 11d: int8 pools' shipment round trip on the same
+    weights; 11c: float32 cut to DIS_F32_LAYERS layers, the handoff check
+    on, every token the one-engine run's; then 11d's persistence: the
+    edge engine's snapshot loaded by a fresh engine, whose warm prompt
+    hits the cache with the one-engine tokens."""
+    import os
+    import tempfile
+    import torch
+    from repro_torch.launch.profile_serve import shared_prefix_fleet
+    t0 = time.perf_counter()
+    api, params = _init_full("gemma-7b")
+    # after the init, whose collection frees the last phase's weights
+    torch.cuda.reset_peak_memory_stats()
+    first, others = shared_prefix_fleet(api.cfg.vocab_size, SEED)
+    prompts = [first] + others
+    base, base_wall, _ = _one_engine_fleet(api, params, prompts, "bf16")
+    _, (agree1, agree) = _disaggregated_fleet(
+        api, params, prompts, "bf16", base, base_wall, check_handoff=False)
+    if agree1 < DIS_BF16_FIRST_AGREE or agree < DIS_BF16_TOKEN_AGREE:
+        raise AssertionError(f"bf16 agreement {agree1:.4f} / {agree:.4f} "
+                             f"below {DIS_BF16_FIRST_AGREE} / "
+                             f"{DIS_BF16_TOKEN_AGREE}")
+    _int8_round_trip(api, params, first)
+    _p11(f"phase 11b: {time.perf_counter() - t0:.1f} s, peak "
+         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del params
+    t0 = time.perf_counter()
+    api, params = _init_full("gemma-7b", "float32",
+                             n_layers=DIS_F32_LAYERS)
+    base, base_wall, _ = _one_engine_fleet(api, params, prompts, "f32")
+    dis, (agree1, agree) = _disaggregated_fleet(
+        api, params, prompts, "f32", base, base_wall, check_handoff=True)
+    if agree1 != 1.0 or agree != 1.0:
+        raise AssertionError("float32 disaggregated tokens differ from the "
+                             "one-engine run's")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "prefix.kvship")
+        nbytes = dis.decode.save_prefix_cache(path)
+        fresh = _dis_engine(api, params)
+        loaded = fresh.load_prefix_cache(path)
+    fresh.submit(first, DIS_NEW)
+    _zero_counts()
+    warm = list(fresh.run_until_drained()[0].generated)
+    counts = _nonzero(_read_counts())
+    s = fresh.stats()
+    _p11(f"bridge persistence: snapshot {nbytes} B, loaded "
+         f"{json.dumps(loaded)}, warm prompt prefix_hits="
+         f"{s['prefix_hits']} prefix_tokens_reused="
+         f"{s['prefix_tokens_reused']}, tokens as the one-engine run: "
+         f"{warm == base[0]}")
+    if not (s["prefix_hits"] > 0 and warm == base[0]) or counts != {
+            "paged_attention_tiled": api.cfg.n_layers * fresh.steps}:
+        raise AssertionError("the restarted engine missed its cache, "
+                             f"changed the tokens or launched {counts}")
+    del dis, fresh, params
+    torch.cuda.empty_cache()
+    _p11(f"phase 11c-d: {time.perf_counter() - t0:.1f} s")
+
+
 # each kernel, its source in csrc/ on the main path (bf16: the flash
 # kernels', the three paged reads' and the two scans' tensor-core sources)
 # and the TPU kernel it replaces
@@ -2299,6 +2665,8 @@ def main() -> None:
                          text=True, timeout=60, check=True)
     card = smi.stdout.strip().splitlines()[0]
     print(card, flush=True)
+    global CARD
+    CARD = card
     kind = torch.cuda.get_device_name(0)
     print(f"device: torch={torch.__version__} cuda={torch.version.cuda} "
           f"name={kind} count={torch.cuda.device_count()}", flush=True)
@@ -2322,7 +2690,7 @@ def main() -> None:
     api = build_model(cfg)
     t0 = time.perf_counter()
     params = api.init(seed=SEED, device="cuda", dtype=torch.bfloat16)
-    torch.cuda.synchronize()
+    _sync()
     n_params = sum(t.numel() for t in _leaves(params))
     print(f"init: gemma-7b {n_params / 1e9:.3f} B params bf16 in "
           f"{time.perf_counter() - t0:.1f} s, "
@@ -2363,6 +2731,12 @@ def main() -> None:
     phase_moe()
     phase_vlm()
     phase_command_r()
+
+    # 11. the data-center/edge bridge: the paper's flow on the port's
+    # repro_torch.core, then gemma-7b through DisaggregatedEngine
+    torch.cuda.empty_cache()
+    phase_bridge_flow()
+    phase_bridge_serving()
 
     # each kernel's numbers at its main path's shapes
     numbers = {name: c["gemma-7b bf16"] for name, c in checks.items()}

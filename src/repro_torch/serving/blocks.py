@@ -146,9 +146,8 @@ def chain_digest(parent: str, tokens: Sequence[int]) -> str:
     digest iff they share every token from position 0.  Pure function of
     the token ids (sha256 over little-endian int64 bytes), so digests are
     stable across processes and hosts: the prefix cache, the KV-block
-    wire format (the reference's ``serving/transfer.py``; ROADMAP A5),
-    and the on-disk prefix-cache persistence format all key on the same
-    value.
+    wire format (``serving/transfer.py``) and the on-disk prefix-cache
+    persistence format all key on the same value.
     """
     h = hashlib.sha256()
     h.update(parent.encode())
@@ -374,7 +373,7 @@ class KVCacheManager:
         return len(sources) * self.block_size
 
     # ------------------------------------------------------------------
-    # transfer / persistence hooks (the engine side is ROADMAP A5)
+    # transfer / persistence hooks (the engine's KV export and import)
     # ------------------------------------------------------------------
     def has_digest(self, digest: str) -> bool:
         """True when a full block with this chain digest is cached."""
@@ -418,7 +417,7 @@ class KVCacheManager:
         parent was LRU-evicted exports as an orphan that simply never
         matches on the importing side (harmless dead weight, evicted there
         in turn).  This is the prefix-cache persistence path: serialize
-        the result as a ``KVShipment`` (ROADMAP A5) and the
+        the result as a ``KVShipment`` (``serving/transfer.py``) and the
         wire format doubles as the on-disk format.
         """
         out: List[Tuple[str, str, int, List[int]]] = []

@@ -20,9 +20,16 @@ pools are updated in place (the reference donates them to a jitted step),
 CoW copies are one gather-scatter per pool leaf, and each step reads back
 its greedy tokens with a single device-to-host copy.
 
-Left for later slices, each raising ``NotImplementedError``: ``mesh=`` and
-:class:`ShardedDecodeEngine` (ROADMAP A9), and the KV transfer and
-prefix-cache persistence methods (A5).
+KV transfer and prefix-cache persistence (``export_kv_prefix``,
+``import_kv_shipment``, ``save_prefix_cache``, ``load_prefix_cache``) speak
+the reference's wire format (``serving/transfer.py``).  A block's payload
+takes the reference's pool layout: the port keeps every layer in one
+``"scan"`` pool, and an MoE config's dense first layers (the reference's
+``"head"`` pools) are split off it on the way out and merged back on the
+way in, so shipments and snapshots cross between the packages.
+
+Left for a later slice, raising ``NotImplementedError``: ``mesh=`` and
+:class:`ShardedDecodeEngine` (ROADMAP A9).
 """
 from __future__ import annotations
 
@@ -40,6 +47,9 @@ from repro_torch.serving.blocks import KVCacheManager
 from repro_torch.serving.scheduler import (Request, RequestState, Scheduler,
                                            SchedulerConfig, StepDecision)
 from repro_torch.serving.spec import NgramProposer, Proposer
+from repro_torch.serving.transfer import (KVBlockRecord, KVShipment,
+                                          TransferIntegrityError,
+                                          payload_checksum)
 
 
 def _emit_token(engine, req: "Request", tok: int) -> bool:
@@ -212,6 +222,9 @@ class PagedDecodeEngine:
         self.host_swap_outs = 0
         self.host_swap_ins = 0
         self.host_swap_drops = 0
+        # digests mid-import whose payload write has not landed yet: the
+        # swap-out hook must not capture their unwritten device bytes
+        self._swap_quarantine: set = set()
         if self.host_swap:
             self.kv.host_has = self._host_tier.__contains__
             self.kv.on_swap_out = self._swap_out_block
@@ -226,6 +239,10 @@ class PagedDecodeEngine:
         self.clock = None
         self.set_clock(clock)
         self.on_token = None
+        # the reference keeps an MoE config's dense first layers in their
+        # own "head" pools; the port's pool holds them as layers 0..n-1
+        moe_cfg = getattr(model_api.cfg, "moe", None)
+        self._n_head = moe_cfg.first_dense_layers if moe_cfg else 0
         self.cache = model_api.init_paged_cache(
             n_slots, num_blocks=num_blocks, block_size=block_size,
             max_blocks_per_lane=self.max_blocks,
@@ -498,33 +515,59 @@ class PagedDecodeEngine:
     # ------------------------------------------------------------------
     def _read_block_payload(self, blk: int) -> Dict:
         """One physical block's slice of every pool leaf, copied into CPU
-        tensors (``part -> {"k", "v", ...}``, each (L, bs, Hkv[, D]))."""
-        return {"scan": {name: arr[:, blk].to("cpu", copy=True)
-                         for name, arr in self.cache["scan"].items()}}
+        tensors in the reference's pool layout (``part -> {"k", "v",
+        ...}``, each (layers, bs, Hkv[, D])): ``"scan"``, and ``"head"``
+        for the dense first layers of an MoE config."""
+        out = {"scan": {name: arr[self._n_head:, blk].to("cpu", copy=True)
+                        for name, arr in self.cache["scan"].items()}}
+        if self._n_head:
+            out["head"] = {name: arr[:self._n_head, blk].to("cpu",
+                                                              copy=True)
+                           for name, arr in self.cache["scan"].items()}
+        return out
 
     def _write_block_payloads(self, blocks: List[int],
                               payloads: List[Dict]) -> None:
-        """Scatter host block payloads into the device pools at
+        """Scatter host block payloads (the reference's pool layout, as
+        ``_read_block_payload`` gives it) into the device pools at
         ``blocks`` (block axis 1 of every pool leaf)."""
+        pools = self.cache["scan"]
+        parts = ("head", "scan") if self._n_head else ("scan",)
         idx = torch.tensor(blocks, device=self.device)
-        for name, arr in self.cache["scan"].items():
-            want = arr.shape[:1] + arr.shape[2:]
+        for part in parts:
             for p in payloads:
-                if p["scan"][name].shape != want:
+                if part not in p or set(p[part]) != set(pools):
                     raise ValueError(
-                        f"payload KV geometry mismatch on 'scan/{name}': "
-                        f"got {tuple(p['scan'][name].shape)}, engine pool "
-                        f"expects {tuple(want)}")
-            stack = torch.stack([p["scan"][name] for p in payloads], dim=1)
+                        f"payload pool-name mismatch on '{part}': got "
+                        f"{sorted(p.get(part, {}))}, engine pools are "
+                        f"{sorted(pools)} (fp and int8 pools do not mix)")
+        for name, arr in pools.items():
+            rows = []
+            for p in payloads:
+                got = [p[part][name] for part in parts]
+                for part, t in zip(parts, got):
+                    n = self._n_head if part == "head" \
+                        else arr.shape[0] - self._n_head
+                    want = (n,) + tuple(arr.shape[2:])
+                    if tuple(t.shape) != want:
+                        raise ValueError(
+                            f"payload KV geometry mismatch on "
+                            f"'{part}/{name}': got {tuple(t.shape)}, "
+                            f"engine pool expects {want}")
+                rows.append(got[0] if len(got) == 1 else torch.cat(got))
+            stack = torch.stack(rows, dim=1)
             arr[:, idx] = stack.to(device=self.device, dtype=arr.dtype)
 
     def _swap_out_block(self, digest: str, blk: int, parent: str,
                         tokens) -> None:
         """Eviction hook: park an evicted registered block's payload in
         the host tier (skipping digests it already holds: full blocks are
-        immutable once registered)."""
+        immutable once registered; and digests mid-import, whose payload
+        write is still pending)."""
         if digest in self._host_tier:
             self._host_tier.move_to_end(digest)
+            return
+        if digest in self._swap_quarantine:
             return
         self._host_tier[digest] = {"parent": parent,
                                    "tokens": tuple(int(t) for t in tokens),
@@ -553,27 +596,119 @@ class PagedDecodeEngine:
         self.host_swap_ins += len(blocks)
 
     # ------------------------------------------------------------------
-    # KV transfer / persistence: ROADMAP A5
+    # KV transfer / persistence (see repro_torch.serving.transfer)
     # ------------------------------------------------------------------
     def cached_digests(self) -> frozenset:
-        """Chain digests of every full block the prefix cache holds."""
+        """Chain digests of every full block the prefix cache holds — the
+        receiver-side set a sender dedups shipments against."""
         return self.kv.cached_digests()
 
-    def export_kv_prefix(self, feed):
-        """KV shipment export (reference ``serving/transfer.py``)."""
-        raise _not_ported("export_kv_prefix", "A5")
+    def _records(self, chain) -> List:
+        """``KVBlockRecord``s of ``(digest, parent, block, tokens)``
+        tuples, each with its pool payload and checksum."""
+        out = []
+        for digest, parent, blk, tokens in chain:
+            payload = self._read_block_payload(blk)
+            out.append(KVBlockRecord(
+                digest=digest, parent=parent, tokens=tokens,
+                payload=payload, checksum=payload_checksum(payload)))
+        return out
 
-    def import_kv_shipment(self, shipment):
-        """KV shipment import (reference ``serving/transfer.py``)."""
-        raise _not_ported("import_kv_shipment", "A5")
+    def export_kv_prefix(self, feed: np.ndarray):
+        """Package the cached KV prefix of ``feed`` as a
+        :class:`~repro_torch.serving.transfer.KVShipment`.
 
-    def save_prefix_cache(self, path: str):
-        """Prefix-cache persistence in the wire format."""
-        raise _not_ported("save_prefix_cache", "A5")
+        Exports the longest chain of cached full blocks covering the
+        feed's prefix — each with its KV payload (CPU tensors) and
+        checksum — plus the remaining tokens as the payload-free partial
+        tail.  The usual source is a just-prefilled prompt (every full
+        block was registered as prefill completed it, and registrations
+        survive the sequence's ``free`` via the cache's own hold).
+        """
+        chain = self.kv.export_chain(feed)
+        covered = len(chain) * self.block_size
+        return KVShipment(block_size=self.block_size,
+                          blocks=self._records(chain),
+                          partial_tokens=[int(t) for t in feed[covered:]])
 
-    def load_prefix_cache(self, path: str):
-        """Prefix-cache restore from the wire format."""
-        raise _not_ported("load_prefix_cache", "A5")
+    def import_kv_shipment(self, shipment) -> Dict[str, int]:
+        """Attach a (verified) shipment's blocks to this engine's cache.
+
+        Each block is registered with the prefix cache under its chain
+        digest and its payload written into the device KV pools (one
+        batched write), so the next ``submit`` of the matching prompt
+        attaches the chain as an ordinary prefix hit.  Blocks already
+        cached are skipped (the dedup contract: a stripped payload must be
+        one of these — anything else raises
+        :class:`~repro_torch.serving.transfer.TransferIntegrityError`).
+        Imported blocks are immediately evictable; when the pool has no
+        room the rest of the chain is dropped (counted, not fatal — the
+        decode side recomputes more).  Returns ``{"imported",
+        "dedup_skipped", "dropped_no_space", "tokens_attachable"}``.
+        """
+        if shipment.block_size != self.block_size:
+            raise ValueError(
+                f"shipment block_size {shipment.block_size} != engine "
+                f"block_size {self.block_size}")
+        imported: List[Tuple[str, int]] = []
+        payloads: List[Dict] = []
+        skipped = dropped = 0
+        try:
+            for rec in shipment.blocks:
+                if self.kv.has_digest(rec.digest):
+                    skipped += 1
+                    continue
+                if rec.payload is None:
+                    raise TransferIntegrityError(
+                        f"block {rec.digest[:12]} arrived without a payload "
+                        "but is not in this engine's cache — dedup stripped "
+                        "a block the receiver does not hold")
+                self._swap_quarantine.add(rec.digest)
+                try:
+                    blk = self.kv.import_block(rec.parent, rec.tokens,
+                                               digest=rec.digest)
+                except RuntimeError:
+                    # pool full of live sequences: drop the chain's tail
+                    dropped = sum(1 for b in shipment.blocks
+                                  if not self.kv.has_digest(b.digest))
+                    break
+                if blk is not None:
+                    imported.append((rec.digest, blk))
+                    payloads.append(rec.payload)
+            # importing can itself evict an earlier import of this very
+            # shipment (and recycle its block): write only payloads whose
+            # registration survived, into their still-registered blocks
+            live = [(b, p) for (d, b), p in zip(imported, payloads)
+                    if self.kv.digest_block(d) == b]
+            if live:
+                self._write_block_payloads([b for b, _ in live],
+                                           [p for _, p in live])
+        finally:
+            for rec in shipment.blocks:
+                self._swap_quarantine.discard(rec.digest)
+        return {"imported": len(imported), "dedup_skipped": skipped,
+                "dropped_no_space": dropped,
+                "tokens_attachable": (len(imported) + skipped)
+                * self.block_size}
+
+    def save_prefix_cache(self, path: str) -> int:
+        """Persist every cached full block to ``path`` in the wire format
+        and return the bytes written; a restarted engine (of either
+        package) reloads it with ``load_prefix_cache``."""
+        data = KVShipment(block_size=self.block_size,
+                          blocks=self._records(self.kv.export_all_cached()),
+                          partial_tokens=[]).serialize()
+        with open(path, "wb") as f:
+            f.write(data)
+        return len(data)
+
+    def load_prefix_cache(self, path: str) -> Dict[str, int]:
+        """Restore a ``save_prefix_cache`` snapshot (verifying every
+        checksum and chain digest) into this engine's prefix cache.
+        Returns the :meth:`import_kv_shipment` stats."""
+        with open(path, "rb") as f:
+            data = f.read()
+        return self.import_kv_shipment(KVShipment.deserialize(data))
 
     # ------------------------------------------------------------------
     def stats(self) -> Dict[str, float]:

@@ -190,10 +190,12 @@ def test_int8_pools_serve(model, layout):
     assert eng.cache["scan"]["k"].dtype == torch.int8
 
 
-def test_facade_and_unported_options(model):
+def test_facade_and_unported_options(model, tmp_path):
     """The facade picks the paged engine; ``mesh=``, which a later slice
-    ports, raises ``NotImplementedError``, as do the KV transfer and
-    persistence methods; a mismatched compute dtype raises."""
+    ports, raises ``NotImplementedError``; the KV transfer and persistence
+    methods are ported (``tests/test_torch_kv_transfer.py`` holds them to
+    the reference): on an empty cache they export only the partial tail
+    and snapshot nothing; a mismatched compute dtype raises."""
     arch, _, _, api, tparams = model
     kw = dict(n_slots=2, cache_len=32, **PORT)
     assert isinstance(DecodeEngine(api, tparams, **kw), PagedDecodeEngine)
@@ -204,12 +206,12 @@ def test_facade_and_unported_options(model):
     with pytest.raises(NotImplementedError):
         DecodeEngine(api, tparams, mesh=object(), **kw)
     eng = PagedDecodeEngine(api, tparams, **kw)
-    for call in (lambda: eng.export_kv_prefix(np.zeros(4, np.int32)),
-                 lambda: eng.import_kv_shipment(None),
-                 lambda: eng.save_prefix_cache("x"),
-                 lambda: eng.load_prefix_cache("x")):
-        with pytest.raises(NotImplementedError):
-            call()
+    ship = eng.export_kv_prefix(np.arange(4, dtype=np.int32))
+    assert (ship.n_blocks, ship.partial_tokens) == (0, [0, 1, 2, 3])
+    assert eng.import_kv_shipment(ship)["imported"] == 0
+    path = str(tmp_path / "prefix.kvship")
+    assert eng.save_prefix_cache(path) > 0
+    assert eng.load_prefix_cache(path)["imported"] == 0
     with pytest.raises(ValueError):
         PagedDecodeEngine(api, tparams, compute_dtype=torch.bfloat16, **kw)
 

@@ -22,7 +22,13 @@ def _port_modules():
 
 def test_importing_every_port_module_loads_no_jax_and_no_repro():
     mods = _port_modules()
-    assert "repro_torch.serving.engine" in mods
+    for name in ("serving.engine", "serving.transfer", "core",
+                 "core.actions", "core.auth", "core.costmodel",
+                 "core.facility", "core.flows", "core.funcx",
+                 "core.pipeline_flow", "core.registry", "core.simclock",
+                 "core.system", "core.transfer",
+                 "launch.remote_retrain_flow", "launch.edge_serving"):
+        assert f"repro_torch.{name}" in mods, name
     code = ("import sys\n"
             f"for m in {mods!r}:\n"
             "    __import__(m)\n"
@@ -60,8 +66,9 @@ def test_source_imports_no_jax_and_no_repro(path):
 
 def test_default_device_is_the_card():
     """Built with the default device on a machine without CUDA, the
-    engines, the model inits and the caches (dense, zamba2 and xLSTM)
-    raise instead of running on the CPU."""
+    engines, the model inits and the caches (dense, zamba2 and xLSTM) and
+    the launchers of the paper's workflow and of edge serving raise
+    instead of running on the CPU."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device works")
     from repro_torch.configs import get_config
@@ -87,6 +94,14 @@ def test_default_device_is_the_card():
         params = api.init(seed=0, device="cpu", dtype=torch.float32)
         with pytest.raises(RuntimeError, match="CUDA"):
             DecodeEngine(api, params, n_slots=2, cache_len=16)
+    # the launchers of the workflow (repro_torch.core) and of edge serving
+    # (repro_torch.serving.transfer)
+    from repro_torch.launch import edge_serving, remote_retrain_flow
+    with pytest.raises(RuntimeError, match="CUDA"):
+        remote_retrain_flow.run(steps=1, peaks=128)
+    for launcher in (remote_retrain_flow, edge_serving):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            launcher.main([])
 
 
 def test_kernel_build_needs_nvcc_and_is_keyed_by_source(monkeypatch,

@@ -370,14 +370,37 @@ def test_quickstart_runs_on_cpu():
     assert "step  150 loss" in out.stdout
 
 
-def test_port_trains_braggnn_inside_the_papers_workflow():
-    """The paper's DNNTrainerFlow (the unchanged ``repro.core``) with the
-    port doing T: the edge labels new data through the port's A op, the
-    flow ships it to the data center, the registered port function trains
-    BraggNN there, and the model comes back to the edge repository."""
-    pytest.importorskip("jax")
-    from repro.core import build_system, dnn_trainer_flow
-    from repro.core.transfer import FileRef
+def test_remote_retrain_flow_runs_on_cpu():
+    """The twin of ``examples/remote_retrain_flow.py`` on the port's own
+    ``repro_torch.core``: two DNNTrainerFlow runs with labeling (the second
+    warm-started from the repository), A||T over 8 shards, edge serving."""
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.remote_retrain_flow",
+         "--device", "cpu", "--steps", "20", "--peaks", "2048"], cwd=ROOT,
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
+        capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-2000:]
+    lines = out.stdout.splitlines()
+    assert lines[-1] == "remote_retrain_flow OK"
+    assert "flow v1: status=SUCCEEDED" in out.stdout
+    assert "flow v2: status=SUCCEEDED" in out.stdout
+    assert "A||T over 8 shards" in out.stdout
+    assert sum(line.strip().startswith("LabelData") for line in lines) == 2
+
+
+@pytest.mark.parametrize("core", ["repro.core", "repro_torch.core"])
+def test_port_trains_braggnn_inside_the_papers_workflow(core):
+    """The paper's DNNTrainerFlow (the unchanged ``repro.core``, and the
+    port's own copy) with the port doing T: the edge labels new data
+    through the port's A op, the flow ships it to the data center, the
+    registered port function trains BraggNN there, and the model comes
+    back to the edge repository."""
+    if core == "repro.core":
+        pytest.importorskip("jax")
+    import importlib
+    build_system = importlib.import_module(core).build_system
+    dnn_trainer_flow = importlib.import_module(core).dnn_trainer_flow
+    FileRef = importlib.import_module(f"{core}.transfer").FileRef
     from repro_torch.analysis import label_for_braggnn
 
     sys_ = build_system()
