@@ -143,7 +143,39 @@ printing its own line(s):
    one-engine run's; (d) the edge engine's prefix-cache snapshot loaded
    by a fresh engine, whose warm prompt must hit the cache with the
    one-engine tokens, and an int8-pool shipment round trip (k, v and
-   their scales), bit for bit.
+   their scales), bit for bit;
+12. the paper's second DNN, the online frontend and the crossover
+   analysis, each line tagged with the card's name and power limit: (a)
+   CookieNetAE through the paper's Table-1 flow
+   (``launch/remote_retrain_flow.run_cookienetae``) in float32, TF32 off:
+   COOKIE_SHOTS CookieBox shots simulated on the card (the reference's
+   3.2 GB dataset) and collected at the edge as 10 files, TransferData,
+   TrainModel (CookieNetAE at its published width, 300 ``adam(1e-3)``
+   steps at batch 64), TransferModel (1.4 MB), RegisterModel as v1: the
+   run must succeed, the repository hold v1, the last loss be at most 0.8
+   of the first, the MSE on COOKIE_HELD held-out shots be below the
+   untrained model's, and the trained forward on the card match the CPU's
+   (relative 2-norm 1e-5); each state's charged seconds, the clock's
+   split, T's ms a step, S's shots/s and the forward's ms a batch of 64
+   are printed; (b) ``serving/frontend.py`` on phase 11's gemma-7b
+   weights and fleet: 11b's one-engine drain gives the wall W and the
+   capacity C = 8 / W; ``run_open_loop`` on a SimClock with the fleet
+   arriving at seeded exponential gaps at FE_LOAD C (every request ok,
+   goodput 1.0, tokens as the drain's within 11b's bf16 agreement
+   limits); the fleet at t = 0 on one lane with a TTFT target of
+   FE_OVERLOAD_TTFT and the first request cancelled by the harness (shed
+   and cancels balance the books, nothing left on the engine); 8
+   ``AsyncEngine.stream`` consumers in one asyncio loop, one of which
+   disconnects after FE_DISCONNECT_AFTER tokens (one cancel, the
+   survivors' streams equal their requests' tokens, the disconnected one
+   a prefix of its own, no block left); ``bench_serving``'s leak probe at
+   full width (every tier empty); every run through B1 only, layers x
+   steps; then on 11c's float32 weights (DIS_F32_LAYERS layers) the
+   light load and the streams, token-identical to 11c's drain; offered
+   and goodput rps, TTFT p50/p95 (virtual s), makespan, steps, wall and
+   peak memory are printed; (c) ``launch/crossover_analysis.run`` on the
+   card: its three tables, and stage 2's split token-identical to one
+   engine.
 
 Then one JSON line of per-kernel numbers, and last
 ``{"ok": true, "device": {...}}``.  Any failed phase raises, so the run
@@ -2292,7 +2324,7 @@ def phase_command_r() -> dict:
 # phase 11: the data-center/edge bridge
 # ---------------------------------------------------------------------------
 # the card as nvidia-smi names it (name, power limit), set by main; every
-# phase-11 line carries it
+# line of phases 11 and 12 carries it
 CARD = ""
 DIS_NEW = 32                  # new tokens a request (phase 4's fleet)
 DIS_F32_LAYERS = 4            # 11c: float32 at full width, depth cut
@@ -2309,7 +2341,7 @@ DIS_BF16_FIRST_AGREE = 7 / 8
 DIS_BF16_TOKEN_AGREE = 0.75
 
 
-def _p11(msg: str) -> None:
+def _tag(msg: str) -> None:
     print(f"{msg} [{CARD}]", flush=True)
 
 
@@ -2338,7 +2370,7 @@ def phase_bridge_flow() -> dict:
     _zero_counts()
     try:
         res = rrf.run(steps=300, peaks=PAPER_PEAKS, device=DEVICE,
-                      log=lambda m: _p11(f"bridge flow: {m}"))
+                      log=lambda m: _tag(f"bridge flow: {m}"))
     finally:
         rrf.label_for_braggnn = inner
     counts = _nonzero(_read_counts())
@@ -2350,17 +2382,17 @@ def phase_bridge_flow() -> dict:
     ov = res["overlap"]
     for tag in ("v1", "v2"):
         run = res[tag]
-        _p11(f"bridge flow {tag}: status={run.status} turnaround_s="
+        _tag(f"bridge flow {tag}: status={run.status} turnaround_s="
              f"{run.turnaround:.6f} " + " ".join(
                  f"{e.state}={e.duration:.6f}" for e in run.log))
-    _p11(f"bridge flow: clock real_s={br['real']:.6f} modeled_s="
+    _tag(f"bridge flow: clock real_s={br['real']:.6f} modeled_s="
          f"{br['modeled']:.6f} sim_s={br['sim']:.6f} total_s="
          f"{br['total']:.6f}; A||T serial_s={ov['serial_s']:.6f} "
          f"pipelined_s={ov['pipelined_s']:.6f} saving_s="
          f"{ov['saving_s']:.6f}; cost model at {PAPER_PEAKS} peaks "
          + " ".join(f"{k}_s={v:.6f}" for k, v in res["strategies"].items())
          + f" vs the measured v1 turnaround {res['v1'].turnaround:.6f} s")
-    _p11(f"bridge flow: pseudo_voigt launches per labelling call {calls}, "
+    _tag(f"bridge flow: pseudo_voigt launches per labelling call {calls}, "
          f"kernel_launches={json.dumps(counts)}, mean |label - truth| "
          f"{label_errs} (limit 0.05), E mean |err| {err_px:.4f} px (limit "
          f"0.5), repository {versions}; phase 11a: "
@@ -2462,7 +2494,7 @@ def _one_engine_fleet(api, params, prompts, label):
     wall = time.perf_counter() - t0
     counts = _nonzero(_read_counts())
     want = {"paged_attention_tiled": api.cfg.n_layers * eng.steps}
-    _p11(f"bridge [{label}] one engine: {len(done)} requests, {eng.steps} "
+    _tag(f"bridge [{label}] one engine: {len(done)} requests, {eng.steps} "
          f"steps, wall_s={wall:.6f}, kernel_launches={json.dumps(counts)}")
     if counts != want:
         raise AssertionError(f"[{label}] one engine launched {counts} != "
@@ -2500,18 +2532,18 @@ def _disaggregated_fleet(api, params, prompts, label, base, base_wall,
     same = sum(a == b for i in base for a, b in zip(got[i], base[i]))
     total = sum(len(base[i]) for i in base)
     s = dis.stats()
-    _p11(f"bridge [{label}] disaggregated: wall_s={wall:.6f} "
+    _tag(f"bridge [{label}] disaggregated: wall_s={wall:.6f} "
          f"first-token agreement {first:.4f}, tokens {same}/{total}, "
          f"handoff check {'on' if check_handoff else 'off'}; dc steps "
          f"{dis.prefill.steps} launches {json.dumps(_nonzero(tallies[0]))}, "
          f"edge steps {dis.decode.steps} launches "
          f"{json.dumps(_nonzero(tallies[1]))}; "
          f"{len(checked)} imported blocks bit-exact")
-    _p11(f"bridge [{label}] stats: {json.dumps(s)}")
+    _tag(f"bridge [{label}] stats: {json.dumps(s)}")
     t_paper = dis.priced_turnaround(1.25e9)
     t_fast = dis.priced_turnaround(12.5e9)
     xo = dis.crossover_bandwidth(base_wall)
-    _p11(f"bridge [{label}] priced turnaround at 1.25 GB/s "
+    _tag(f"bridge [{label}] priced turnaround at 1.25 GB/s "
          f"{json.dumps(t_paper)}, at 12.5 GB/s {json.dumps(t_fast)}; "
          f"crossover bandwidth against the one-engine wall "
          f"{base_wall:.6f} s: {xo if xo is None else f'{xo:.6g} B/s'}")
@@ -2557,7 +2589,7 @@ def _int8_round_trip(api, params, prompt) -> None:
         bad += sum(not _same_bits(got[p][n], rec.payload[p][n])
                    for p in rec.payload for n in rec.payload[p])
     names = sorted(ship.blocks[0].payload["scan"])
-    _p11(f"bridge int8: {ship.n_blocks} blocks, arrays {names}, "
+    _tag(f"bridge int8: {ship.n_blocks} blocks, arrays {names}, "
          f"{len(data)} wire bytes, import {json.dumps(stats)}, "
          f"{bad} arrays differ")
     if names != ["k", "k_scale", "v", "v_scale"] or bad or \
@@ -2565,16 +2597,13 @@ def _int8_round_trip(api, params, prompt) -> None:
         raise AssertionError("int8 shipment did not round-trip bit-exact")
 
 
-def phase_bridge_serving() -> None:
-    """11b-11d: gemma-7b through ``DisaggregatedEngine`` at full width.
-    11b: bf16, all 28 layers, the handoff check off, agreement with one
-    engine gated; 11d: int8 pools' shipment round trip on the same
-    weights; 11c: float32 cut to DIS_F32_LAYERS layers, the handoff check
-    on, every token the one-engine run's; then 11d's persistence: the
-    edge engine's snapshot loaded by a fresh engine, whose warm prompt
-    hits the cache with the one-engine tokens."""
-    import os
-    import tempfile
+def phase_bridge_bf16() -> tuple:
+    """11b and 11d's int8 shipment: gemma-7b through
+    ``DisaggregatedEngine`` at full width in bf16, all 28 layers, the
+    handoff check off, agreement with one engine gated; then int8 pools'
+    shipment round trip on the same weights.  Returns (api, params, the
+    fleet's prompts, the one-engine run's tokens by request, its wall),
+    which phase 12b serves on."""
     import torch
     from repro_torch.launch.profile_serve import shared_prefix_fleet
     t0 = time.perf_counter()
@@ -2591,12 +2620,26 @@ def phase_bridge_serving() -> None:
                              f"below {DIS_BF16_FIRST_AGREE} / "
                              f"{DIS_BF16_TOKEN_AGREE}")
     _int8_round_trip(api, params, first)
-    _p11(f"phase 11b: {time.perf_counter() - t0:.1f} s, peak "
+    _tag(f"phase 11b: {time.perf_counter() - t0:.1f} s, peak "
          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    del params
+    return api, params, prompts, base, base_wall
+
+
+def phase_bridge_f32() -> tuple:
+    """11c and 11d's persistence: the same in float32 cut to
+    DIS_F32_LAYERS layers, the handoff check on, every token the
+    one-engine run's; then the edge engine's snapshot loaded by a fresh
+    engine, whose warm prompt hits the cache with the one-engine tokens.
+    Returns what :func:`phase_bridge_bf16` does."""
+    import os
+    import tempfile
+    import torch
+    from repro_torch.launch.profile_serve import shared_prefix_fleet
     t0 = time.perf_counter()
     api, params = _init_full("gemma-7b", "float32",
                              n_layers=DIS_F32_LAYERS)
+    first, others = shared_prefix_fleet(api.cfg.vocab_size, SEED)
+    prompts = [first] + others
     base, base_wall, _ = _one_engine_fleet(api, params, prompts, "f32")
     dis, (agree1, agree) = _disaggregated_fleet(
         api, params, prompts, "f32", base, base_wall, check_handoff=True)
@@ -2613,7 +2656,7 @@ def phase_bridge_serving() -> None:
     warm = list(fresh.run_until_drained()[0].generated)
     counts = _nonzero(_read_counts())
     s = fresh.stats()
-    _p11(f"bridge persistence: snapshot {nbytes} B, loaded "
+    _tag(f"bridge persistence: snapshot {nbytes} B, loaded "
          f"{json.dumps(loaded)}, warm prompt prefix_hits="
          f"{s['prefix_hits']} prefix_tokens_reused="
          f"{s['prefix_tokens_reused']}, tokens as the one-engine run: "
@@ -2622,9 +2665,390 @@ def phase_bridge_serving() -> None:
             "paged_attention_tiled": api.cfg.n_layers * fresh.steps}:
         raise AssertionError("the restarted engine missed its cache, "
                              f"changed the tokens or launched {counts}")
-    del dis, fresh, params
+    del dis, fresh
     torch.cuda.empty_cache()
-    _p11(f"phase 11c-d: {time.perf_counter() - t0:.1f} s")
+    _tag(f"phase 11c-d: {time.perf_counter() - t0:.1f} s")
+    return api, params, prompts, base, base_wall
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the paper's second DNN and the online frontend
+# ---------------------------------------------------------------------------
+# the reference's CookieNetAE dataset, DATASET_BYTES["cookienetae"] =
+# 3.2 GB (benchmarks/bench_table1.py), at 16,384 B a shot (a 16 x 128
+# float32 image and its pdf)
+COOKIE_SHOTS = 195_312
+COOKIE_HELD = 8_192           # held-out shots for the MSE gate
+COOKIE_BATCH = 64
+# the trained weights' forward on the card against the same forward on
+# the CPU, both float32 without TF32: relative 2-norm
+COOKIE_CARD_CPU_REL_L2 = 1e-5
+FE_LOAD = 0.25                # light load, a share of the capacity C
+# the overload's TTFT target: far below one step (~40 ms at full width),
+# but above the ~0.1 ms from a step's start to its admission, so the
+# first request is admitted (and then cancelled by the harness) and
+# every other one is shed once it has waited a step
+FE_OVERLOAD_TTFT = 1e-3
+FE_CANCEL_AFTER = 1e-6        # the overload's first request: cancelled
+FE_DISCONNECT, FE_DISCONNECT_AFTER = 3, 4   # the consumer, its tokens
+FE_WAIT_S = 120               # every wait on the step thread
+
+
+def phase_cookienetae() -> None:
+    """12a: CookieNetAE through the paper's Table-1 flow on the card, in
+    float32 (``remote_retrain_flow.run_cookienetae``): COOKIE_SHOTS
+    simulated shots as 10 files, TransferData, TrainModel (300
+    ``adam(1e-3)`` steps at batch 64 on the published width),
+    TransferModel, RegisterModel as v1.  Gates: the run succeeded, the
+    repository holds v1, the last loss is at most 0.8 of the first, the
+    trained model's MSE on COOKIE_HELD held-out shots is below the
+    untrained one's, and its forward on the card matches the CPU's."""
+    import torch
+    from repro_torch.configs import CookieNetAEConfig
+    from repro_torch.data.synthetic import cookiebox_shots
+    from repro_torch.launch import remote_retrain_flow as rrf
+    from repro_torch.models import cookienetae
+    t0 = time.perf_counter()
+    _tag(f"cookienetae: float32, torch.backends.cudnn.allow_tf32="
+         f"{torch.backends.cudnn.allow_tf32} "
+         f"torch.backends.cuda.matmul.allow_tf32="
+         f"{torch.backends.cuda.matmul.allow_tf32}")
+    cfg = CookieNetAEConfig()
+    torch.cuda.reset_peak_memory_stats()
+    res = rrf.run_cookienetae(steps=300, shots=COOKIE_SHOTS, device=DEVICE,
+                              log=lambda m: _tag(f"cookienetae flow: {m}"))
+    run, sys_ = res["run"], res["system"]
+    br = sys_.clock.breakdown()
+    versions = [e.version_tag for e in sys_.repo.versions("cookienetae")]
+    params = sys_.repo.latest("cookienetae").artifact.payload
+    steps = run.output["TrainModel"]["result"]["steps"]
+    _tag(f"cookienetae flow v1: status={run.status} turnaround_s="
+         f"{run.turnaround:.6f} " + " ".join(
+             f"{e.state}={e.duration:.6f}" for e in run.log)
+         + f"; clock real_s={br['real']:.6f} modeled_s={br['modeled']:.6f}"
+         f" sim_s={br['sim']:.6f} total_s={br['total']:.6f}; S "
+         f"{COOKIE_SHOTS} shots ({res['dataset_bytes']} B) in "
+         f"{res['simulate_s']:.6f} s = "
+         f"{COOKIE_SHOTS / res['simulate_s']:.6e} shots/s; T {steps} steps "
+         f"in {res['train_s']:.6f} s = {res['train_s'] / steps * 1e3:.4f} "
+         f"ms/step; loss first {res['first_loss']:.6e} last "
+         f"{res['final_loss']:.6e}; repository {versions}")
+    if run.status != "SUCCEEDED" or versions != ["v1"]:
+        raise AssertionError(f"cookienetae flow {run.status}, {versions}")
+    if not res["final_loss"] <= rrf.COOKIE_LOSS_RATIO * res["first_loss"]:
+        raise AssertionError(f"loss {res['first_loss']} -> "
+                             f"{res['final_loss']}")
+
+    # held-out shots: the trained and the untrained model's MSE
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(SEED + 12)
+    held = cookiebox_shots(g, COOKIE_HELD, device=DEVICE)
+    untrained = cookienetae.init_params(cfg, seed=0, device=DEVICE)
+
+    def mse(p):
+        with torch.no_grad():
+            return sum(float(cookienetae.loss_fn(p, {
+                k: v[lo:lo + 1024] for k, v in held.items()}, cfg)[0])
+                for lo in range(0, COOKIE_HELD, 1024)) / (COOKIE_HELD / 1024)
+
+    trained_mse, untrained_mse = mse(params), mse(untrained)
+    x = held["images"][:COOKIE_BATCH]
+    with torch.no_grad():
+        card = cookienetae.forward(params, x, cfg)
+        cpu = cookienetae.forward({k: v.cpu() for k, v in params.items()},
+                                  x.cpu(), cfg)
+        fwd_ms = _median_ms(lambda: cookienetae.forward(params, x, cfg),
+                            reps=5)
+    rel = float((card.cpu() - cpu).norm() / cpu.norm())
+    flops = 2 * COOKIE_BATCH * cfg.channels * cfg.bins * (
+        cookienetae.N_PARAMS - sum(c for _, _, c in cookienetae._STACK))
+    _tag("cookienetae forward by layer: " + _conv_layer_times(
+        params, x, cookienetae._STACK))
+    _tag(f"cookienetae: held-out MSE over {COOKIE_HELD} shots trained "
+         f"{trained_mse:.6e} untrained {untrained_mse:.6e}; forward of a "
+         f"batch of {COOKIE_BATCH} {fwd_ms:.4f} ms "
+         f"({flops / fwd_ms / 1e9:.2f} TFLOP/s), card vs CPU rel_l2 "
+         f"{rel:.3e} (limit {COOKIE_CARD_CPU_REL_L2}); peak "
+         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; phase 12a: "
+         f"{time.perf_counter() - t0:.1f} s")
+    if not trained_mse < untrained_mse:
+        raise AssertionError(f"held-out MSE {trained_mse} not below the "
+                             f"untrained {untrained_mse}")
+    if not rel <= COOKIE_CARD_CPU_REL_L2:
+        raise AssertionError(f"card vs CPU forward rel_l2 {rel}")
+    del res, sys_, params, held
+    torch.cuda.empty_cache()
+
+
+def _conv_layer_times(params, x, stack) -> str:
+    """Each of CookieNetAE's convolutions on its own, at the forward's
+    shapes: ms and TFLOP/s with cuDNN's default algorithm choice (what
+    the path runs) and, for comparison only, with
+    ``torch.backends.cudnn.benchmark`` on."""
+    import torch
+    import torch.nn.functional as F
+    parts = []
+    with torch.no_grad():
+        h = x.permute(0, 3, 1, 2)
+        for i, (k, cin, cout) in enumerate(stack):
+            w, b = params[f"conv{i}_w"], params[f"conv{i}_b"]
+
+            def conv(h=h, w=w, b=b, k=k):
+                return F.conv2d(h, w, b, padding=k // 2)
+
+            flops = 2 * h.shape[0] * h.shape[2] * h.shape[3] * w.numel()
+            ms = _median_ms(conv, reps=5)
+            default = torch.backends.cudnn.benchmark
+            torch.backends.cudnn.benchmark = True
+            try:
+                ms_bench = _median_ms(conv, reps=5)
+            finally:
+                torch.backends.cudnn.benchmark = default
+            parts.append(f"conv{i} {cin}->{cout} {k}x{k} {ms:.4f} ms "
+                         f"{flops / ms / 1e9:.2f} TFLOP/s (benchmark "
+                         f"{ms_bench:.4f} ms)")
+            h = torch.relu(conv())
+    return "; ".join(parts)
+
+
+def _open_loop_line(label, out, wall) -> None:
+    import torch
+    _tag(f"frontend [{label}]: offered_rps={out['offered_rps']:.6f} "
+         f"goodput_rps={out['goodput_rps']:.6f} goodput_ratio="
+         f"{out['goodput_ratio']:.4f} completed={out['completed']} shed="
+         f"{out['shed']} cancelled={out['cancelled']} ttft_p50_s="
+         f"{out['ttft_p50']} ttft_p95_s={out['ttft_p95']} makespan_s="
+         f"{out['makespan']:.6f} steps={out['steps']} wall_s={wall:.6f} "
+         f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+
+def _agreement(got: dict, base: dict) -> tuple:
+    """(share of requests whose first token agrees, share of all tokens
+    that agree position by position) with the closed-loop drain."""
+    first = sum(got.get(i, [])[:1] == base[i][:1] for i in base) / len(base)
+    same = sum(a == b for i in base for a, b in zip(got.get(i, []), base[i]))
+    return first, same / sum(len(base[i]) for i in base)
+
+
+def _b1_only(label, steps: int, L: int) -> dict:
+    counts = _nonzero(_read_counts())
+    if counts != {"paged_attention_tiled": L * steps}:
+        raise AssertionError(f"[{label}] launched {counts}, not B1 "
+                             f"{L} x {steps}")
+    return counts
+
+
+def _light_load(api, params, prompts, base, base_wall, label,
+                exact: bool) -> None:
+    """12b steps 1-2: the closed-loop drain's wall W gives the capacity
+    C = n / W; the fleet arrives at seeded exponential gaps at FE_LOAD C
+    through ``run_open_loop`` on a SimClock."""
+    import numpy as np
+    import torch
+    from repro_torch.core.simclock import SimClock
+    from repro_torch.serving.frontend import OpenRequest, run_open_loop
+    n, L = len(prompts), api.cfg.n_layers
+    cap = n / base_wall
+    gaps = np.random.default_rng(SEED + 12).exponential(
+        1.0 / (FE_LOAD * cap), n)
+    eng = _dis_engine(api, params)
+    toks = {}
+    eng.on_token = lambda rid, tok, fin: toks.setdefault(rid, []).append(tok)
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    out = run_open_loop(eng, [OpenRequest(p, DIS_NEW, t_arrival=float(t))
+                              for p, t in zip(prompts, np.cumsum(gaps))],
+                        clock=SimClock())
+    wall = time.perf_counter() - t0
+    counts = _b1_only(f"{label} light", out["steps"], L)
+    first, agree = _agreement(toks, base)
+    _tag(f"frontend [{label}] calibration: closed-loop drain of {n} "
+         f"requests W={base_wall:.6f} s, capacity C={cap:.6f} req/s; "
+         f"light load at {FE_LOAD} C: kernel_launches={json.dumps(counts)}, "
+         f"tokens vs the drain: first {first:.4f}, all {agree:.4f}")
+    _open_loop_line(f"{label} light", out, wall)
+    if not (out["completed"] == n and out["goodput_ratio"] == 1.0
+            and all(r["status"] == "ok" for r in out["records"])):
+        raise AssertionError(f"[{label}] light load: {out['records']}")
+    if exact and (first, agree) != (1.0, 1.0):
+        raise AssertionError(f"[{label}] open-loop tokens differ")
+    if first < DIS_BF16_FIRST_AGREE or agree < DIS_BF16_TOKEN_AGREE:
+        raise AssertionError(f"[{label}] agreement {first} / {agree}")
+
+
+def _overload(api, params, prompts, label) -> None:
+    """12b step 3: the whole fleet at t = 0 on one lane, a TTFT target
+    no waiting request meets, the first request cancelled by the
+    harness: the shed, the cancel and the books."""
+    import torch
+    from repro_torch.core.simclock import SimClock
+    from repro_torch.serving.engine import PagedDecodeEngine
+    from repro_torch.serving.frontend import OpenRequest, run_open_loop
+    n = len(prompts)
+    eng = PagedDecodeEngine(api, params, n_slots=1, cache_len=512,
+                            block_size=16, window=api.effective_window(512),
+                            device=DEVICE)
+    reqs = [OpenRequest(p, DIS_NEW, t_arrival=0.0,
+                        cancel_after=FE_CANCEL_AFTER if i == 0 else None)
+            for i, p in enumerate(prompts)]
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    out = run_open_loop(eng, reqs, clock=SimClock(),
+                        ttft_target=FE_OVERLOAD_TTFT)
+    wall = time.perf_counter() - t0
+    counts = _b1_only(f"{label} overload", out["steps"], api.cfg.n_layers)
+    _open_loop_line(f"{label} overload, ttft_target {FE_OVERLOAD_TTFT} s",
+                    out, wall)
+    _tag(f"frontend [{label} overload]: engine shed={eng.shed} cancelled="
+         f"{eng.cancelled}, kernel_launches={json.dumps(counts)}")
+    if not (out["shed"] >= 1 and out["cancelled"] == 1
+            and out["completed"] + out["shed"] + out["cancelled"] == n
+            and eng.shed == out["shed"]):
+        raise AssertionError(f"[{label}] overload books: {out}")
+    if eng.scheduler.running or eng.scheduler.waiting:
+        raise AssertionError(f"[{label}] overload left work on the engine")
+
+
+def _async_streams(api, params, prompts, base, label, exact: bool) -> None:
+    """12b step 4: every prompt through one ``AsyncEngine.stream``
+    consumer in one asyncio loop (prefix cache off); consumer
+    FE_DISCONNECT disconnects after FE_DISCONNECT_AFTER tokens."""
+    import asyncio
+    import numpy as np
+    import torch
+    from repro_torch.serving.frontend import AsyncEngine
+    eng = _dis_engine(api, params, prefix_cache=False)
+    tickets = []
+
+    class Frontend(AsyncEngine):
+        """Keeps every ticket ``stream`` makes, in submission order."""
+
+        def submit(self, *args, **kwargs):
+            tickets.append(super().submit(*args, **kwargs))
+            return tickets[-1]
+
+    async def serve(fe):
+        async def consume(i):
+            toks = []
+            async for tok in fe.stream(prompts[i], DIS_NEW):
+                toks.append(tok)
+                if i == FE_DISCONNECT and len(toks) >= FE_DISCONNECT_AFTER:
+                    break            # disconnect: the generator closes
+            return toks
+        return await asyncio.wait_for(asyncio.gather(
+            *(consume(i) for i in range(len(prompts)))), FE_WAIT_S)
+
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    with Frontend(eng) as fe:
+        streamed = asyncio.run(serve(fe))
+        results = [fe.result(t, timeout=FE_WAIT_S) for t in tickets]
+    wall = time.perf_counter() - t0
+    counts = _b1_only(f"{label} async", fe.steps, api.cfg.n_layers)
+    survivors = [i for i in range(len(prompts)) if i != FE_DISCONNECT]
+    cut = streamed[FE_DISCONNECT]
+    first, agree = _agreement({i: streamed[i] for i in survivors},
+                              {i: base[i] for i in survivors})
+    _tag(f"frontend [{label} async]: {len(prompts)} stream consumers, "
+         f"consumer {FE_DISCONNECT} disconnected after {len(cut)} tokens "
+         f"(its request emitted {len(results[FE_DISCONNECT].generated)}); "
+         f"cancelled={eng.cancelled} steps={fe.steps} wall_s={wall:.6f} "
+         f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+         f"blocks_allocated={eng.kv.allocator.num_allocated} "
+         f"kernel_launches={json.dumps(counts)}; survivors vs the drain: "
+         f"first {first:.4f}, all {agree:.4f}")
+    if not all(np.array_equal(t.prompt, p) for t, p in zip(tickets, prompts)):
+        raise AssertionError("the streams submitted out of order")
+    if not (eng.cancelled == 1 and results[FE_DISCONNECT].cancelled
+            and len(cut) == FE_DISCONNECT_AFTER
+            and list(results[FE_DISCONNECT].generated[:len(cut)]) == cut):
+        raise AssertionError(f"[{label}] the disconnect: {cut}")
+    if not all(streamed[i] == list(results[i].generated)
+               and not results[i].cancelled for i in survivors):
+        raise AssertionError(f"[{label}] streamed tokens differ from the "
+                             "requests' own")
+    if eng.kv.allocator.num_allocated != 0:
+        raise AssertionError(f"[{label}] blocks left after the drain")
+    if exact and ((first, agree) != (1.0, 1.0)
+                  or cut != base[FE_DISCONNECT][:len(cut)]):
+        raise AssertionError(f"[{label}] streamed tokens differ from the "
+                             "drain's")
+
+
+def _leak_probe(api, params) -> None:
+    """12b step 5: ``bench_serving._open_loop_leak_probe``'s shape at full
+    width: a fresh host-swap engine whose pool is below the working set,
+    five requests sharing a block, all cancelled after 6 steps."""
+    import numpy as np
+    from repro_torch.serving.engine import PagedDecodeEngine
+    bs, cache_len = 8, 64
+    rng = np.random.default_rng(13)
+    shared = rng.integers(0, api.cfg.vocab_size, bs).astype(np.int32)
+    prompts = [np.concatenate([shared, rng.integers(
+        0, api.cfg.vocab_size, 6).astype(np.int32)]) for _ in range(5)]
+    need = max(-(-(len(p) + 32) // bs) for p in prompts)
+    eng = PagedDecodeEngine(api, params, n_slots=3, cache_len=cache_len,
+                            block_size=bs, chunk_tokens=bs, prefix_cache=True,
+                            host_swap=True, num_blocks=need + 3,
+                            device=DEVICE)
+    _zero_counts()
+    for p in prompts:                 # max_new large: nothing finishes
+        eng.submit(p, 32)
+    for _ in range(6):
+        eng.step()
+    for rid in range(len(prompts)):
+        eng.cancel(rid)
+    counts = _b1_only("leak probe", eng.steps, api.cfg.n_layers)
+    tiers = {"blocks_allocated": int(eng.kv.allocator.num_allocated),
+             "prefix_cache_entries": len(eng.kv._cached),
+             "host_tier_entries": len(eng._host_tier),
+             "queued_swap_ins": len(eng.kv.take_swap_ins())}
+    s = eng.stats()
+    _tag(f"frontend leak probe: {json.dumps(tiers)}, cancelled="
+         f"{s['cancelled']} released_seqs={s['released_seqs']} preemptions="
+         f"{s['preemptions']} host_purged={s['host_purged']}, "
+         f"kernel_launches={json.dumps(counts)}")
+    if eng.has_work() or any(tiers.values()):
+        raise AssertionError(f"the leak probe leaked: {tiers}")
+
+
+def phase_frontend(api, params, prompts, base, base_wall, label,
+                   exact: bool) -> None:
+    """12b on phase 11's weights and fleet: light load through
+    ``run_open_loop`` and the ``AsyncEngine`` streams, each through B1
+    only (layers x steps); in bf16 (``exact`` False: the schedule
+    differs from the drain's, so the agreement is gated as 11b gates the
+    handoff) also the overload and the leak probe; in float32 (``exact``)
+    the light load and the streams must give the drain's tokens."""
+    t0 = time.perf_counter()
+    _light_load(api, params, prompts, base, base_wall, label, exact)
+    if not exact:
+        _overload(api, params, prompts, label)
+    _async_streams(api, params, prompts, base, label, exact)
+    if not exact:
+        _leak_probe(api, params)
+    _tag(f"phase 12b [{label}]: {time.perf_counter() - t0:.1f} s")
+
+
+def phase_crossover() -> None:
+    """12c: ``launch/crossover_analysis.run`` on the card: its stage 2
+    (gemma-7b's smoke config in float32, B1's FMA kernel) must give the
+    one-engine run's tokens through the split."""
+    from repro_torch.launch import crossover_analysis
+    t0 = time.perf_counter()
+    _zero_counts()
+    res = crossover_analysis.run(device=DEVICE, log=lambda m: _tag(
+        f"crossover: {m.lstrip(chr(10))}"))
+    counts = _nonzero(_read_counts())
+    _tag(f"crossover: stage 2 tokens identical {res['split'] == res['local']}"
+         f", kernel_launches={json.dumps(counts)}; phase 12c: "
+         f"{time.perf_counter() - t0:.1f} s")
+    if res["split"] != res["local"] or set(counts) != {
+            "paged_attention_tiled"}:
+        raise AssertionError(f"crossover stage 2: {counts}")
 
 
 # each kernel, its source in csrc/ on the main path (bf16: the flash
@@ -2736,7 +3160,17 @@ def main() -> None:
     # repro_torch.core, then gemma-7b through DisaggregatedEngine
     torch.cuda.empty_cache()
     phase_bridge_flow()
-    phase_bridge_serving()
+    fleet = phase_bridge_bf16()
+
+    # 12. the paper's second DNN, the online frontend on phase 11's
+    # weights (bf16, then float32) and the crossover analysis
+    phase_frontend(*fleet, "bf16", exact=False)
+    del fleet
+    fleet = phase_bridge_f32()
+    phase_frontend(*fleet, "f32", exact=True)
+    del fleet
+    phase_cookienetae()
+    phase_crossover()
 
     # each kernel's numbers at its main path's shapes
     numbers = {name: c["gemma-7b bf16"] for name, c in checks.items()}

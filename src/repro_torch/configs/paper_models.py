@@ -28,8 +28,10 @@ class BraggNNConfig:
 class CookieNetAEConfig:
     """CookieNetAE: 16-channel eToF energy-histogram image -> per-channel pdf.
 
-    8 convolution layers, 343,937 trainable parameters (verified by test),
-    ReLU activations, MSE loss, Adam lr=1e-3 (paper §5.2).
+    8 convolution layers, ReLU activations, MSE loss, Adam lr=1e-3 (paper
+    §5.2).  The paper states 343,937 trainable parameters but not its
+    layer widths; the reference's stack, which the port keeps
+    (``models/cookienetae.py``), has 337,153, within 2 % of the paper's.
     """
 
     name: str = "cookienetae"

@@ -1,11 +1,15 @@
 """Synthetic experiment data -- the paper's "S"(imulate) op -- and
 synthetic LM token batches.
 
-The counterpart of ``repro/data/synthetic.py``, Bragg-peak patches and LM
-batches (CookieBox shots wait for their slice): pseudo-Voigt
-peaks on a noisy background whose ground-truth centers play the role of
-physics; the conventional "A" op (``analysis/pseudo_voigt.py``) recovers
-them to label BraggNN's training data, the paper's pipeline.
+The counterpart of ``repro/data/synthetic.py``:
+
+* Bragg-peak patches (HEDM): pseudo-Voigt peaks on a noisy background
+  whose ground-truth centers play the role of physics; the conventional
+  "A" op (``analysis/pseudo_voigt.py``) recovers them to label BraggNN's
+  training data, the paper's pipeline.
+* CookieBox eToF shots: 16 channels of photo-electron energy histograms
+  whose underlying smooth pdf is CookieNetAE's regression target.
+* LM token batches with a learnable bigram structure.
 
 Randomness comes from an explicit ``torch.Generator`` on the output's
 device, so the values differ from ``jax.random``'s; the distributions and
@@ -13,6 +17,7 @@ the rendering are the reference's.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Tuple
 
 import torch
@@ -56,6 +61,55 @@ def bragg_patches(generator: torch.Generator, n: int, patch: int = 11, *,
     img = img / torch.clamp(mx, min=1e-9)
     return {"patches": img[..., None],
             "centers": centers / (patch - 1)}
+
+
+# ---------------------------------------------------------------------------
+def cookiebox_pdf(line_pos: torch.Tensor, line_w: torch.Tensor,
+                  phase: torch.Tensor, strength: torch.Tensor,
+                  channels: int = 16, bins: int = 128) -> torch.Tensor:
+    """The deterministic part of :func:`cookiebox_shots`: the pdf of each
+    shot's lines, (n, channels, bins) float32 on the draws' device.
+
+    Each of a shot's lines (the draws are (n, lines)) has a Gaussian
+    spectral profile at ``line_pos`` of width ``line_w`` and an intensity
+    that varies with the detector angle theta as 0.5 (1 + cos(theta -
+    phase)) (the circular-polarization signature), weighted by
+    ``strength``; the sum over lines is normalized along the bins (with a
+    1e-9 floor)."""
+    dev = line_pos.device
+    theta = torch.arange(channels, dtype=torch.float32, device=dev) * (
+        2 * math.pi / channels)
+    x = torch.arange(bins, dtype=torch.float32, device=dev)
+    ang = 0.5 * (1 + torch.cos(theta[None, :, None]
+                               - phase[:, None, :]))   # (n, ch, l)
+    gaus = torch.exp(-(x[None, None, :] - line_pos[:, :, None]) ** 2
+                     / (2 * line_w[:, :, None] ** 2))   # (n, l, bins)
+    pdf = torch.einsum("nl,ncl,nlb->ncb", strength, ang, gaus)
+    return pdf / torch.clamp(pdf.sum(dim=-1, keepdim=True), min=1e-9)
+
+
+def cookiebox_shots(generator: torch.Generator, n: int, channels: int = 16,
+                    bins: int = 128, *, counts: int = 200,
+                    device="cuda") -> Dict[str, torch.Tensor]:
+    """Returns {"images": (n, ch, bins, 1) histograms, "targets": the
+    same shape, the pdf}, float32 on ``device`` (the generator's device).
+
+    Physics stand-in: each shot has 3 spectral lines (positions uniform
+    in [10, bins - 10], widths in [2, 6], phases in [0, 2 pi], strengths
+    in [0.2, 1]) whose pdf is :func:`cookiebox_pdf`; the image is a
+    low-count Poisson draw of ``counts`` x pdf normalized by its sum (at
+    least 1), the hard regime the paper mentions ("number of detected
+    electrons is low")."""
+    dev = resolve_device(device)
+    shape = (n, 3)
+    line_pos = _uniform(generator, shape, 10.0, bins - 10.0, dev)
+    line_w = _uniform(generator, shape, 2.0, 6.0, dev)
+    phase = _uniform(generator, shape, 0.0, 2 * math.pi, dev)
+    strength = _uniform(generator, shape, 0.2, 1.0, dev)
+    pdf = cookiebox_pdf(line_pos, line_w, phase, strength, channels, bins)
+    hist = torch.poisson(counts * pdf, generator=generator)
+    hist = hist / torch.clamp(hist.sum(dim=-1, keepdim=True), min=1.0)
+    return {"images": hist[..., None], "targets": pdf[..., None]}
 
 
 # ---------------------------------------------------------------------------

@@ -16,12 +16,19 @@ the model back and registers it in the edge model repository:
    ``overlap_label_train`` action: labeling and training pipelined over
    8 shards (A||T, future-work item 3), from the best foundation;
 4. the edge serves the latest registered model through ``BatchEngine``
-   on held-out patches (the E op).
+   on held-out patches (the E op);
+5. the paper's second DNN, CookieNetAE: CookieBox shots collected at
+   SLAC as 10 files cross to the data center and train it there (the
+   DNNTrainerFlow without LabelData: the targets are the simulated
+   pdfs); the 1.4 MB model returns and registers as ``cookienetae`` v1,
+   the flow ``benchmarks/bench_table1.py`` runs in the reference.
 
-Training functions end with a host read of the loss, as the reference's
-do, so each state is charged the time its work ran.  It runs on the CUDA
-card unless ``--device cpu`` is given, and fails unless every flow
-succeeds and the surrogate's mean error at the edge is under 0.5 px.
+Training functions end with a host read of the losses, as the
+reference's do, so each state is charged the time its work ran.  It runs
+on the CUDA card unless ``--device cpu`` is given, and fails unless every
+flow succeeds, the surrogate's mean error at the edge is under 0.5 px and
+CookieNetAE's last training loss is at most 0.8 of its first.  ``--peaks``
+sets the size of every dataset (BraggNN patches, CookieBox shots).
 """
 from __future__ import annotations
 
@@ -33,12 +40,12 @@ import numpy as np
 import torch
 
 from repro_torch.analysis import label_for_braggnn
-from repro_torch.configs import BraggNNConfig
+from repro_torch.configs import BraggNNConfig, CookieNetAEConfig
 from repro_torch.core import build_system, dnn_trainer_flow
 from repro_torch.core.transfer import FileRef
-from repro_torch.data.synthetic import bragg_patches
+from repro_torch.data.synthetic import bragg_patches, cookiebox_shots
 from repro_torch.device import resolve_device
-from repro_torch.models import braggnn
+from repro_torch.models import braggnn, cookienetae
 from repro_torch.optim import adam
 from repro_torch.serving.batch import BatchEngine
 from repro_torch.train import make_train_step
@@ -48,6 +55,12 @@ BATCH = 64
 MODEL_BYTES = 3_000_000      # the paper's BraggNN artifact size
 N_SHARDS = 8                 # A||T's pipeline stages
 MAX_ERR_PX = 0.5             # the edge surrogate's mean error limit
+# CookieNetAE's artifact and its dataset's files (bench_table1.py's)
+COOKIE_MODEL_BYTES = 1_400_000
+COOKIE_FILES = 10
+COOKIE_SIM_CHUNK = 32_768    # shots a draw: its temporaries stay ~1 GB
+COOKIE_SEED = 45             # the shots' (BraggNN's datasets use 42-44)
+COOKIE_LOSS_RATIO = 0.8      # last over first loss (the reference's test)
 
 
 def _collect(sys_, name: str, n: int, g: torch.Generator, dev) -> None:
@@ -71,23 +84,25 @@ def _label(sys_, dataset_name: str) -> Dict[str, float]:
     return {"n": int(labels.shape[0]), "label_err": err}
 
 
-def _trainer(cfg: BraggNNConfig):
-    return make_train_step(lambda p, b: braggnn.loss_fn(p, b, cfg),
+def _trainer(model, cfg):
+    return make_train_step(lambda p, b: model.loss_fn(p, b, cfg),
                            adam(1e-3))
 
 
-def _train_steps(step, params, opt_state, patches, labels, steps: int):
-    """``steps`` Adam steps on consecutive batches (wrapping), as the
-    reference example takes them; returns (params, opt_state, loss)."""
-    n = patches.shape[0]
-    loss = None
+def _train_steps(step, params, opt_state, data: Dict[str, torch.Tensor],
+                 steps: int):
+    """``steps`` Adam steps on consecutive batches (wrapping) of ``data``
+    (a batch's tensors by name, all of the same length), as the reference
+    example takes them; returns (params, opt_state, the losses), the
+    losses read from the device once, at the end."""
+    n = next(iter(data.values())).shape[0]
+    losses = []
     for i in range(steps):
         lo = (i * BATCH) % (n - BATCH)
         params, opt_state, m = step(params, opt_state, {
-            "patches": patches[lo:lo + BATCH],
-            "centers": labels[lo:lo + BATCH]})
-        loss = m["loss"]
-    return params, opt_state, float(loss)
+            k: v[lo:lo + BATCH] for k, v in data.items()})
+        losses.append(m["loss"])
+    return params, opt_state, torch.stack(losses).tolist()
 
 
 def _make_train_function(sys_, cfg, steps: int, artifact_name: str, dev,
@@ -100,11 +115,12 @@ def _make_train_function(sys_, cfg, steps: int, artifact_name: str, dev,
         params = warm_start_from if warm_start_from is not None else \
             braggnn.init_params(cfg, seed=0, device=dev)
         opt_state = adam(1e-3).init(params)
-        params, _, loss = _train_steps(_trainer(cfg), params, opt_state,
-                                       raw["patches"], raw["labels"], steps)
+        params, _, losses = _train_steps(
+            _trainer(braggnn, cfg), params, opt_state,
+            {"patches": raw["patches"], "centers": raw["labels"]}, steps)
         sys_.store.put("alcf", FileRef(artifact_name, MODEL_BYTES,
                                        payload=params))
-        return {"final_loss": loss, "steps": steps}
+        return {"final_loss": losses[-1], "steps": steps}
 
     return train
 
@@ -167,17 +183,17 @@ def run_overlap(sys_, cfg, *, steps: int, peaks: int, seed: int, dev,
     _collect(sys_, dataset, peaks, g, dev)
     best = sys_.repo.best_foundation("braggnn", "val_loss")
     per_shard = max(steps // N_SHARDS, 1)
-    step = _trainer(cfg)
+    step = _trainer(braggnn, cfg)
 
     def init():
         params = best.artifact.payload
         return params, adam(1e-3).init(params)
 
     def train_shard(state, shard, labels):
-        params, opt_state, loss = _train_steps(step, *state,
-                                               shard["patches"], labels,
-                                               per_shard)
-        return (params, opt_state), {"loss": loss}
+        params, opt_state, losses = _train_steps(
+            step, *state, {"patches": shard["patches"], "centers": labels},
+            per_shard)
+        return (params, opt_state), {"loss": losses[-1]}
 
     fx = sys_.funcx
     fns = {"label_function": fx.register_function(
@@ -236,6 +252,100 @@ def serve_at_edge(sys_, cfg, *, peaks: int, seed: int, dev,
     return {"err_px": err_px, "seconds": sec, "entry": entry}
 
 
+def run_cookienetae(*, steps: int = 300, shots: int = 4096,
+                    device="cuda", system=None, log=print) -> Dict:
+    """The paper's second DNN through the DNNTrainerFlow without
+    LabelData (``bench_table1.run_remote``'s flow): ``shots`` CookieBox
+    shots collected at SLAC as COOKIE_FILES files, TransferData to the DC,
+    TrainModel (CookieNetAE from its seed-0 init, ``steps`` ``adam(1e-3)``
+    steps at batch BATCH on the DCAI endpoint, real mode), TransferModel
+    (a COOKIE_MODEL_BYTES artifact) and RegisterModel as ``cookienetae``
+    v1.  Returns the system (``system``, or a new one), the run, the
+    first and last training losses, the dataset's bytes, and the seconds
+    the simulation (S) and the training steps (T) took."""
+    dev = resolve_device(device)
+    cfg = CookieNetAEConfig()
+    sys_ = system if system is not None else build_system()
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    # S, in chunks: one draw's temporaries are several times its shots'
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev)
+    g.manual_seed(COOKIE_SEED)
+    shape = (shots, cfg.channels, cfg.bins, 1)
+    data = {k: torch.empty(shape, device=dev) for k in ("images", "targets")}
+    for lo in range(0, shots, COOKIE_SIM_CHUNK):
+        d = cookiebox_shots(g, min(COOKIE_SIM_CHUNK, shots - lo),
+                            cfg.channels, cfg.bins, device=dev)
+        for k, v in d.items():
+            data[k][lo:lo + v.shape[0]] = v
+    sync()
+    simulate_s = time.perf_counter() - t0
+    names = [f"cookienetae-{i}.h5" for i in range(COOKIE_FILES)]
+    nbytes = 0
+    for name, images, targets in zip(
+            names, data["images"].tensor_split(COOKIE_FILES),
+            data["targets"].tensor_split(COOKIE_FILES)):
+        size = (images.numel() + targets.numel()) * 4
+        nbytes += size
+        sys_.store.put("slac", FileRef(name, size, payload={
+            "images": images, "targets": targets}))
+    del data
+    artifact = "cookienetae.pt"
+
+    def train(*dataset_names):
+        parts = [sys_.store.get("alcf", n).payload for n in dataset_names]
+        data = {k: torch.cat([p[k] for p in parts])
+                for k in ("images", "targets")}
+        params = cookienetae.init_params(cfg, seed=0, device=dev)
+        sync()
+        t0 = time.perf_counter()
+        params, _, losses = _train_steps(
+            _trainer(cookienetae, cfg), params, adam(1e-3).init(params),
+            data, steps)
+        train_s = time.perf_counter() - t0
+        sys_.store.put("alcf", FileRef(artifact, COOKIE_MODEL_BYTES,
+                                       payload=params))
+        return {"first_loss": losses[0], "final_loss": losses[-1],
+                "steps": steps, "train_s": train_s}
+
+    fx = sys_.funcx
+    fid = fx.register_function(train, "train_cookienetae")
+    eid = fx.register_endpoint(DC_DEVICE, mode="real")
+    flow_id = sys_.flows.deploy(dnn_trainer_flow())
+    t_wall = time.perf_counter()
+    run = sys_.flows.run(flow_id, {
+        "src": "slac", "dc": "alcf", "dataset": names,
+        "train_endpoint": eid, "train_function": fid,
+        "train_args": names, "train_kwargs": {},
+        "modeled_duration": None,
+        "model_artifacts": [artifact], "model_name": artifact,
+        "register_as": "cookienetae", "version_tag": "v1", "metrics": {},
+    }, sys_.user_token())
+    wall = time.perf_counter() - t_wall
+    if run.status != "SUCCEEDED":
+        raise RuntimeError(f"cookienetae flow {run.status}: "
+                           f"{[e.error for e in run.log]}")
+    res = run.output["TrainModel"]["result"]
+    log(f"flow cookienetae v1: status={run.status} turnaround="
+        f"{run.turnaround:.4f}s (wall {wall:.4f}s), {shots} shots in "
+        f"{COOKIE_FILES} files, {nbytes} B")
+    for e in run.log:
+        log(f"  {e.state:14s} {e.duration:9.4f}s")
+    log(f"  S {simulate_s:.4f}s; train loss first={res['first_loss']:.6g} "
+        f"final={res['final_loss']:.6g} ({res['steps']} steps in "
+        f"{res['train_s']:.4f}s)")
+    versions = [e.version_tag for e in sys_.repo.versions("cookienetae")]
+    if versions != ["v1"]:
+        raise AssertionError(f"repository holds cookienetae {versions}")
+    return {"system": sys_, "run": run, "first_loss": res["first_loss"],
+            "final_loss": res["final_loss"], "dataset_bytes": nbytes,
+            "simulate_s": simulate_s, "train_s": res["train_s"]}
+
+
 def run(*, steps: int = 300, peaks: int = 4096, device="cuda",
         log=print) -> Dict:
     """The whole scenario; returns the system, the three flow runs, the
@@ -280,14 +390,21 @@ def run(*, steps: int = 300, peaks: int = 4096, device="cuda",
 
 
 def main(argv=None) -> None:
-    """Run the scenario once; raise on a failed flow or a surrogate that
-    misses the truth by MAX_ERR_PX or more on average."""
+    """Run the BraggNN scenario and CookieNetAE's flow once; raise on a
+    failed flow, a surrogate that misses the truth by MAX_ERR_PX or more
+    on average, or a CookieNetAE loss that did not fall enough."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--steps", type=int, default=300)
     ap.add_argument("--peaks", type=int, default=4096)
     args = ap.parse_args(argv)
-    run(steps=args.steps, peaks=args.peaks, device=args.device)
+    res = run(steps=args.steps, peaks=args.peaks, device=args.device)
+    cookie = run_cookienetae(steps=args.steps, shots=args.peaks,
+                             device=args.device, system=res["system"])
+    if not cookie["final_loss"] <= COOKIE_LOSS_RATIO * cookie["first_loss"]:
+        raise AssertionError(f"CookieNetAE loss {cookie['first_loss']} -> "
+                             f"{cookie['final_loss']}: above "
+                             f"{COOKIE_LOSS_RATIO} of the first")
     print("remote_retrain_flow OK")
 
 

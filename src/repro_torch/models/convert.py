@@ -1,6 +1,6 @@
 """Parameters of the reference package in the port's layout: the LM
-families (:func:`from_reference_params`) and BraggNN
-(:func:`braggnn_from_reference_params`).
+families (:func:`from_reference_params`) and the paper's two edge DNNs,
+BraggNN and CookieNetAE (:func:`paper_model_from_reference_params`).
 
 jax and torch generators give different numbers from the same seed, so
 the tests that compare the two packages make parameters with the
@@ -48,13 +48,15 @@ def from_reference_params(tree: Dict[str, Any], *, device="cuda",
     return conv(tree, False)
 
 
-def braggnn_from_reference_params(tree: Dict[str, Any], *, device="cuda",
-                                  dtype: torch.dtype = torch.float32
-                                  ) -> Dict[str, torch.Tensor]:
-    """Convert the reference's BraggNN parameters (a flat dict of numpy
-    arrays) into the port's: conv weights (every 4-D array, the non-local
-    block's 1x1 convs included) go from the reference's HWIO to OIHW;
-    biases and the (in, out) FC weights keep their layout."""
+def paper_model_from_reference_params(tree: Dict[str, Any], *,
+                                      device="cuda",
+                                      dtype: torch.dtype = torch.float32
+                                      ) -> Dict[str, torch.Tensor]:
+    """Convert the reference's parameters of a paper model, BraggNN or
+    CookieNetAE (a flat dict of numpy arrays), into the port's: conv
+    weights (every 4-D array: BraggNN's non-local 1x1 convs and
+    CookieNetAE's 1x1 head included) go from the reference's HWIO to
+    OIHW; biases and BraggNN's (in, out) FC weights keep their layout."""
     dev = resolve_device(device)
     out = {}
     for k, v in tree.items():

@@ -430,3 +430,36 @@ def test_overlapped_label_train_matches_reference(n_shards, as_action):
     assert port[1] == ref[1]
     np.testing.assert_array_equal(port[2], ref[2])
     assert port[3:] == ref[3:]
+
+
+# ---------------------------------------------------------------------------
+# the crossover analysis (launch/crossover_analysis.py)
+# ---------------------------------------------------------------------------
+def test_crossover_analysis_prints_the_references_tables(capsys):
+    """Stages 1 and 3 (§4.2's training crossover and the modeled 7B-class
+    split, arithmetic on the cost and transfer models) print the
+    reference example's tables character for character; stage 2 serves
+    its fleet on the CPU through one engine and through the split with
+    the same tokens, and prints a row for each bandwidth of the sweep."""
+    import importlib.util
+    from pathlib import Path
+    from repro_torch.launch import crossover_analysis as ca
+    path = Path(__file__).resolve().parents[1] / "examples" / \
+        "crossover_analysis.py"
+    spec = importlib.util.spec_from_file_location("crossover_example", path)
+    ref = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ref)
+    assert ca.BW_SWEEP == ref.BW_SWEEP
+    for stage in ("training_crossover", "serving_crossover_modeled"):
+        getattr(ref, stage)()
+        want = capsys.readouterr().out
+        getattr(ca, stage)()
+        assert capsys.readouterr().out == want, stage
+    lines = []
+    res = ca.serving_crossover_measured("cpu", log=lines.append)
+    assert res["split"] == res["local"] and len(res["local"]) == 6
+    assert all(len(t) == 8 for t in res["local"])
+    text = "\n".join(lines)
+    assert "token-identical to one-engine" in text
+    assert sum(line.strip().startswith(f"{bw:8.0e}".strip())
+               for line in lines for bw in ca.BW_SWEEP) == len(ca.BW_SWEEP)

@@ -27,7 +27,9 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
                  "core.facility", "core.flows", "core.funcx",
                  "core.pipeline_flow", "core.registry", "core.simclock",
                  "core.system", "core.transfer",
-                 "launch.remote_retrain_flow", "launch.edge_serving"):
+                 "launch.remote_retrain_flow", "launch.edge_serving",
+                 "serving.frontend", "models.cookienetae",
+                 "launch.crossover_analysis"):
         assert f"repro_torch.{name}" in mods, name
     code = ("import sys\n"
             f"for m in {mods!r}:\n"
@@ -66,9 +68,10 @@ def test_source_imports_no_jax_and_no_repro(path):
 
 def test_default_device_is_the_card():
     """Built with the default device on a machine without CUDA, the
-    engines, the model inits and the caches (dense, zamba2 and xLSTM) and
-    the launchers of the paper's workflow and of edge serving raise
-    instead of running on the CPU."""
+    engines, the model inits and the caches (dense, zamba2 and xLSTM),
+    CookieNetAE and its shots, and the launchers of the paper's workflow,
+    of edge serving and of the crossover analysis raise instead of running
+    on the CPU."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device works")
     from repro_torch.configs import get_config
@@ -94,12 +97,22 @@ def test_default_device_is_the_card():
         params = api.init(seed=0, device="cpu", dtype=torch.float32)
         with pytest.raises(RuntimeError, match="CUDA"):
             DecodeEngine(api, params, n_slots=2, cache_len=16)
-    # the launchers of the workflow (repro_torch.core) and of edge serving
-    # (repro_torch.serving.transfer)
-    from repro_torch.launch import edge_serving, remote_retrain_flow
+    # the paper's second DNN and its data
+    from repro_torch.data.synthetic import cookiebox_shots
+    from repro_torch.models import cookienetae
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cookienetae.init_params(seed=0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cookiebox_shots(torch.Generator(), 4)
+    # the launchers of the workflow (repro_torch.core), of edge serving
+    # (repro_torch.serving.transfer) and of the crossover analysis
+    from repro_torch.launch import (crossover_analysis, edge_serving,
+                                    remote_retrain_flow)
     with pytest.raises(RuntimeError, match="CUDA"):
         remote_retrain_flow.run(steps=1, peaks=128)
-    for launcher in (remote_retrain_flow, edge_serving):
+    with pytest.raises(RuntimeError, match="CUDA"):
+        remote_retrain_flow.run_cookienetae(steps=1, shots=128)
+    for launcher in (remote_retrain_flow, edge_serving, crossover_analysis):
         with pytest.raises(RuntimeError, match="CUDA"):
             launcher.main([])
 

@@ -2,7 +2,7 @@
 reference's, on the CPU in float32.
 
 BraggNN's parameters come from the reference's ``init`` and are converted
-with ``braggnn_from_reference_params``; inputs are made with numpy from a
+with ``paper_model_from_reference_params``; inputs are made with numpy from a
 seed and fed to both packages.  Tolerances: forward and loss at
 ``atol = 1e-5`` and gradients at ``rtol = 1e-4, atol = 1e-6`` (float32
 convolutions and matmuls summed in other orders); one optimizer update,
@@ -25,7 +25,7 @@ from repro_torch.configs import BraggNNConfig
 from repro_torch.data.pipeline import ShardedLoader, take
 from repro_torch.data.synthetic import bragg_patches
 from repro_torch.models import braggnn as tb
-from repro_torch.models.convert import braggnn_from_reference_params
+from repro_torch.models.convert import paper_model_from_reference_params
 from repro_torch.optim import adam, global_norm, sgd
 from repro_torch.optim.optimizers import tree_leaves
 from repro_torch.serving.batch import BatchEngine
@@ -56,8 +56,8 @@ def _np_tree(jax, tree):
 def _params(side, seed=0):
     """The reference's BraggNN init as (jax pytree, port dict)."""
     jp = side["braggnn"].init_params(side["jax"].random.PRNGKey(seed), CFG)
-    tp = braggnn_from_reference_params(_np_tree(side["jax"], jp),
-                                       device="cpu")
+    tp = paper_model_from_reference_params(_np_tree(side["jax"], jp),
+                                           device="cpu")
     return jp, tp
 
 
@@ -75,7 +75,7 @@ def _batch(seed, n=16):
 
 def _to_port(jax, tree_np):
     """A reference BraggNN tree (params or grads) in the port's layout."""
-    return {k: v.numpy() for k, v in braggnn_from_reference_params(
+    return {k: v.numpy() for k, v in paper_model_from_reference_params(
         _np_tree(jax, tree_np), device="cpu").items()}
 
 
@@ -373,7 +373,8 @@ def test_quickstart_runs_on_cpu():
 def test_remote_retrain_flow_runs_on_cpu():
     """The twin of ``examples/remote_retrain_flow.py`` on the port's own
     ``repro_torch.core``: two DNNTrainerFlow runs with labeling (the second
-    warm-started from the repository), A||T over 8 shards, edge serving."""
+    warm-started from the repository), A||T over 8 shards, edge serving,
+    then CookieNetAE's flow without labeling."""
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.remote_retrain_flow",
          "--device", "cpu", "--steps", "20", "--peaks", "2048"], cwd=ROOT,
@@ -385,6 +386,7 @@ def test_remote_retrain_flow_runs_on_cpu():
     assert "flow v1: status=SUCCEEDED" in out.stdout
     assert "flow v2: status=SUCCEEDED" in out.stdout
     assert "A||T over 8 shards" in out.stdout
+    assert "flow cookienetae v1: status=SUCCEEDED" in out.stdout
     assert sum(line.strip().startswith("LabelData") for line in lines) == 2
 
 
