@@ -54,7 +54,10 @@ printing its own line(s):
    against their plain versions on the card, from float32 and from
    bfloat16 copies of the same inputs, at gemma-7b's training shape
    (S 4096, 16 x 256 heads) and at starcoder2-7b's heads with its sliding
-   window (S 8192, 36 q and 4 kv heads x 128, window 4096), each with its
+   window (S 8192, 36 q and 4 kv heads x 128, window 4096), and at
+   phase 13's training shapes, whisper-base's decoder (B 8, 8 x 64 heads,
+   S 448) and zamba2-2.7b's shared attention (32 x 80 heads, S 2048),
+   each with its
    time, the plain version's, ``scaled_dot_product_attention``'s and the
    least time the card could take, and its achieved TFLOP/s and share of
    that bound; bfloat16 runs the tensor-core kernels (wgmma fed by TMA:
@@ -175,7 +178,30 @@ printing its own line(s):
    and goodput rps, TTFT p50/p95 (virtual s), makespan, steps, wall and
    peak memory are printed; (c) ``launch/crossover_analysis.run`` on the
    card: its three tables, and stage 2's split token-identical to one
-   engine.
+   engine;
+13. the audio family and the recurrent families' training, each line
+   tagged with the card's name and power limit: (a) whisper-base at its
+   published width (6 + 6 layers, d 512, 8 x 64 heads, vocab 51,865),
+   seed-0 weights: 10 ``make_train_step_fn`` steps (float32 masters, bf16
+   compute) at batch 8 x (1500 frame embeddings, 448 tokens), each
+   launching B6f 2L times and dq, dk/dv L times (L = 6 decoder layers;
+   the encoder's and the cross attention are plain PyTorch, as in the
+   reference) and nothing else, the plain path's first step against the
+   kernel's in bf16 and the two paths on the trained state in float32;
+   ``make_prefill_step_fn`` at batch 4 (B6 L times), kernel against
+   plain logits in bf16 and float32; 32 float32 decode steps with the
+   cross K/V filled from ``encode`` -> ``encoder_kv`` against the
+   forward's logits; ``SlotDecodeEngine`` serving 8 requests x 32 tokens
+   on 4 slots (no kernel: decode attention is plain); (b) zamba2-2.7b at
+   its published width, depth cut to the deepest whole number of 6-layer
+   segments whose reckoned footprint (33 B a parameter, phase 8b's, plus
+   AdamW's temporaries on the largest leaf) fits the card, trained 5
+   steps at batch 1 x 2048: B6f twice and dq, dk/dv once per shared
+   attention application a step (D 80), no B5 (the loss runs the scans'
+   plain chunkwise forms); (c) xlstm-1.3b likewise in 8-layer segments,
+   3 steps at batch 1 x 512, no kernel at all (no B4).  Each training
+   run repeats one batch, whose loss must fall, and prints its ms a step,
+   tokens/s and peak memory.
 
 Then one JSON line of per-kernel numbers, and last
 ``{"ok": true, "device": {...}}``.  Any failed phase raises, so the run
@@ -1218,7 +1244,11 @@ def phase_flash_kernels():
     from repro_torch.kernels import ref as kref
     _fa_tensor_core_check()
     cases = [("gemma-7b S=4096", 1, 16, 16, 4096, 256, 0),
-             ("starcoder2-7b S=8192 window=4096", 1, 36, 4, 8192, 128, 4096)]
+             ("starcoder2-7b S=8192 window=4096", 1, 36, 4, 8192, 128, 4096),
+             # phase 13's training shapes: whisper-base's decoder and
+             # zamba2-2.7b's shared attention block
+             ("whisper-base S=448", 8, 8, 8, 448, 64, 0),
+             ("zamba2-2.7b S=2048", 1, 32, 32, 2048, 80, 0)]
     results = {}
     for label, B, H, Hkv, S, D, window in cases:
         g = torch.Generator(device=DEVICE)
@@ -3054,6 +3084,437 @@ def phase_crossover() -> None:
 # each kernel, its source in csrc/ on the main path (bf16: the flash
 # kernels', the three paged reads' and the two scans' tensor-core sources)
 # and the TPU kernel it replaces
+# ---------------------------------------------------------------------------
+# phase 13: the audio family and the recurrent families' training
+# ---------------------------------------------------------------------------
+# whisper-base at its published width: WHISPER_STEPS training steps at
+# batch WHISPER_BATCH x (1500 frames, 448 tokens); its prefill at batch
+# WHISPER_PREFILL_BATCH; WHISPER_DECODE float32 decode steps against the
+# forward; the slot engine on WHISPER_SERVE
+WHISPER_BATCH = 8
+WHISPER_STEPS = 10
+WHISPER_PREFILL_BATCH = 4
+WHISPER_DECODE = 32
+WHISPER_SERVE = (8, 32, 4)    # requests, new tokens each, slots
+# the kernel and plain paths of whisper's first training step in bf16
+# (relative differences), its float32 decode against its forward and its
+# prefill's last-position logits, kernel against plain (relative 2-norms;
+# the bf16 prefill rounded to bf16 as the step returns it, the float32
+# forward not rounded).  Limits about 10x the first card run's readings:
+# loss 3.57e-6, gradient norm 5.60e-4 (attention's bf16 roundings differ
+# on the two paths), decode 3.55e-7, prefill 2.06e-3 and 1.71e-7 (PERF.md)
+WHISPER_TRAIN_RTOL = {"loss": 3.5e-5, "grad_norm": 5e-3}
+WHISPER_DECODE_REL_L2 = 4e-6
+WHISPER_PREFILL_REL_L2 = {"bfloat16": 2e-2, "float32": 2e-6}
+# the recurrent families' training (sequence, steps); the depth is the
+# deepest whole number of segments whose reckoned footprint fits the card
+RECURRENT_TRAIN = {"zamba2-2.7b": (2048, 5), "xlstm-1.3b": (512, 3)}
+# (33 B: phase 8b's 58.75 GiB over 1.894 B parameters; 12 B: AdamW's
+# float32 temporaries on the largest leaf; the margin: what the CUDA
+# context and the allocator keep)
+BYTES_PER_PARAM = 33
+UPDATE_TEMP_BYTES = 12
+CARD_MARGIN = 4 * 2**30
+
+
+def _recurrent_counts(cfg) -> tuple:
+    """(parameters outside the layer stack, parameters a layer, elements of
+    the largest stacked leaf a layer) of zamba2 or xLSTM at ``cfg``'s
+    widths, from the shapes ``models/ssm.py``, ``models/xlstm.py`` and
+    ``models/recurrent.py`` give them: zamba2's layer is a Mamba2 block
+    and its norm (its largest leaf ``w_in``), the shared block counted
+    outside the stack; xLSTM's is a segment's 7 mLSTM and one sLSTM
+    blocks over its 8 layers (the largest leaf ``wq``)."""
+    from repro_torch.models import ssm, xlstm
+    d, V = cfg.d_model, cfg.vocab_size
+    head = 2 * V * d + (d if cfg.norm_type == "rmsnorm" else 2 * d)
+    if cfg.ssm is not None:
+        dm = ssm.dims(cfg)
+        d_in, H, N, G, K = dm["d_inner"], dm["H"], dm["N"], dm["G"], dm["K"]
+        conv = d_in + 2 * G * N
+        w_in = d * (2 * d_in + 2 * G * N + H)
+        layer = w_in + K * conv + conv + 3 * H + d_in + d_in * d + d
+        gated = cfg.mlp_type in ("swiglu", "geglu")
+        shared = (4 * d * cfg.n_heads * cfg.resolved_head_dim
+                  + (3 if gated else 2) * d * cfg.d_ff + 2 * d)
+        return head + shared, layer, w_in
+    dm = xlstm.mlstm_dims(cfg)
+    d_in, H, K = dm["d_in"], dm["H"], cfg.xlstm.conv1d_kernel
+    mlstm = (2 * d + 3 * d * d_in + K * d_in + d_in + 3 * d_in * d_in
+             + 2 * d_in * H + 2 * H + d_in)
+    ff = int(d * cfg.xlstm.slstm_proj_factor)
+    slstm = 4 * d * d + 4 * d * d // cfg.n_heads + 10 * d + 3 * d * ff
+    per = cfg.xlstm.slstm_every
+    return (head, ((per - 1) * mlstm + slstm) / per,
+            (per - 1) * d_in * d_in / per)
+
+
+def _depth_cut(arch: str) -> tuple:
+    """(layers, the reckoning as text, parameters at that depth): the
+    deepest multiple of ``arch``'s segment length whose footprint,
+    BYTES_PER_PARAM a parameter plus UPDATE_TEMP_BYTES an element of the
+    largest leaf, fits the card's memory less CARD_MARGIN."""
+    import torch
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    per = cfg.hybrid_attn_every or cfg.xlstm.slstm_every
+    fixed, layer, leaf = _recurrent_counts(cfg)
+    budget = torch.cuda.get_device_properties(0).total_memory - CARD_MARGIN
+
+    def need(L):
+        return (BYTES_PER_PARAM * (fixed + L * layer)
+                + UPDATE_TEMP_BYTES * L * leaf)
+
+    L = cfg.n_layers
+    while L > per and need(L) > budget:
+        L -= per
+    text = (f"{arch}: {fixed + cfg.n_layers * layer:,.0f} parameters at its "
+            f"{cfg.n_layers} layers ({fixed:,.0f} outside the stack, "
+            f"{layer:,.0f} a layer); reckoned {BYTES_PER_PARAM} B a "
+            f"parameter (phase 8b) + {UPDATE_TEMP_BYTES} B an element of the "
+            f"largest leaf: {need(cfg.n_layers) / 2**30:.2f} GiB at full "
+            f"depth, {need(L) / 2**30:.2f} GiB at {L} layers, against "
+            f"{budget / 2**30:.2f} GiB (the card less "
+            f"{CARD_MARGIN / 2**30:.0f} GiB): depth cut to {L} of "
+            f"{cfg.n_layers} layers")
+    return L, text, fixed + L * layer
+
+
+def _train_steps(label, step_fn, state: dict, batch, steps: int,
+                 want) -> tuple:
+    """``steps`` steps of ``step_fn`` on ``batch`` (one batch, so the
+    loss each step reports must fall: a few steps over fresh batches of a
+    large vocabulary need not show it); every step must launch exactly
+    the nonzero counts of ``want`` and no other kernel, and give a finite
+    loss and gradient norm.  ``state`` {"params", "opt_state"} is emptied,
+    so that the caller holds no reference to the initial state while the
+    steps make new ones.  Returns (params, opt_state, losses, norms, wall
+    seconds a step)."""
+    import numpy as np
+    params, opt_state = state.pop("params"), state.pop("opt_state")
+    want = {k: v for k, v in want.items() if v}
+    losses, norms, times = [], [], []
+    for i in range(steps):
+        _zero_counts()
+        t0 = time.perf_counter()
+        params, opt_state, m = step_fn(params, opt_state, batch)
+        _sync()
+        times.append(time.perf_counter() - t0)
+        counts = {k: v for k, v in _read_counts().items() if v}
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        print(f"{label} step {i + 1}: loss={losses[-1]:.6f} "
+              f"grad_norm={norms[-1]:.6f} wall_ms={times[-1] * 1e3:.2f} "
+              f"kernel_launches={json.dumps(counts)}", flush=True)
+        if counts != want:
+            raise AssertionError(f"{label} step {i + 1} launches {counts} "
+                                 f"!= {want}")
+        if not (np.isfinite(losses[-1]) and np.isfinite(norms[-1])):
+            raise AssertionError(f"{label}: loss or gradient norm not "
+                                 f"finite at step {i + 1}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{label}: the loss did not fall: {losses}")
+    return params, opt_state, losses, norms, times
+
+
+def _train_summary(label, losses, times, tokens) -> None:
+    """Median ms a step after the first, tokens/s, peak memory, the loss."""
+    import torch
+    ms = statistics.median(times[1:]) * 1e3
+    print(f"{label}: {len(times)} steps, median ms/step after the first="
+          f"{ms:.2f} (steps: {', '.join(f'{t * 1e3:.1f}' for t in times)}), "
+          f"tokens/s={tokens / (ms / 1e3):.1f}, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+          f"(max_memory_allocated), loss {losses[0]:.6f} -> "
+          f"{losses[-1]:.6f} [{CARD}]", flush=True)
+
+
+def _whisper_batch(cfg, B: int) -> dict:
+    """A training batch at whisper's published shapes: a 448-token bigram
+    batch and frames (B, 1500, 512), drawn from a generator on the card
+    seeded SEED + 1, as ``launch/train.py`` draws them."""
+    import torch
+    from repro_torch.data.synthetic import lm_token_batch
+    from repro_torch.launch.train import frontend_inputs
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 1)
+    b = lm_token_batch(gen, B, cfg.max_decoder_positions, cfg.vocab_size,
+                       device=DEVICE)
+    b.update(frontend_inputs(cfg, B, gen, DEVICE))
+    return b
+
+
+def phase_whisper() -> dict:
+    """whisper-base at its published width (6 + 6 layers, d 512, 8 x 64
+    heads, vocab 51,865), seed-SEED weights. Train: WHISPER_STEPS steps of
+    ``make_train_step_fn``, float32 masters and bf16 compute, at batch
+    WHISPER_BATCH x (1500 frames, 448 tokens) on one batch (the loss must
+    fall), each launching B6f 2L times
+    and dq, dk/dv L times (L = 6 decoder layers; the encoder's and the
+    cross attention are plain, as in the reference) and nothing else, with
+    the plain path's first step on the same state and batch (bf16) and
+    the two paths on the trained state in float32.  Prefill:
+    ``make_prefill_step_fn`` at batch WHISPER_PREFILL_BATCH, B6 L times,
+    kernel against plain logits in bf16 and float32.  Consistency:
+    WHISPER_DECODE float32 decode steps with the cross K/V filled from
+    ``encode`` -> ``encoder_kv``, against the forward's logits.  Serve:
+    the slot engine on WHISPER_SERVE, every request to its end, no kernel
+    launched.  Returns the launches of a training step and the prefill."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.specs import (make_loss_for_shape,
+                                          make_prefill_step_fn,
+                                          make_train_step_fn)
+    from repro_torch.models import encdec
+    from repro_torch.models.api import build_model
+    from repro_torch.serving.engine import DecodeEngine, SlotDecodeEngine
+    t_phase = time.perf_counter()
+    cfg = get_config("whisper-base")
+    api = build_model(cfg)
+    L, S, B = cfg.n_layers, cfg.max_decoder_positions, WHISPER_BATCH
+    torch.cuda.reset_peak_memory_stats()
+    params = api.init(seed=SEED, device=DEVICE, dtype=torch.float32)
+    n_params = sum(t.numel() for t in _leaves(params))
+    shape = InputShape("whisper_train", S, B, "train")
+    step_fn, opt = make_train_step_fn(api, shape, lr=TRAIN_LR)
+    plain_step, _ = make_train_step_fn(api, shape, lr=TRAIN_LR,
+                                       use_kernel=False)
+    state = {"params": params, "opt_state": opt.init(params)}
+    batch = _whisper_batch(cfg, B)
+    print(f"whisper-base: d_model={cfg.d_model} layers="
+          f"{cfg.n_encoder_layers}+{L} heads={cfg.n_heads}x"
+          f"{cfg.resolved_head_dim} vocab={cfg.vocab_size} {n_params:,} "
+          f"params float32 masters, bf16 compute, batch {B} x "
+          f"({cfg.encoder_positions} frames, {S} tokens), adamw(lr="
+          f"{TRAIN_LR}, grad_clip_norm=1.0) [{CARD}]", flush=True)
+
+    # the plain path's step from the first kernel step's state and batch
+    _zero_counts()
+    t0 = time.perf_counter()
+    _, _, m = plain_step(params, state["opt_state"], batch)
+    _sync()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    plain_counts = {k: v for k, v in _read_counts().items() if v}
+    loss_p, norm_p = float(m["loss"]), float(m["grad_norm"])
+    del m
+    if plain_counts:
+        raise AssertionError(f"whisper plain step launched {plain_counts}")
+    want_step = {fa.B6F: 2 * L, fa.B6_DQ: L, fa.B6_DKV: L}
+    del params
+    params, opt_state, losses, norms, times = _train_steps(
+        "whisper-base train", step_fn, state, batch, WHISPER_STEPS,
+        want_step)
+    _train_summary("whisper-base train", losses, times, B * S)
+    rel_l = abs(losses[0] - loss_p) / abs(loss_p)
+    rel_n = abs(norms[0] - norm_p) / norm_p
+    print(f"whisper-base step 1 on the plain path (use_kernel=False): "
+          f"loss={loss_p:.6f} grad_norm={norm_p:.6f} wall_ms={plain_ms:.2f}; "
+          f"kernel path loss={losses[0]:.6f} grad_norm={norms[0]:.6f}; "
+          f"relative differences {rel_l:.3e}, {rel_n:.3e} (limits "
+          f"{WHISPER_TRAIN_RTOL['loss']:g}, "
+          f"{WHISPER_TRAIN_RTOL['grad_norm']:g})", flush=True)
+    if not (rel_l <= WHISPER_TRAIN_RTOL["loss"]
+            and rel_n <= WHISPER_TRAIN_RTOL["grad_norm"]):
+        raise AssertionError("whisper: the kernel step disagrees with the "
+                             "plain one")
+    del opt_state
+    torch.cuda.empty_cache()
+    # the trained state in float32: the kernel path (the FMA flash
+    # kernels) against the plain path
+    redo, redo_counts = {}, {}
+    for label, kw in (("kernel", {"compute_dtype": torch.float32}),
+                      ("plain", {"compute_dtype": torch.float32,
+                                 "use_kernel": False})):
+        _zero_counts()
+        redo[label] = _loss_and_grad_norm(
+            make_loss_for_shape(api, shape, **kw), params, batch)
+        redo_counts[label] = {k: v for k, v in _read_counts().items() if v}
+    (lk, nk), (lp, np_) = redo["kernel"], redo["plain"]
+    print(f"whisper-base trained state in float32: kernel loss={lk!r} "
+          f"grad_norm={nk!r} (launches {json.dumps(redo_counts['kernel'])});"
+          f" plain loss={lp!r} grad_norm={np_!r} (launches "
+          f"{json.dumps(redo_counts['plain'])}); relative differences "
+          f"{abs(lk - lp) / abs(lp):.3e}, {abs(nk - np_) / np_:.3e} (rtol "
+          f"{TRAIN_F32_RTOL:g})", flush=True)
+    if not (abs(lk - lp) <= TRAIN_F32_RTOL * abs(lp)
+            and abs(nk - np_) <= TRAIN_F32_RTOL * np_):
+        raise AssertionError("whisper: in float32 the kernel path "
+                             "disagrees with the plain one")
+
+    # prefill: B6 once a decoder layer, kernel against plain; the bf16
+    # step's last-position logits (rounded to bf16, as the step returns
+    # them) and the float32 forward's (not rounded)
+    Bp = WHISPER_PREFILL_BATCH
+    pshape = InputShape("whisper_prefill", S, Bp, "prefill")
+    pb = {k: v[:Bp] for k, v in batch.items() if k != "labels"}
+    runs, prefill_counts = {}, {}
+    with torch.no_grad():
+        for label, kw in (("kernel", {}), ("plain", {"use_kernel": False})):
+            for dt in ("bfloat16", "float32"):
+                step = make_prefill_step_fn(api, pshape, **kw)
+                if dt == "float32":
+                    def step(p, b, kw=kw):
+                        return api.forward(
+                            p, b["tokens"], frames=b["frames"],
+                            compute_dtype=torch.float32, remat=False,
+                            **kw)[0][:, -1]
+                _zero_counts()
+                t0 = time.perf_counter()
+                out = step(params, pb)
+                _sync()
+                ms = (time.perf_counter() - t0) * 1e3
+                counts = {k: v for k, v in _read_counts().items() if v}
+                runs[label, dt] = out
+                print(f"whisper-base prefill [{label}, {dt}]: batch {Bp} x "
+                      f"({cfg.encoder_positions} frames, {S} tokens), "
+                      f"logits {tuple(out.shape)} wall_ms={ms:.2f} "
+                      f"kernel_launches={json.dumps(counts)}", flush=True)
+                if label == "kernel" and dt == "bfloat16":
+                    prefill_counts = counts
+                    if counts != {fa.B6: L}:
+                        raise AssertionError(f"whisper prefill launches "
+                                             f"{counts} != B6 x {L}")
+                if label == "plain" and counts:
+                    raise AssertionError(f"whisper plain prefill launched "
+                                         f"{counts}")
+                if not bool(torch.isfinite(out).all()):
+                    raise AssertionError(f"whisper {label} {dt} prefill "
+                                         "logits not finite")
+    for dt in ("bfloat16", "float32"):
+        rel, mx = _logits_gap(runs["kernel", dt], runs["plain", dt])
+        print(f"whisper-base prefill kernel vs plain [{dt}]: rel_l2="
+              f"{rel:.3e} max_abs={mx:.3e} (limit "
+              f"{WHISPER_PREFILL_REL_L2[dt]:g})", flush=True)
+        if not rel <= WHISPER_PREFILL_REL_L2[dt]:
+            raise AssertionError(f"whisper {dt} prefill: the kernel "
+                                 "disagrees with the plain path")
+    del runs
+
+    # consistency: float32 decode with the cross K/V from the encoder,
+    # against the forward's logits
+    Bd, Sd = 2, WHISPER_DECODE
+    frames = batch["frames"][:Bd]
+    tokens = batch["tokens"][:Bd, :Sd]
+    with torch.no_grad():
+        fwd, _ = api.forward(params, tokens, frames=frames,
+                             compute_dtype=torch.float32, remat=False)
+        cache = api.init_cache(Bd, Sd, dtype=torch.float32, device=DEVICE)
+        enc = encdec.encode(params, frames, cfg, compute_dtype=torch.float32)
+        cache["cross"] = encdec.encoder_kv(params, enc, cfg)
+        outs = []
+        t0 = time.perf_counter()
+        for t in range(Sd):
+            logits, cache = api.decode_step(params, cache,
+                                            tokens[:, t:t + 1],
+                                            compute_dtype=torch.float32)
+            outs.append(logits[:, 0])
+        _sync()
+        dec_ms = (time.perf_counter() - t0) * 1e3 / Sd
+    dec = torch.stack(outs, 1)
+    rel, mx = _logits_gap(dec, fwd)
+    agree = float((dec.argmax(-1) == fwd.argmax(-1)).float().mean())
+    print(f"whisper-base decode vs forward [float32, cross K/V from the "
+          f"encoder]: {Bd} x {Sd} tokens, rel_l2={rel:.3e} max_abs="
+          f"{mx:.3e} (limit {WHISPER_DECODE_REL_L2:g}), same argmax "
+          f"{agree:.4f}, {dec_ms:.2f} ms a decode step", flush=True)
+    if not rel <= WHISPER_DECODE_REL_L2:
+        raise AssertionError("whisper: decode disagrees with the forward")
+    del params, fwd, dec, outs, cache, enc, batch
+    torch.cuda.empty_cache()
+
+    # serving: the slot engine on bf16 weights
+    n_req, n_new, slots = WHISPER_SERVE
+    sparams = api.init(seed=SEED, device=DEVICE, dtype=torch.bfloat16)
+    eng = DecodeEngine(api, sparams, n_slots=slots, cache_len=64,
+                       device=DEVICE)
+    if not isinstance(eng, SlotDecodeEngine):
+        raise AssertionError("whisper is not served by the slot engine")
+    rng = np.random.default_rng(SEED)
+    for _ in range(n_req):
+        eng.submit(rng.integers(0, cfg.vocab_size, 8).astype(np.int32),
+                   n_new)
+    _zero_counts()
+    t0 = time.perf_counter()
+    finished = eng.run_until_drained()
+    _sync()
+    wall = time.perf_counter() - t0
+    counts = {k: v for k, v in _read_counts().items() if v}
+    print(f"whisper-base serve: SlotDecodeEngine slots={slots} requests="
+          f"{len(finished)}/{n_req} steps={eng.steps} tokens="
+          f"{eng.tokens_decoded} wall_s={wall:.3f} tok_per_s="
+          f"{eng.tokens_decoded / wall:.2f} ms_per_step="
+          f"{wall / eng.steps * 1e3:.2f} kernel_launches="
+          f"{json.dumps(counts)} [{CARD}]", flush=True)
+    if len(finished) != n_req or counts or not all(
+            len(r.generated) == n_new for r in finished):
+        raise AssertionError("whisper serve: a request did not finish, or "
+                             "a kernel launched")
+    del eng, sparams
+    torch.cuda.empty_cache()
+    print(f"phase 13a: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"train": {k: v for k, v in want_step.items() if v},
+            "prefill": prefill_counts}
+
+
+def phase_recurrent_train(arch: str) -> dict:
+    """``arch`` at its published width, depth cut by ``_depth_cut``,
+    float32 masters and bf16 compute, trained RECURRENT_TRAIN[arch]'s
+    steps on one batch of 1: the loss must fall, the gradient norm stay
+    finite,
+    and every step launch B6f twice and dq, dk/dv once per
+    shared-attention application (zamba2; xLSTM has no attention) and no
+    B5 or B4: the loss runs the scans' plain chunkwise forms.  Returns a
+    step's launches."""
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.data.synthetic import lm_token_batch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.specs import make_train_step_fn
+    from repro_torch.models.api import build_model
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    L, text, n_want = _depth_cut(arch)
+    print(text, flush=True)
+    seq, steps = RECURRENT_TRAIN[arch]
+    cfg = dataclasses.replace(get_config(arch), n_layers=L)
+    api = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init(seed=SEED, device=DEVICE, dtype=torch.float32)
+    _sync()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"{arch} train: {L} layers, {n_params:,} params float32 masters "
+          f"(reckoned {n_want:,.0f}) in {time.perf_counter() - t0:.1f} s, "
+          f"bf16 compute, batch 1 x {seq}, adamw(lr={TRAIN_LR}, "
+          f"grad_clip_norm=1.0), remat per segment [{CARD}]", flush=True)
+    if n_params != round(n_want):
+        raise AssertionError(f"{arch}: the reckoned parameter count is off")
+    shape = InputShape(f"train_{seq}", seq, 1, "train")
+    step_fn, opt = make_train_step_fn(api, shape, lr=TRAIN_LR)
+    state = {"params": params, "opt_state": opt.init(params)}
+    del params
+    gen = torch.Generator()
+    gen.manual_seed(SEED + 1)
+    batch = lm_token_batch(gen, 1, seq, cfg.vocab_size, device=DEVICE)
+    n_attn = L // cfg.hybrid_attn_every if cfg.hybrid_attn_every else 0
+    want = {fa.B6F: 2 * n_attn, fa.B6_DQ: n_attn, fa.B6_DKV: n_attn}
+    params, opt_state, losses, norms, times = _train_steps(
+        f"{arch} train", step_fn, state, batch, steps, want)
+    _train_summary(f"{arch} train ({L} layers)", losses, times, seq)
+    del params, opt_state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 13{'b' if n_attn else 'c'}: "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {k: v for k, v in want.items() if v}
+
+
 KERNELS = [("paged_attention_tiled", "paged_attention_tiled_tc",
             "paged_attention.py:373"),
            ("paged_attention_ragged", "paged_attention_ragged_tc",
@@ -3171,6 +3632,13 @@ def main() -> None:
     del fleet
     phase_cookienetae()
     phase_crossover()
+
+    # 13. the audio family (whisper-base: training, prefill, decode
+    # consistency, serving) and the recurrent families' training
+    torch.cuda.empty_cache()
+    phase_whisper()
+    phase_recurrent_train("zamba2-2.7b")
+    phase_recurrent_train("xlstm-1.3b")
 
     # each kernel's numbers at its main path's shapes
     numbers = {name: c["gemma-7b bf16"] for name, c in checks.items()}

@@ -5,10 +5,12 @@ Builds the port's DecodeEngine (the paged engine with its defaults for
 the dense and MoE families and the VLM's text backbone, e.g. ``--arch
 gemma-7b``, ``deepseek-moe-16b``, ``llava-next-mistral-7b`` or
 ``command-r-35b``; the dense-slot engine for the recurrent families,
-``--arch zamba2-2.7b`` and ``--arch xlstm-1.3b``) on the smoke variant of
-the arch, or at its published width with ``--full``, with random bf16
-weights from seed 0, and serves a batch of synthetic requests.  It runs
-on the CUDA card unless ``--device cpu`` is given.
+``--arch zamba2-2.7b`` and ``--arch xlstm-1.3b``, and the audio
+encoder-decoder, ``--arch whisper-base``, whose decoder is served with
+the cache's cross K/V at zero, as the reference's engine serves it) on
+the smoke variant of the arch, or at its published width with ``--full``,
+with random bf16 weights from seed 0, and serves a batch of synthetic
+requests.  It runs on the CUDA card unless ``--device cpu`` is given.
 """
 from __future__ import annotations
 

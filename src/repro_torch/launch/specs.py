@@ -25,10 +25,12 @@ def make_loss_for_shape(api: ModelAPI, shape: InputShape, *,
                         attn_chunk: int = 512, remat: bool = True,
                         **model_kw) -> Callable:
     """loss(params, batch) -> (loss, metrics) at the attention window
-    that ``shape``'s sequence length gives the arch."""
-    kwargs: Dict[str, Any] = dict(window=api.effective_window(shape.seq_len),
-                                  attn_chunk=attn_chunk, remat=remat,
+    that ``shape``'s sequence length gives the arch; the audio family's
+    loss gets no window, as the reference's."""
+    kwargs: Dict[str, Any] = dict(attn_chunk=attn_chunk, remat=remat,
                                   **model_kw)
+    if api.cfg.family != "audio":
+        kwargs["window"] = api.effective_window(shape.seq_len)
 
     def loss(params, batch):
         return api.loss(params, batch, **kwargs)
@@ -66,18 +68,18 @@ def make_prefill_step_fn(api: ModelAPI, shape: InputShape, *,
     bfloat16, from a no-remat forward over ``batch["tokens"]`` at the
     window ``shape``'s sequence length gives the arch: what serving
     admission needs for next-token sampling.  The VLM family's forward
-    also takes ``batch["patches"]`` (prepended to the tokens); the
-    encoder-decoder family's frames are not ported (ROADMAP A6b)."""
-    window = api.effective_window(shape.seq_len)
-    if api.cfg.family == "audio":
-        raise NotImplementedError("audio prefill is ROADMAP A6b")
-    vlm = api.cfg.family == "vlm"
+    also takes ``batch["patches"]`` (prepended to the tokens), the audio
+    family's ``batch["frames"]`` (the encoder's input; no window, as the
+    reference)."""
+    family = api.cfg.family
+    kw: Dict[str, Any] = dict(attn_chunk=attn_chunk, remat=False, **model_kw)
+    if family != "audio":
+        kw["window"] = api.effective_window(shape.seq_len)
+    extra = {"vlm": "patches", "audio": "frames"}.get(family)
 
     def prefill_step(params, batch):
-        extra = {"patches": batch["patches"]} if vlm else {}
-        logits, _ = api.forward(params, batch["tokens"], window=window,
-                                attn_chunk=attn_chunk, remat=False,
-                                **extra, **model_kw)
+        inputs = {extra: batch[extra]} if extra else {}
+        logits, _ = api.forward(params, batch["tokens"], **inputs, **kw)
         return logits[:, -1].to(torch.bfloat16)
 
     return prefill_step

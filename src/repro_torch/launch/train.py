@@ -1,13 +1,19 @@
 """Training launcher of the port:
-``python -m repro_torch.launch.train --arch gemma-7b [--full] [--device cuda|cpu]``.
+``python -m repro_torch.launch.train --arch <id> [--full] [--device cuda|cpu]``.
 
-Runs real training steps of the dense-family LM: float32 master weights
-from seed 0, a bfloat16 forward, AdamW with global-norm clipping
+Runs real training steps of any registered arch (``gemma-7b``,
+``llava-next-mistral-7b``, ``zamba2-2.7b``, ``xlstm-1.3b``,
+``whisper-base``, ...): float32 master weights from seed 0, a bfloat16
+forward, AdamW with global-norm clipping
 (``launch/specs.py::make_train_step_fn``), on synthetic bigram batches
-(``data/synthetic.py::lm_token_batch``, one seed per step).  The smoke
-variant of the arch by default, its published width with ``--full``.  It
-runs on the CUDA card, where attention goes through the flash-attention
-kernels forward and backward, unless ``--device cpu`` is given.
+(``data/synthetic.py::lm_token_batch``, one seed per step); the VLM's
+patch embeddings and the audio family's frame embeddings are drawn from
+a normal distribution with the step's generator, as the reference's
+launcher draws them.  The smoke variant of the arch by default, its
+published width with ``--full``.  It runs on the CUDA card, where
+attention goes through the flash-attention kernels forward and backward
+(the recurrent families' scans through their plain chunkwise forms: the
+scan kernels have no backward), unless ``--device cpu`` is given.
 ``--model-parallel`` above 1 needs the multi-device port (ROADMAP A9).
 """
 from __future__ import annotations
@@ -25,6 +31,23 @@ from repro_torch.device import resolve_device
 from repro_torch.launch import specs as specs_lib
 from repro_torch.models.api import build_model
 from repro_torch.train import checkpoint as ckpt_lib
+
+
+def frontend_inputs(cfg, batch: int, gen: torch.Generator, device) -> dict:
+    """The stubbed frontend's embeddings a batch needs, drawn N(0, 1) from
+    ``gen`` in bfloat16: ``frames`` (batch, encoder_positions, d_embed) for
+    the audio family, ``patches`` (batch, n_tokens, d_embed) for the VLM;
+    nothing for the other families."""
+    if cfg.family == "audio":
+        shape = (batch, cfg.encoder_positions, cfg.frontend.d_embed)
+        name = "frames"
+    elif cfg.family == "vlm":
+        shape = (batch, cfg.frontend.n_tokens, cfg.frontend.d_embed)
+        name = "patches"
+    else:
+        return {}
+    x = torch.randn(shape, generator=gen, device=gen.device)
+    return {name: x.to(device=device, dtype=torch.bfloat16)}
 
 
 def main(argv=None) -> None:
@@ -65,6 +88,7 @@ def main(argv=None) -> None:
         gen.manual_seed(step)
         batch = lm_token_batch(gen, args.batch, args.seq, cfg.vocab_size,
                                device=dev)
+        batch.update(frontend_inputs(cfg, args.batch, gen, dev))
         params, opt_state, metrics = step_fn(params, opt_state, batch)
         if step % args.log_every == 0 or step == 1:
             loss = float(metrics["loss"])

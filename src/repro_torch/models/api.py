@@ -1,5 +1,6 @@
-"""Unified model API of the port: the dense, moe, vlm, hybrid (zamba2) and
-ssm (xLSTM) branches of ``repro/models/api.py::build_model``.
+"""Unified model API of the port: every branch of
+``repro/models/api.py::build_model`` — dense, moe, vlm, hybrid (zamba2),
+ssm (xLSTM) and audio (whisper's encoder-decoder).
 
 ``build_model(cfg)`` returns a :class:`ModelAPI` with:
   * ``init(seed=0, device="cuda", dtype=torch.bfloat16)`` -> params
@@ -17,18 +18,30 @@ ssm (xLSTM) branches of ``repro/models/api.py::build_model``.
 
 The MoE family serves through the transformer's API and the VLM through
 ``models/vlm.py``'s, whose paged steps serve the text backbone (patches
-enter through ``forward``).  The recurrent families have no paged steps
-(their decode state is O(1) recurrent, not a growing KV sequence), so
-they serve through the dense-slot engine; their ``loss`` raises
-(training them is ROADMAP A7).
+enter through ``forward``).  The recurrent and audio families have no
+paged steps (their decode state is O(1) recurrent, or a fixed encoder's
+cross K/V beside a dense self cache), so they serve through the
+dense-slot engine.  The audio family's ``forward`` takes ``frames=``
+(B, encoder_positions, d_embed) and its ``loss`` reads
+``batch["frames"]``.
+
+The recurrent families' ``loss`` (the counterpart of the reference's
+``_lm_loss_wrapper``) runs the SSD and mLSTM scans through their plain
+chunkwise forms, by passing ``scan_kernel=False`` to the forward: the
+scan kernels have no backward (nor do the reference's), while zamba2's
+shared attention keeps ``use_kernel``'s rule (the flash kernels, forward
+and backward, on CUDA tensors).  Prefill and serving keep the scan
+kernels.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Callable, Optional, Tuple
 
+import torch
+
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import recurrent, transformer, vlm
+from repro_torch.models import encdec, recurrent, transformer, vlm
 
 # full-attention archs switch to their long-context SWA variant above this
 LONG_CONTEXT_THRESHOLD = 65_536
@@ -85,11 +98,20 @@ _RECURRENT = {
 }
 
 
-def _no_training(cfg: ArchConfig):
-    def loss(*_args, **_kw):
-        raise NotImplementedError(
-            f"training {cfg.name} ({cfg.family}) is not ported yet (ROADMAP "
-            "A7): the SSD and mLSTM kernels have no backward")
+def _lm_loss_wrapper(forward_fn, cfg: ArchConfig):
+    """The recurrent families' loss: ``forward_fn`` with the scans on their
+    plain chunkwise forms (``scan_kernel=False``) then ``lm_loss`` (aux
+    weight 0).  The reference always computes in bfloat16 here;
+    ``compute_dtype`` lets a float32 run compare."""
+    def loss(params, batch, *, window: int = 0, attn_chunk: int = 512,
+             remat: bool = True, compute_dtype: torch.dtype = torch.bfloat16,
+             use_kernel: Optional[bool] = None):
+        logits, aux = forward_fn(params, batch["tokens"], cfg, window=window,
+                                 compute_dtype=compute_dtype,
+                                 attn_chunk=attn_chunk, remat=remat,
+                                 use_kernel=use_kernel, scan_kernel=False)
+        return transformer.lm_loss(logits, batch["labels"], aux, 0.0)
+
     return loss
 
 
@@ -99,16 +121,22 @@ def build_model(cfg: ArchConfig) -> ModelAPI:
         return ModelAPI(
             cfg=cfg,
             init=lambda **kw: init(cfg, **kw),
-            loss=_no_training(cfg),
+            loss=_lm_loss_wrapper(forward, cfg),
             forward=lambda p, t, **kw: forward(p, t, cfg, **kw),
             init_cache=lambda b, n, **kw: init_cache(cfg, b, n, **kw),
             decode_step=lambda p, c, t, **kw: decode_step(p, c, t, cfg,
                                                           **kw),
         )
-    if cfg.family not in ("dense", "moe", "vlm"):
-        raise NotImplementedError(
-            f"{cfg.family} models ({cfg.name}) are not ported yet: the "
-            "audio (encoder-decoder) family is ROADMAP item A6b")
+    if cfg.family == "audio":
+        return ModelAPI(
+            cfg=cfg,
+            init=lambda **kw: encdec.init_params(cfg, **kw),
+            loss=lambda p, b, **kw: encdec.loss_fn(p, b, cfg, **kw),
+            forward=lambda p, t, **kw: encdec.forward(p, t, cfg, **kw),
+            init_cache=lambda b, n, **kw: encdec.init_cache(cfg, b, n, **kw),
+            decode_step=lambda p, c, t, **kw: encdec.decode_step(
+                p, c, t, cfg, **kw),
+        )
     # dense / moe through the transformer, vlm through its own module
     m = vlm if cfg.family == "vlm" else transformer
     return ModelAPI(

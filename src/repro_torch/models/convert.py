@@ -32,7 +32,11 @@ def from_reference_params(tree: Dict[str, Any], *, device="cuda",
     ``shared`` MLP among them) and the MoE family's unstacked
     ``head_blocks`` list, the VLM's ``projector`` and ``lm`` (a
     transformer tree), zamba2's ``segments`` (n_seg, per, ...) and
-    xLSTM's ``mlstm`` (n_seg, n_mlstm, ...) and ``slstm`` (n_seg, ...)."""
+    xLSTM's ``mlstm`` (n_seg, n_mlstm, ...) and ``slstm`` (n_seg, ...),
+    and the encoder-decoder's ``embed``, ``dec_pos`` and ``frame_proj``
+    (weights, in ``dtype``), ``enc_final_norm``/``dec_final_norm`` and
+    the stacked ``enc_blocks``/``dec_blocks`` (their ``*_norm`` keys
+    float32)."""
     dev = resolve_device(device)
 
     def conv(node, is_norm: bool):

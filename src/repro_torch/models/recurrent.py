@@ -141,13 +141,18 @@ def zamba_forward(params: Dict, tokens: torch.Tensor, cfg: ArchConfig, *,
                   window: int = 0,
                   compute_dtype: torch.dtype = torch.bfloat16,
                   attn_chunk: int = 512, remat: bool = True,
-                  use_kernel: Optional[bool] = None
+                  use_kernel: Optional[bool] = None,
+                  scan_kernel: Optional[bool] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens (B, S) -> (logits (B, S, V) float32, aux 0): the prefill
-    forward.  Weights are cast to ``compute_dtype`` once per call (the
-    float32 keys stay).  On the kernel path (``use_kernel``, or CUDA
+    """tokens (B, S) -> (logits (B, S, V) float32, aux 0): the prefill and
+    training forward.  Weights are cast to ``compute_dtype`` once per call
+    (the float32 keys stay).  On the kernel path (``use_kernel``, or CUDA
     tensors when None) every Mamba2 layer's scan is the SSD kernel and
-    every shared-attention application the flash forward."""
+    every shared-attention application the flash kernels.
+    ``scan_kernel`` overrides ``use_kernel`` for the scans alone: the loss
+    passes False (the SSD kernel has no backward), so the scans run
+    ``ssm.ssd_chunked`` while the attention keeps its kernels."""
+    scan_use = use_kernel if scan_kernel is None else scan_kernel
     p = cast_weights(params, compute_dtype)
     n_seg, per = zamba_segments(cfg)
     x = layers.embed_tokens(p["embed"], tokens.long())
@@ -158,7 +163,7 @@ def zamba_forward(params: Dict, tokens: torch.Tensor, cfg: ArchConfig, *,
             lp = _index(p["segments"], s, l)
             xn = apply_norm(cfg.norm_type, lp["norm"], x_)
             y, _ = ssm_lib.apply_mamba2(lp["mamba"], xn, cfg,
-                                        use_kernel=use_kernel)
+                                        use_kernel=scan_use)
             x_ = x_ + y
         return _shared_attn_apply(p["shared"], x_, positions, cfg,
                                   window=window, attn_chunk=attn_chunk,
@@ -259,13 +264,17 @@ def xlstm_forward(params: Dict, tokens: torch.Tensor, cfg: ArchConfig, *,
                   window: int = 0,
                   compute_dtype: torch.dtype = torch.bfloat16,
                   attn_chunk: int = 512, remat: bool = True,
-                  use_kernel: Optional[bool] = None
+                  use_kernel: Optional[bool] = None,
+                  scan_kernel: Optional[bool] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens (B, S) -> (logits (B, S, V) float32, aux 0): the prefill
-    forward (``window`` and ``attn_chunk`` are accepted for the common
-    signature).  On the kernel path every mLSTM layer's scan is the mLSTM
-    kernel; the sLSTM stays a plain loop over time."""
+    """tokens (B, S) -> (logits (B, S, V) float32, aux 0): the prefill and
+    training forward (``window`` and ``attn_chunk`` are accepted for the
+    common signature).  On the kernel path every mLSTM layer's scan is the
+    mLSTM kernel; the sLSTM stays a plain loop over time.  ``scan_kernel``
+    overrides ``use_kernel`` for the scans: the loss passes False (the
+    mLSTM kernel has no backward), so they run ``xlstm.mlstm_chunkwise``."""
     del window, attn_chunk
+    scan_use = use_kernel if scan_kernel is None else scan_kernel
     p = cast_weights(params, compute_dtype)
     n_seg, n_ml = xlstm_segments(cfg)
     x = layers.embed_tokens(p["embed"], tokens.long())
@@ -273,7 +282,7 @@ def xlstm_forward(params: Dict, tokens: torch.Tensor, cfg: ArchConfig, *,
     def segment(s, x_):
         for l in range(n_ml):
             x_, _ = xlstm_lib.apply_mlstm_block(
-                _index(p["mlstm"], s, l), x_, cfg, use_kernel=use_kernel)
+                _index(p["mlstm"], s, l), x_, cfg, use_kernel=scan_use)
         x_, _ = xlstm_lib.apply_slstm_block(_index(p["slstm"], s), x_, cfg)
         return x_
 

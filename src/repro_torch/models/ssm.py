@@ -135,11 +135,16 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     dA = dtr * A.to(f32)                              # (B,nc,Q,H) negative
     cum = torch.cumsum(dA, dim=2)                     # inclusive, in chunk
 
-    # intra-chunk decay matrix: exp(cum_i - cum_j) for j <= i, else 0
+    # intra-chunk decay matrix: exp(cum_i - cum_j) for j <= i, else 0.
+    # The mask goes in before the exp: above the diagonal cum_i - cum_j > 0
+    # overflows float32 at the published chunk (up to 127 x 1.6), and the
+    # reference's where(tri, exp(diff), 0) then back-propagates 0 x inf =
+    # NaN.  The values are the reference's bit for bit (exp(-inf) = 0).
     diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]   # (B,nc,Qi,Qj,H)
     tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
-    Lmat = torch.where(tri[None, None, :, :, None], torch.exp(diff),
-                       torch.zeros((), dtype=f32, device=x.device))
+    Lmat = torch.exp(torch.where(
+        tri[None, None, :, :, None], diff,
+        torch.tensor(float("-inf"), dtype=f32, device=x.device)))
 
     xdt = xr * dtr[..., None].to(x.dtype)             # (B,nc,Q,H,P)
 

@@ -35,7 +35,7 @@ def _check_family(cfg: ArchConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: this module serves the dense and MoE transformer "
             "families and the VLM's text backbone (zamba2 and xLSTM are "
-            "models/recurrent.py; the audio family is ROADMAP item A6b)")
+            "models/recurrent.py; the audio family is models/encdec.py)")
 
 
 def attention_params(cfg: ArchConfig, n: int, g: torch.Generator, *,

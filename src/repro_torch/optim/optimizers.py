@@ -33,18 +33,24 @@ class Optimizer:
 
 
 def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
-    """``fn`` over the leaves of nested dicts, with the matching leaves of
-    ``rest`` (which share ``tree``'s structure)."""
+    """``fn`` over the leaves of nested dicts and lists (an MoE config's
+    ``head_blocks``), with the matching leaves of ``rest`` (which share
+    ``tree``'s structure)."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
     return fn(tree, *rest)
 
 
 def tree_leaves(tree: Tree) -> list:
-    """The leaves of nested dicts, in insertion order."""
+    """The leaves of nested dicts and lists, in insertion order."""
     if isinstance(tree, dict):
         return [leaf for v in tree.values() for leaf in tree_leaves(v)]
+    if isinstance(tree, list):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
     return [tree]
 
 

@@ -840,8 +840,9 @@ class SlotDecodeEngine:
                     # the transformer family's KV cache: a new occupant
                     # starts at position 0 and never sees its
                     # predecessor's KV.  The recurrent families (zamba2,
-                    # xLSTM) keep the reference's behaviour: their lane
-                    # state and position carry over to the new occupant.
+                    # xLSTM) and the encoder-decoder (no "scan" key) keep
+                    # the reference's behaviour: their lane state, KV and
+                    # position carry over to the new occupant.
                     self.cache["slot_positions"][slot] = -1
                     self.cache["pos"][slot] = 0
 

@@ -50,18 +50,26 @@ def _from_storable(arr: np.ndarray, dtype_name: str) -> torch.Tensor:
 
 def _flatten_with_paths(tree: Tree, prefix: str = ""
                         ) -> List[Tuple[str, Any]]:
-    """(path, leaf) pairs of nested dicts, keys sorted at every level."""
+    """(path, leaf) pairs of nested dicts (keys sorted at every level) and
+    lists (an MoE config's ``head_blocks``; their indices in the path), as
+    the reference's ``jax.tree_util`` paths."""
     if isinstance(tree, dict):
         flat = []
         for k in sorted(tree):
             flat += _flatten_with_paths(tree[k], f"{prefix}{k}/")
+        return flat
+    if isinstance(tree, list):
+        flat = []
+        for i, v in enumerate(tree):
+            flat += _flatten_with_paths(v, f"{prefix}{i}/")
         return flat
     return [(prefix[:-1], tree)]
 
 
 def save_checkpoint(directory: str, step: int, tree: Tree, *,
                     extra: Optional[Dict] = None, keep: int = 3) -> str:
-    """Write ``tree`` (nested dicts of tensors) as checkpoint ``step``,
+    """Write ``tree`` (nested dicts and lists of tensors) as checkpoint
+    ``step``,
     keeping the newest ``keep``.  Returns the path without suffix."""
     os.makedirs(directory, exist_ok=True)
     flat = [(k, *_to_storable(torch.as_tensor(a)))
@@ -121,6 +129,8 @@ def restore_checkpoint(directory: str, template: Tree,
     def restore(node, prefix: str):
         if isinstance(node, dict):
             return {k: restore(v, f"{prefix}{k}/") for k, v in node.items()}
+        if isinstance(node, list):
+            return [restore(v, f"{prefix}{i}/") for i, v in enumerate(node)]
         key = prefix[:-1]
         if key not in by_path:
             raise KeyError(f"checkpoint missing leaf {key!r}")

@@ -68,7 +68,8 @@ def test_source_imports_no_jax_and_no_repro(path):
 
 def test_default_device_is_the_card():
     """Built with the default device on a machine without CUDA, the
-    engines, the model inits and the caches (dense, zamba2 and xLSTM),
+    engines, the model inits and the caches (dense, zamba2, xLSTM and
+    whisper's encoder-decoder),
     CookieNetAE and its shots, and the launchers of the paper's workflow,
     of edge serving and of the crossover analysis raise instead of running
     on the CPU."""
@@ -86,9 +87,9 @@ def test_default_device_is_the_card():
     params = api.init(seed=0, device="cpu", dtype=torch.float32)
     with pytest.raises(RuntimeError, match="CUDA"):
         PagedDecodeEngine(api, params, n_slots=2, cache_len=16)
-    # the recurrent families: init, caches and their slot engine
+    # the recurrent and audio families: init, caches and their slot engine
     from repro_torch.serving.engine import DecodeEngine
-    for arch in ("zamba2-2.7b", "xlstm-1.3b"):
+    for arch in ("zamba2-2.7b", "xlstm-1.3b", "whisper-base"):
         api = build_model(get_config(arch).smoke_variant())
         with pytest.raises(RuntimeError, match="CUDA"):
             api.init(seed=0)

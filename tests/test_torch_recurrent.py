@@ -50,7 +50,8 @@ F32 = dict(device="cpu", dtype=torch.float32)
 def model(request):
     arch = request.param
     japi = jax_build_model(jax_get_config(arch).smoke_variant())
-    jparams = japi.init(jax.random.PRNGKey(0))
+    # jitted: half the time of the eager init (the bits differ from it)
+    jparams = jax.jit(japi.init)(jax.random.PRNGKey(0))
     tparams = from_reference_params(jax.tree.map(np.asarray, jparams),
                                     **F32)
     api = build_model(get_config(arch).smoke_variant())
@@ -235,8 +236,130 @@ def test_slot_engine_matches_reference_engine(model):
         jeng.cache["pos"]).tolist() == [eng.steps] * 2
 
 
-def test_training_is_not_ported(model):
-    """The recurrent families' loss raises and names ROADMAP A7."""
-    _, _, _, api, tparams = model
-    with pytest.raises(NotImplementedError, match="A7"):
-        api.loss(tparams, {})
+def _train_batch(vocab, seed):
+    toks = _tokens(vocab, 2, 64, seed)
+    labels = np.roll(toks, -1, axis=1)
+    labels[:, -1] = -1
+    labels[0, 5] = -1
+    return toks, labels
+
+
+def _flat(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat(v, f"{prefix}{k}/"))
+        return out
+    return {prefix[:-1]: tree}
+
+
+def _port_grads(api, tparams, batch):
+    """(loss, {path: gradient}) of the port's float32 ``loss``."""
+    leaves = {k: v.clone().requires_grad_(True)
+              for k, v in _flat(tparams).items()}
+
+    def unflat(tree, prefix=""):
+        return {k: unflat(v, f"{prefix}{k}/") if isinstance(v, dict)
+                else leaves[f"{prefix}{k}"] for k, v in tree.items()}
+
+    loss, _ = api.loss(unflat(tparams), batch, compute_dtype=torch.float32)
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    return loss.detach(), dict(zip(leaves, grads))
+
+
+def _tb(toks, labels):
+    return {"tokens": torch.from_numpy(toks).long(),
+            "labels": torch.from_numpy(labels).long()}
+
+
+def test_loss_and_grads_match_reference(model):
+    """The float32 loss and the gradient of every leaf against
+    ``jax.value_and_grad`` of the reference's
+    ``forward(compute_dtype=float32)`` + ``lm_loss`` (its ``loss`` always
+    computes in bf16), over two SSD chunks: loss to 1e-5, gradients to
+    ``rtol = 1e-3, atol = 1e-6``, as ``test_torch_lm_train.py`` holds the
+    dense family's."""
+    from repro.models import transformer as jtf
+    arch, japi, jparams, api, tparams = model
+    toks, labels = _train_batch(api.cfg.vocab_size, seed=7)
+
+    def jloss(p):
+        logits, aux = japi.forward(p, jnp.asarray(toks),
+                                   compute_dtype=jnp.float32)
+        return jtf.lm_loss(logits, jnp.asarray(labels), aux, 0.0)[0]
+
+    want_l, want_g = jax.jit(jax.value_and_grad(jloss))(jparams)
+    loss, grads = _port_grads(api, tparams, _tb(toks, labels))
+    np.testing.assert_allclose(float(loss), float(want_l), rtol=1e-5)
+    want = {k: np.asarray(v) for k, v in _flat(want_g).items()}
+    assert set(want) == set(grads)
+    for k, g in grads.items():
+        np.testing.assert_allclose(g.numpy(), want[k], rtol=1e-3, atol=1e-6,
+                                   err_msg=k)
+
+
+def test_train_step_update_matches_reference_adamw(model):
+    """One float32 ``make_train_step_fn`` step: its loss and gradient norm
+    are the port's loss and gradients', and its new parameters and AdamW
+    moments equal the reference's ``adamw(lr, grad_clip_norm=1.0)``
+    applied to the same gradients from the same state (the float32 keys
+    included)."""
+    from repro.optim import adamw as jadamw
+    arch, japi, jparams, api, tparams = model
+    toks, labels = _train_batch(api.cfg.vocab_size, seed=8)
+    lr = 1e-3
+    step, opt = specs.make_train_step_fn(
+        api, smoke_shape("train"), lr=lr, compute_dtype=torch.float32)
+    new_p, new_s, met = step(tparams, opt.init(tparams), _tb(toks, labels))
+    loss, grads = _port_grads(api, tparams, _tb(toks, labels))
+    assert float(met["loss"]) == float(loss)
+    norm = torch.sqrt(sum((g.double() ** 2).sum() for g in grads.values()))
+    np.testing.assert_allclose(float(met["grad_norm"]), float(norm),
+                               rtol=1e-6)
+
+    def nest(flat, tree, prefix=""):
+        return {k: nest(flat, v, f"{prefix}{k}/") if isinstance(v, dict)
+                else jnp.asarray(flat[f"{prefix}{k}"].numpy())
+                for k, v in tree.items()}
+
+    jp = nest(_flat(tparams), tparams)
+    jopt = jadamw(lr, grad_clip_norm=1.0)
+    want_p, want_s = jax.jit(jopt.update)(nest(grads, tparams),
+                                          jopt.init(jp), jp)
+    for got, want in ((new_p, want_p), (new_s["m"], want_s["m"]),
+                      (new_s["v"], want_s["v"])):
+        want = _flat(want)
+        for k, v in _flat(got).items():
+            np.testing.assert_allclose(v.numpy(), np.asarray(want[k]),
+                                       rtol=1e-6, atol=1e-9, err_msg=k)
+
+
+def test_training_route_runs_no_scan_kernel(model, monkeypatch):
+    """The prefill forward leaves the scans to the default rule (None: the
+    kernel on CUDA tensors), while the loss asks for their plain
+    chunkwise forms by an explicit ``use_kernel=False`` (a spy on
+    ``ops.ssd_scan_heads`` / ``ops.mlstm_scan_heads``), in the forward
+    and in the recompute of every checkpointed segment; a direct scan
+    kernel call under grad mode still raises."""
+    from repro_torch.kernels import ops
+    arch, _, _, api, tparams = model
+    name = "ssd_scan_heads" if arch == "zamba2-2.7b" else "mlstm_scan_heads"
+    seen = []
+    real = getattr(ops, name)
+
+    def spy(*a, use_kernel=None, **kw):
+        seen.append(use_kernel)
+        return real(*a, use_kernel=use_kernel, **kw)
+
+    monkeypatch.setattr(ops, name, spy)
+    toks, labels = _train_batch(api.cfg.vocab_size, seed=9)
+    with torch.no_grad():
+        api.forward(tparams, torch.from_numpy(toks))
+    n = len(seen)                         # one scan a layer
+    assert n and seen == [None] * n
+    _port_grads(api, tparams, _tb(toks, labels))
+    # the forward, then the checkpointed segments' recompute in backward
+    assert seen[n:] == [False] * (2 * n)
+    x = torch.zeros(1, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops._refuse_grad(name, x)

@@ -118,6 +118,44 @@ def test_chunked_form_and_final_state_match_reference(jax_side):
                                rtol=RTOL)
 
 
+def test_chunked_form_gradient_is_finite_where_the_reference_is_nan(
+        jax_side):
+    """The training path differentiates ssd_chunked.  At the published
+    chunk (128) the decays above the diagonal, exp(cum_i - cum_j) with
+    cum_i - cum_j up to 127 x dt x |A| (1.6 at the init's bounds),
+    overflow float32; the reference masks after the exp, so its gradient
+    is NaN (0 x inf), while the port masks before it.  Forward outputs
+    agree at the sweep's tolerance and the port's gradients are finite;
+    on inputs where nothing overflows both gradients agree to 1e-4."""
+    import jax
+    jnp, jssm = jax_side["jnp"], jax_side["ssm"]
+    B, L, H, P, G, N = 1, 128, 2, 8, 1, 8
+    x, dt, A, Bm, Cm = _mk(7, B, L, H, P, G, N)
+    for big in (True, False):
+        dt_in = np.full_like(dt, 0.1 if big else 0.01)
+        A_in = np.full_like(A, -16.0 if big else -1.0)
+        arrays = (x, dt_in, A_in, Bm, Cm)
+
+        def jloss(*a):
+            return jnp.sum(jssm.ssd_chunked(*a, chunk=128)[0] ** 2)
+
+        jg = jax.grad(jloss, argnums=(0, 1, 2, 3, 4))(
+            *map(jnp.asarray, arrays))
+        ts = [t.clone().requires_grad_(True) for t in _t(*arrays)]
+        y, _ = tssm.ssd_chunked(*ts, chunk=128)
+        jy = jssm.ssd_chunked(*map(jnp.asarray, arrays), chunk=128)[0]
+        np.testing.assert_allclose(y.detach().numpy(), np.asarray(jy),
+                                   atol=ATOL, rtol=RTOL)
+        tg = torch.autograd.grad((y ** 2).sum(), ts)
+        assert all(bool(torch.isfinite(g).all()) for g in tg)
+        if big:
+            assert any(not np.isfinite(np.asarray(g)).all() for g in jg)
+        else:
+            for g, want in zip(tg, jg):
+                np.testing.assert_allclose(g.numpy(), np.asarray(want),
+                                           atol=1e-4, rtol=1e-4)
+
+
 def test_chunk_invariance():
     """The result does not depend on the chunking."""
     arrays = _t(*_mk(13, 1, 128, 2, 16, 1, 8))
