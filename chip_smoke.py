@@ -14,7 +14,9 @@ printing its own line(s):
    main paths' shapes (gemma-7b bf16 and int8 pools, starcoder2-7b GQA
    with a sliding window, and phase 10's: deepseek-moe-16b at D 128,
    G 1, command-r-35b at G 8, llava-next-mistral-7b's backbone at G 4
-   with its 4096-token window): the segment-tiled read (B1) and the
+   with its 4096-token window, and phase 14's shards of gemma-7b's
+   pools: 8 kv heads at TP 2 in bf16 and int8, 4 at TP 4): the
+   segment-tiled read (B1) and the
    per-token read (B2) on one mixed flat stream, the rectangular read
    (B3) on the same segments as a (lanes, chunk) batch and as one decode
    call; each with its time, the plain version's, one PyTorch library
@@ -201,7 +203,25 @@ printing its own line(s):
    plain chunkwise forms); (c) xlstm-1.3b likewise in 8-layer segments,
    3 steps at batch 1 x 512, no kernel at all (no B4).  Each training
    run repeats one batch, whose loss must fall, and prints its ms a step,
-   tokens/s and peak memory.
+   tokens/s and peak memory;
+14. mesh serving, each line tagged with the card's name and power limit:
+   gemma-7b at its published width (phase 4's weights and fleet) through
+   ``PagedDecodeEngine(mesh=)`` on mesh positions that all name the one
+   card (printed, with each run's reckoned GiB of shard copies and pools
+   before it is built): (a) tp 1, TP 2 and TP 4 in the default layout,
+   each launching B1 layers x tp x steps and no other paged read, with
+   the prefix cache, CoW and speculation run and 2 L + 2 collectives a
+   step (the step design's count), bf16 greedy agreement with tp 1
+   printed; (b) TP 2 with ``tiled=False`` (B2) and ``ragged=False``
+   (B3) on the shards' shapes, and with int8 pools, each gated as (a);
+   (c) in each of those four layouts the fleet's first step's bf16
+   logits, TP 2 against tp 1 in the same layout, within
+   MESH_BF16_REL_L2 (relative 2-norm); (e) ``ShardedDecodeEngine`` on
+   (2, 1) and (2, 2) meshes: every request finishes, B1 runs layers x tp
+   x the slices' steps summed, the per-slice lists sum to the totals and
+   both slices decode; (d, e) in float32 cut to MESH_F32_LAYERS
+   layers, the TP 2, TP 4 and both DP fleets' tokens equal the tp 1
+   engine's.
 
 Then one JSON line of per-kernel numbers, and last
 ``{"ok": true, "device": {...}}``.  Any failed phase raises, so the run
@@ -658,6 +678,11 @@ def phase_kernel_checks():
         ("command-r-35b bf16", 8, 8, 128, torch.bfloat16, 0, 5e-2),
         ("llava-next-mistral-7b bf16 window", 8, 4, 128, torch.bfloat16,
          4096, 5e-2),
+        # phase 14's shards of gemma-7b's pools (TP 2: 8 kv heads, in
+        # bf16 and int8; TP 4: 4)
+        ("gemma-7b TP 2 shard bf16", 8, 1, 256, torch.bfloat16, 0, 5e-2),
+        ("gemma-7b TP 2 shard int8", 8, 1, 256, torch.int8, 0, 5e-2),
+        ("gemma-7b TP 4 shard bf16", 4, 1, 256, torch.bfloat16, 0, 5e-2),
     ]
     _tensor_core_check()
     results = {pa.TILED: {}, pa.RAGGED: {}, pa.ROWS: {},
@@ -3534,6 +3559,243 @@ KERNELS = [("paged_attention_tiled", "paged_attention_tiled_tc",
            ("mlstm_scan", "mlstm_scan_tc", "mlstm_scan.py:89")]
 
 
+# ---------------------------------------------------------------------------
+# phase 14: mesh serving
+# ---------------------------------------------------------------------------
+MESH_TPS = (2, 4)             # 14a: tensor-parallel degrees
+MESH_F32_LAYERS = 4           # 14d-e: float32 at full width, depth cut
+# 14b-c: the first prefill step's logits, bf16, TP 2 against tp 1 in the
+# same layout, as a relative 2-norm.  The two paths sum each layer's
+# partial products in another order and round the sums to bf16 at other
+# points, compounded over 28 layers; the limit is about 4x the first card
+# reading, 2.472e-2 in the default layout (PERF.md).  The other layouts
+# change only the attention read, which runs the same on both sides, and
+# int8 pools quantize per kv head, so the shards store the same bytes:
+# they are held to the same limit
+MESH_BF16_REL_L2 = 0.1
+
+
+def _positions(tp: int, dp: int = 1):
+    """A ("data", "model") mesh of dp x tp positions that all name the
+    one card."""
+    import torch
+    from repro_torch.launch.mesh import Mesh
+    return Mesh([torch.device(DEVICE, 0)] * (dp * tp), ("data", "model"),
+                shape=(dp, tp))
+
+
+def _mesh_gib(api, params, tp: int, slices: int = 1,
+              pool_dtype=None) -> tuple:
+    """(GiB of parameter shards the engines copy, GiB of their pools),
+    reckoned before building them: a leaf cut along a dim with larger
+    dims before it is copied once over its tp shards (a cut along its
+    leading dim is a view, a replicated leaf shared), and every slice
+    holds the fleet's 8 x 512-token pools split over its positions."""
+    import math
+    import torch
+    from repro_torch.launch import sharding as sh
+    cfg = api.cfg
+    copied = 0
+    if tp > 1:
+        specs = api.tp_plan(sh.serving_param_specs(params, {"model": tp}),
+                            [torch.device(DEVICE, 0)] * tp).specs
+        for leaf, spec in zip(sh.leaves(params), sh.leaves(specs)):
+            dims = [d for d, c in enumerate(spec) if c is not None]
+            if dims and math.prod(leaf.shape[:dims[0]]) > 1:
+                copied += leaf.numel() * leaf.element_size()
+    dtype = pool_dtype or params["embed"]["embedding"].dtype
+    blocks = 8 * (512 // 16) + 1
+    elems = cfg.n_layers * blocks * 16 * cfg.n_kv_heads
+    pool = 2 * elems * cfg.resolved_head_dim * dtype.itemsize
+    if dtype == torch.int8:
+        pool += 2 * elems * 4
+    return slices * copied / 2**30, slices * pool / 2**30
+
+
+def _mesh_fleet(api, params, label, *, kernel=None, tp=1, dp=1,
+                **engine_kw) -> tuple:
+    """Phase 4's fleet through a paged engine on ``tp`` positions of the
+    card, or (dp > 1) a ShardedDecodeEngine of dp slices of tp; counts
+    zeroed just before and read just after.  Every request must finish
+    with its tokens, and the path must launch ``kernel`` layers x tp x
+    steps (the slices' steps summed) and no other paged read.  A single
+    engine must run its prefix cache, CoW and speculation, and count the
+    step design's collectives, 2 L + 2 where tp > 1; a front's per-slice
+    lists must sum to its totals.  Returns (engine, tokens by request,
+    wall s)."""
+    import torch
+    from repro_torch.launch.profile_serve import serve_fleet
+    from repro_torch.serving.engine import ShardedDecodeEngine
+    cfg = api.cfg
+    L = cfg.n_layers
+    copied, pool = _mesh_gib(api, params, tp, dp,
+                             engine_kw.get("cache_dtype"))
+    mesh_kw = {}
+    if dp > 1:
+        mesh_kw = dict(engine_cls=ShardedDecodeEngine,
+                       mesh=_positions(tp, dp))
+    elif tp > 1:
+        mesh_kw = dict(mesh=_positions(tp))
+    before = torch.cuda.memory_allocated() / 2**30
+    _tag(f"mesh [{label}]: {dp} x {tp} positions, all {DEVICE}:0 (they "
+         f"share the card); reckoned {copied:.2f} GiB of shard copies + "
+         f"{pool:.2f} GiB of pools over the {before:.2f} GiB held")
+    _zero_counts()
+    eng, finished, wall = serve_fleet(api, params, max_new=DIS_NEW,
+                                      seed=SEED, device=DEVICE, **mesh_kw,
+                                      **engine_kw)
+    counts = _nonzero(_read_counts())
+    s = eng.stats()
+    got = {r.request_id: list(r.generated) for r in finished}
+    _tag(f"mesh [{label}]: {cfg.name} layers={L} requests={len(finished)} "
+         f"steps={eng.steps} tokens={eng.tokens_decoded} "
+         f"wall_s={wall:.6f} ms_per_step={wall / eng.steps * 1e3:.3f} "
+         f"tok_per_s={eng.tokens_decoded / wall:.2f} "
+         f"collectives_per_step={s['collectives_per_step']} "
+         f"(design {2 * L + 2 if tp > 1 else 0}) "
+         f"collective_ops={s['collective_ops']} "
+         f"kv_heads_sharded={s.get('kv_heads_sharded')} "
+         f"allocated_gib={torch.cuda.memory_allocated() / 2**30:.2f} "
+         f"kernel_launches={json.dumps(counts)}")
+    if len(finished) != 8 or any(len(t) != DIS_NEW for t in got.values()):
+        raise AssertionError(f"[{label}] not every request finished with "
+                             "its tokens")
+    steps = (sum(p["steps"] for p in s["per_slice"]) if dp > 1
+             else eng.steps)
+    want = {kernel: L * tp * steps}
+    if counts != want:
+        raise AssertionError(f"[{label}] kernel launches {counts} != {want} "
+                             "(layers x tp x steps on its own kernel)")
+    if dp > 1:
+        per = s["tokens_decoded_per_slice"]
+        _tag(f"mesh [{label}]: per slice tokens={per} prefilled="
+             f"{s['tokens_prefilled_per_slice']} collective_ops="
+             f"{s['collective_ops_per_slice']} steps="
+             f"{[p['steps'] for p in s['per_slice']]}")
+        if not (sum(per) == s["tokens_decoded"]
+                and sum(s["tokens_prefilled_per_slice"])
+                == s["tokens_prefilled"]
+                and sum(s["collective_ops_per_slice"])
+                == s["collective_ops"] and all(t > 0 for t in per)):
+            raise AssertionError(f"[{label}] per-slice lists do not sum to "
+                                 "the totals or a slice did not decode")
+        return eng, got, wall
+    if not (s["prefix_hits"] > 0 and s["cow_copies"] > 0
+            and s["spec_verifications"] > 0):
+        raise AssertionError(f"[{label}] prefix cache, CoW or speculation "
+                             "did not run")
+    if s["collectives_per_step"] != (2 * L + 2 if tp > 1 else 0):
+        raise AssertionError(f"[{label}] {s['collectives_per_step']} "
+                             "collectives a step, not the design's")
+    return eng, got, wall
+
+
+def _first_step_logits(api, params, **engine_kw):
+    """The real rows of the logits of the fleet's first engine step (8
+    prompts' first prefill chunks), float32."""
+    import torch
+    from repro_torch.launch.profile_serve import shared_prefix_fleet
+    from repro_torch.serving.engine import PagedDecodeEngine
+    eng = PagedDecodeEngine(api, params, n_slots=8, cache_len=512,
+                            window=api.effective_window(512), device=DEVICE,
+                            **engine_kw)
+    first, others = shared_prefix_fleet(api.cfg.vocab_size, SEED)
+    for p in [first] + others:
+        eng.submit(p, DIS_NEW)
+    got = []
+    run = eng._run_step
+    eng._run_step = lambda tokens: got.append(run(tokens)) or got[-1]
+    eng.step()
+    logits = got[0]
+    if logits.dim() == 3:        # the rectangular step: each lane's rows
+        logits = torch.cat([logits[b, :n] for b, n
+                            in enumerate(eng.cache["q_lens"].tolist())])
+    return logits[:eng.scheduled_tokens].float()
+
+
+def phase_mesh() -> None:
+    """14: gemma-7b served by the tensor-parallel paged engine and the
+    data-parallel front on positions that share the card."""
+    import gc
+    import torch
+    t0 = time.perf_counter()
+    api, params = _init_full("gemma-7b")
+    tiled, ragged, rows = ("paged_attention_tiled", "paged_attention_ragged",
+                           "paged_attention_rows")
+    # (a) tp 1, then TP 2 and TP 4 in the default layout
+    eng, base, base_wall = _mesh_fleet(api, params, "tp 1", kernel=tiled)
+    del eng
+    for tp in MESH_TPS:
+        eng, got, wall = _mesh_fleet(api, params, f"TP {tp}", kernel=tiled,
+                                     tp=tp)
+        agree1, agree = _agreement(got, base)
+        _tag(f"mesh [TP {tp}]: bf16 greedy agreement with tp 1: first "
+             f"tokens {agree1:.4f}, all tokens {agree:.4f}; wall "
+             f"{wall / base_wall:.3f} x tp 1's")
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    # (b) TP 2 in the per-token and rectangular layouts and with int8
+    # pools, then (c) in every layout the first prefill step's logits
+    # against tp 1's in the same layout
+    for label, kw, kernel in (("TP 2", {}, None),
+                              ("TP 2 tiled=False", {"tiled": False}, ragged),
+                              ("TP 2 ragged=False", {"ragged": False}, rows),
+                              ("TP 2 int8 pools",
+                               {"cache_dtype": torch.int8}, tiled)):
+        if kernel is not None:      # the default layout's fleet ran in (a)
+            eng, _, _ = _mesh_fleet(api, params, label, kernel=kernel, tp=2,
+                                    **kw)
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+        want = _first_step_logits(api, params, **kw)
+        gc.collect()
+        got = _first_step_logits(api, params, mesh=_positions(2), **kw)
+        rel, err = _logits_gap(got, want)
+        same = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+        _tag(f"mesh [logits {label}]: first step ({got.shape[0]} rows) bf16 "
+             f"vs tp 1 rel_l2={rel:.4e} (limit {MESH_BF16_REL_L2}) max_err="
+             f"{err:.4e} max|logit|={want.abs().max().item():.3f} argmax "
+             f"agreement={same:.4f}")
+        if not rel <= MESH_BF16_REL_L2:
+            raise AssertionError(f"[{label}] logits rel_l2 {rel} > "
+                                 f"{MESH_BF16_REL_L2}")
+        del got, want
+        gc.collect()
+        torch.cuda.empty_cache()
+    # (e) the data-parallel front on (2, 1) and (2, 2) meshes, bf16
+    for tp in (1, 2):
+        eng, _, _ = _mesh_fleet(api, params, f"DP 2 x TP {tp}",
+                                kernel=tiled, tp=tp, dp=2)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    del params
+    # (d, e) float32 at MESH_F32_LAYERS layers: every token tp 1's
+    api, params = _init_full("gemma-7b", "float32",
+                             n_layers=MESH_F32_LAYERS)
+    eng, base, _ = _mesh_fleet(api, params, "f32 tp 1", kernel=tiled)
+    del eng
+    for label, kw in ([(f"f32 TP {tp}", {"kernel": tiled, "tp": tp})
+                       for tp in MESH_TPS]
+                      + [(f"f32 DP 2 x TP {tp}",
+                          {"kernel": tiled, "tp": tp, "dp": 2})
+                         for tp in (1, 2)]):
+        eng, got, _ = _mesh_fleet(api, params, label, **kw)
+        _tag(f"mesh [{label}]: tokens equal tp 1's: {got == base}")
+        if got != base:
+            raise AssertionError(f"[{label}] float32 tokens differ from "
+                                 "the tp 1 engine's")
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    _tag(f"phase 14: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -3639,6 +3901,11 @@ def main() -> None:
     phase_whisper()
     phase_recurrent_train("zamba2-2.7b")
     phase_recurrent_train("xlstm-1.3b")
+
+    # 14. mesh serving: gemma-7b through the tensor-parallel paged engine
+    # and the data-parallel front on positions that share the card
+    torch.cuda.empty_cache()
+    phase_mesh()
 
     # each kernel's numbers at its main path's shapes
     numbers = {name: c["gemma-7b bf16"] for name, c in checks.items()}

@@ -1,7 +1,7 @@
 """Device selection shared by the port's entry points."""
 from __future__ import annotations
 
-from typing import Union
+from typing import Optional, Union
 
 import torch
 
@@ -20,3 +20,15 @@ def resolve_device(device: Union[str, torch.device] = "cuda"
         if dev.index is None:      # "cuda" -> the current card, explicitly
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def seeded_generator(dev: torch.device, seed: int
+                     ) -> Optional[torch.Generator]:
+    """A generator on ``dev`` seeded with ``seed``; None on the ``meta``
+    device, where an init records only shapes and dtypes (the abstract
+    parameter trees the sharding rules read)."""
+    if dev.type == "meta":
+        return None
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    return g

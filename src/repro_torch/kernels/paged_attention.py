@@ -27,11 +27,13 @@ the split scratch) and launches its kernel on the current stream, or
 raises: there is no fallback.  For CPU tensors it runs the kernel's plain
 version in ``ref.py``.  ``launch_counts`` counts kernel launches by read
 (``TILED``, ``RAGGED``, ``ROWS``), so a run can show that its path went
-through the kernel.
+through the kernel; a lock guards each count, because the data-parallel
+front steps its slices from several threads.
 """
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -59,6 +61,7 @@ _ARITY = {TILED: (8, 10), RAGGED: (8, 9), ROWS: (9, 11),
           TILED_TC: (10, 11), RAGGED_TC: (10, 10), ROWS_TC: (11, 11)}
 
 launch_counts: Dict[str, int] = {name: 0 for name in (TILED, RAGGED, ROWS)}
+_count_lock = threading.Lock()
 _fns: Dict[str, tuple] = {}
 
 
@@ -211,7 +214,8 @@ def _launch(name: str, rows: int, q: torch.Tensor, k_pool: torch.Tensor,
              1.0 / (D ** 0.5), torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-    launch_counts[name] += 1
+    with _count_lock:
+        launch_counts[name] += 1
     return out
 
 
@@ -251,7 +255,8 @@ def _launch_split(name: str, count_as: str, q: torch.Tensor,
              torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-    launch_counts[count_as] += 1
+    with _count_lock:
+        launch_counts[count_as] += 1
     return out
 
 

@@ -14,11 +14,14 @@ device kernels by total time.  Then it drains the fleet unprofiled
 ``ROUNDS`` times per layout, rotating which layout goes first, and
 prints each layout's wall ms/step and their median (the host clock of a
 shared host varies between drains, so one drain per layout is not a
-comparison).  Needs a CUDA card.
+comparison).  ``--tp N`` serves through the tensor-parallel engine on N
+mesh positions that all name the card (every shard's kernels and every
+reduce run on it).  Needs a CUDA card.
 """
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import statistics
 import time
@@ -27,6 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.launch.mesh import Mesh
 from repro_torch.models.api import build_model
 from repro_torch.serving.engine import PagedDecodeEngine
 
@@ -53,19 +57,25 @@ def shared_prefix_fleet(vocab: int, seed: int = 0):
 
 
 def serve_fleet(api, params, *, max_new: int = 32, seed: int = 0,
-                device="cuda", **engine_kw):
-    """Drain the fleet through a fresh engine, default but for
-    ``engine_kw`` (e.g. ``ragged=False`` or ``tiled=False``); returns
-    (engine, finished requests, wall seconds)."""
+                device="cuda", engine_cls=PagedDecodeEngine, **engine_kw):
+    """Drain the fleet through a fresh ``engine_cls`` (the paged engine,
+    or ``ShardedDecodeEngine`` with a ``mesh``), default but for
+    ``engine_kw`` (e.g. ``ragged=False``, ``tiled=False`` or ``mesh=``);
+    returns (engine, finished requests, wall seconds)."""
     first, others = shared_prefix_fleet(api.cfg.vocab_size, seed)
-    eng = PagedDecodeEngine(api, params, n_slots=8, cache_len=512,
-                            window=api.effective_window(512), device=device,
-                            **engine_kw)
+    # an engine and its block manager reference each other (the swap
+    # callback): collect finished engines, whose parameter shards on a
+    # mesh hold a model's worth of memory, before building another
+    gc.collect()
+    eng = engine_cls(api, params, n_slots=8, cache_len=512,
+                     window=api.effective_window(512), device=device,
+                     **engine_kw)
+    slices = getattr(eng, "engines", [eng])
     if eng.device.type == "cuda":
         torch.cuda.synchronize(eng.device)
     t0 = time.perf_counter()
     eng.submit(first, max_new)
-    while not any(r.generated for r in eng.scheduler.running):
+    while not any(r.generated for e in slices for r in e.scheduler.running):
         eng.step()                   # the system prompt's blocks register
     for p in others:
         eng.submit(p, max_new)
@@ -161,9 +171,16 @@ def profile_layout(api, params, label: str, engine_kw) -> dict:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="gemma-7b")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel positions, all on the card")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve needs a CUDA card")
+    mesh = {} if args.tp == 1 else {"mesh": Mesh(
+        [torch.device("cuda", 0)] * args.tp, ("data", "model"),
+        shape=(1, args.tp))}
+    layouts = [(label if args.tp == 1 else f"TP {args.tp} {label}",
+                {**kw, **mesh}) for label, kw in LAYOUTS]
     cfg = get_config(args.arch)
     api = build_model(cfg)
     params = api.init(seed=0, device="cuda", dtype=torch.bfloat16)
@@ -172,10 +189,10 @@ def main(argv=None) -> None:
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB of weights",
           flush=True)
     out = {label: profile_layout(api, params, label, kw)
-           for label, kw in LAYOUTS}
-    walls = {label: [] for label, _ in LAYOUTS}
+           for label, kw in layouts}
+    walls = {label: [] for label, _ in layouts}
     for r in range(ROUNDS):
-        for label, kw in LAYOUTS[r:] + LAYOUTS[:r]:
+        for label, kw in layouts[r:] + layouts[:r]:
             eng, _, wall = serve_fleet(api, params, **kw)
             walls[label].append(wall / eng.steps * 1e3)
     for label, ms in walls.items():

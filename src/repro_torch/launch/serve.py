@@ -11,6 +11,16 @@ the cache's cross K/V at zero, as the reference's engine serves it) on
 the smoke variant of the arch, or at its published width with ``--full``,
 with random bf16 weights from seed 0, and serves a batch of synthetic
 requests.  It runs on the CUDA card unless ``--device cpu`` is given.
+
+``--mesh-shape dp,tp`` serves over a mesh of dp x tp positions: dp
+data-parallel slices (``ShardedDecodeEngine``) of tp tensor-parallel
+shards each; ``--tp N`` runs N-way tensor parallelism over every visible
+card.  On the card the positions are the first dp x tp cards; with
+``--device cpu`` they are dp x tp CPU positions, which run every shard's
+layers and reduces on the CPU:
+
+    python -m repro_torch.launch.serve --arch gemma-7b --device cpu \
+        --mesh-shape 2,2
 """
 from __future__ import annotations
 
@@ -21,11 +31,40 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.launch.mesh import Mesh
 from repro_torch.models.api import build_model
 from repro_torch.serving.engine import DecodeEngine
 
 _CACHE_DTYPES = {"auto": None, "bf16": torch.bfloat16, "f32": torch.float32,
                  "int8": torch.int8}
+
+
+def _build_mesh(mesh_shape: str, tp: int, device: str):
+    """The serving mesh of ``--mesh-shape dp,tp`` (the first dp x tp
+    devices) or ``--tp N`` (every visible card, model_parallel N; N CPU
+    positions with ``--device cpu``); None when neither is given.
+    Refuses a mesh larger than the devices present."""
+    if not (mesh_shape or tp):
+        return None
+    if mesh_shape:
+        dp, tp = (int(x) for x in mesh_shape.split(","))
+    else:
+        dp = 0
+    if device == "cpu":
+        return Mesh([torch.device("cpu")] * (max(dp, 1) * tp),
+                    ("data", "model"), shape=(max(dp, 1), tp))
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if dp == 0:
+        if n == 0 or n % tp:
+            raise SystemExit(f"--tp {tp} does not divide the {n} visible "
+                             "CUDA devices")
+        dp = n // tp
+    if dp * tp > n:
+        raise SystemExit(f"--mesh-shape {dp},{tp} needs {dp * tp} devices, "
+                         f"found {n} CUDA devices (--device cpu lays the "
+                         "positions on the CPU)")
+    return Mesh([torch.device("cuda", i) for i in range(dp * tp)],
+                ("data", "model"), shape=(dp, tp))
 
 
 def main(argv=None) -> None:
@@ -80,7 +119,16 @@ def main(argv=None) -> None:
     ap.add_argument("--engine", choices=["auto", "paged", "slot"],
                     default="auto",
                     help="paged block-pool engine vs dense-slot reference")
+    ap.add_argument("--mesh-shape", default="",
+                    help='"dp,tp" mesh: dp data-parallel engine slices x '
+                         "tp-way tensor-parallel shards each")
+    ap.add_argument("--tp", type=int, default=0,
+                    help="tensor-parallel degree over every visible card "
+                         "(dp = cards / tp)")
     args = ap.parse_args(argv)
+    if args.mesh_shape and args.tp:
+        raise SystemExit("--mesh-shape and --tp are exclusive")
+    mesh = _build_mesh(args.mesh_shape, args.tp, args.device)
 
     cfg = get_config(args.arch)
     if not args.full:
@@ -106,6 +154,8 @@ def main(argv=None) -> None:
                   draft_k=args.draft_k,
                   ttft_target=args.slo_ttft_ms / 1e3,
                   tpot_target=args.slo_tpot_ms / 1e3)
+    if mesh is not None:
+        kw["mesh"] = mesh
     eng = DecodeEngine(api, params, paged=paged, n_slots=args.slots,
                        cache_len=args.cache_len, window=window, **kw)
     rng = np.random.default_rng(0)

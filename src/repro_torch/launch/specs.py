@@ -3,8 +3,10 @@ counterpart of ``make_loss_for_shape``, ``make_train_step_fn``,
 ``make_prefill_step_fn`` and ``make_serve_step_fn`` in
 ``repro/launch/specs.py``.
 
-The reference's abstract input specs and its AOT/HLO step builders read
-XLA's ahead-of-time compilation and have no counterpart here yet (ROADMAP
+:func:`abstract_params` is the parameter tree on the ``meta`` device
+(shapes and dtypes, no storage), which the sharding rules read.  The
+reference's abstract input specs and its AOT/HLO step builders read XLA's
+ahead-of-time compilation and have no counterpart here yet (ROADMAP
 A10).  Options that the reference does not have (``compute_dtype``,
 ``use_kernel``) pass through ``**model_kw`` to the model's loss.
 """
@@ -19,6 +21,12 @@ from repro_torch.models.api import ModelAPI
 from repro_torch.models.common import cast_weights
 from repro_torch.optim import Optimizer, adamw
 from repro_torch.train.trainer import make_train_step
+
+
+def abstract_params(api: ModelAPI, dtype: torch.dtype = torch.bfloat16):
+    """The arch's parameter tree on the ``meta`` device: every leaf's
+    shape and dtype, nothing allocated."""
+    return api.init(seed=0, device="meta", dtype=dtype)
 
 
 def make_loss_for_shape(api: ModelAPI, shape: InputShape, *,

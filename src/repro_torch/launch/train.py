@@ -14,7 +14,7 @@ published width with ``--full``.  It runs on the CUDA card, where
 attention goes through the flash-attention kernels forward and backward
 (the recurrent families' scans through their plain chunkwise forms: the
 scan kernels have no backward), unless ``--device cpu`` is given.
-``--model-parallel`` above 1 needs the multi-device port (ROADMAP A9).
+``--model-parallel`` above 1 needs sharded training (ROADMAP A9b).
 """
 from __future__ import annotations
 
@@ -66,7 +66,8 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
     if args.model_parallel > 1:
         raise NotImplementedError(
-            "--model-parallel > 1 needs the multi-device port (ROADMAP A9)")
+            "--model-parallel > 1 needs sharded training, not ported "
+            "yet (ROADMAP A9b)")
 
     cfg = get_config(args.arch)
     if not args.full:

@@ -14,6 +14,9 @@ ssm (xLSTM) and audio (whisper's encoder-decoder).
     q_len = 1 case — and ``ragged_step``, the flat-token paged step.
     Both multi-token steps return logits for EVERY row, the
     speculative-decode verification contract.
+  * ``tp_plan(specs, devices)`` / ``tp_paged_step`` / ``tp_ragged_step``
+    — the paged steps run tensor-parallel over mesh positions, each on
+    its shard of the parameters and its own pools (the paged families).
   * ``effective_window(seq_len)`` -> attention window for a shape
 
 The MoE family serves through the transformer's API and the VLM through
@@ -59,6 +62,12 @@ class ModelAPI:
     paged_step: Optional[Callable[..., Tuple[Any, Any]]] = None
     paged_decode_step: Optional[Callable[..., Tuple[Any, Any]]] = None
     ragged_step: Optional[Callable[..., Tuple[Any, Any]]] = None
+    # tensor-parallel serving: tp_plan(specs, devices) -> plan (specs None:
+    # one position, nothing cut), and the paged steps over per-position
+    # shards and caches, the layer loop of the single-device steps too
+    tp_plan: Optional[Callable[..., Any]] = None
+    tp_paged_step: Optional[Callable[..., Tuple[Any, Any]]] = None
+    tp_ragged_step: Optional[Callable[..., Tuple[Any, Any]]] = None
 
     @property
     def supports_paged(self) -> bool:
@@ -74,11 +83,6 @@ class ModelAPI:
         """Speculative decode needs a multi-token step with per-row
         logits; the q_len = 1 step cannot verify draft chains."""
         return self.paged_step is not None
-
-    def resolve_paged_step(self):
-        """The chunked step, or the q_len = 1 step when that is all the
-        family provides."""
-        return self.paged_step or self.paged_decode_step
 
     def effective_window(self, seq_len: int) -> int:
         cfg = self.cfg
@@ -151,4 +155,9 @@ def build_model(cfg: ArchConfig) -> ModelAPI:
         paged_decode_step=lambda p, c, t, **kw: m.paged_decode_step(
             p, c, t, cfg, **kw),
         ragged_step=lambda p, c, t, **kw: m.ragged_step(p, c, t, cfg, **kw),
+        tp_plan=lambda specs, devices: m.tp_plan(cfg, specs, devices),
+        tp_paged_step=lambda p, c, t, plan, **kw: m.tp_paged_step(
+            p, c, t, cfg, plan, **kw),
+        tp_ragged_step=lambda p, c, t, plan, **kw: m.tp_ragged_step(
+            p, c, t, cfg, plan, **kw),
     )

@@ -33,7 +33,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, seeded_generator
 from repro_torch.models import layers
 from repro_torch.models.common import (apply_norm, cast_weights, embed_init_,
                                        norm_params)
@@ -64,8 +64,7 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device="cuda",
     a frontend (the reference stores None without one)."""
     assert cfg.is_encoder_decoder
     dev = resolve_device(device)
-    g = torch.Generator(device=dev)
-    g.manual_seed(seed)
+    g = seeded_generator(dev, seed)
     d, V = cfg.d_model, cfg.vocab_size
     kw = dict(device=dev, dtype=dtype)
 

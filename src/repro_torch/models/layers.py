@@ -64,13 +64,15 @@ def project_qkv(p: Dict, x: torch.Tensor, positions: torch.Tensor,
     return q, k, v
 
 
-def project_out(p: Dict, attn_out: torch.Tensor,
-                cfg: ArchConfig) -> torch.Tensor:
-    """attn_out: (..., S, H, D) -> (..., S, d_model)."""
+def project_out(p: Dict, attn_out: torch.Tensor, cfg: ArchConfig, *,
+                bias: bool = True) -> torch.Tensor:
+    """attn_out: (..., S, H, D) -> (..., S, d_model); ``bias=False``
+    leaves out ``bo`` (a tensor-parallel shard's partial sum, whose bias
+    is added once after the reduce)."""
     wo = p["wo"]                                     # (H, D, d)
     y = attn_out.reshape(*attn_out.shape[:-2], -1) @ wo.reshape(
         -1, wo.shape[-1])
-    if cfg.use_bias:
+    if bias and cfg.use_bias:
         y = y + p["bo"]
     return y
 
@@ -214,7 +216,10 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return out.reshape(B, 1, H, D)
 
 
-def apply_mlp(p: Dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+def apply_mlp(p: Dict, x: torch.Tensor, cfg: ArchConfig, *,
+              bias: bool = True) -> torch.Tensor:
+    """The dense MLP; ``bias=False`` leaves out ``b_down`` (as
+    :func:`project_out` leaves out ``bo``)."""
     if cfg.mlp_type in ("swiglu", "geglu"):
         act = "silu" if cfg.mlp_type == "swiglu" else "gelu"
         g = common.activation(act, x @ p["w_gate"])
@@ -228,7 +233,7 @@ def apply_mlp(p: Dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
             h = h + p["b_up"]
         h = common.activation("gelu", h)
     y = h @ p["w_down"]
-    if cfg.use_bias:
+    if bias and cfg.use_bias:
         y = y + p["b_down"]
     return y
 

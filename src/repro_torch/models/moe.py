@@ -16,8 +16,10 @@ with the gates rounded to it), as the reference does.  The expert
 products and the dispatch/combine contractions are plain products that
 the reference computes outside any Pallas kernel, so they stay
 ``torch.einsum``.  The reference's expert-parallel ``shard_map`` combine
-is a multi-device path (ROADMAP A9); the port always takes its no-mesh
-fallback, the plain gather combine.
+has no counterpart: a tensor-parallel shard of the port
+(``transformer.tp_ragged_step``) runs :func:`routed_experts` on its own
+experts with the gathered router logits, and the step reduces the
+shards' partial outputs.
 """
 from __future__ import annotations
 
@@ -85,15 +87,20 @@ def load_balance_loss(probs: torch.Tensor, dispatch_counts: torch.Tensor,
     return n_experts * torch.sum(me * ce)
 
 
-def _route(p: Dict, x: torch.Tensor, mo: MoEConfig, C: int):
-    """The router and the capacity bookkeeping both dispatches share:
-    (gates (G,S,k), idx (G,S,k), choice (G,S,k,E) one-hot, pos_in_e
-    (G,S,k,E) earlier claims on the same expert, keep (G,S,k,E) 0/1, aux).
-    """
-    B, S, _ = x.shape
+def router_logits(p: Dict, x: torch.Tensor) -> torch.Tensor:
+    """x (G, S, d) -> the router's float32 logits (G, S, E) over the
+    experts of ``p["router"]``'s columns."""
+    return torch.einsum("gsd,de->gse", x.to(torch.float32),
+                        p["router"].to(torch.float32))
+
+
+def _route(logits: torch.Tensor, mo: MoEConfig, C: int):
+    """The capacity bookkeeping both dispatches share, from the layer's
+    router logits (G,S,E): (gates (G,S,k), idx (G,S,k), choice (G,S,k,E)
+    one-hot, pos_in_e (G,S,k,E) earlier claims on the same expert, keep
+    (G,S,k,E) 0/1, aux)."""
+    B, S, _ = logits.shape
     E, k = mo.n_experts, mo.experts_per_token
-    logits = torch.einsum("gsd,de->gse", x.to(torch.float32),
-                          p["router"].to(torch.float32))
     probs = torch.softmax(logits, dim=-1)
     gates, idx = route_topk(logits, k)
     choice = F.one_hot(idx, E).to(torch.float32)            # (G,S,k,E)
@@ -124,12 +131,39 @@ def apply_moe(p: Dict, x: torch.Tensor, cfg: ArchConfig
     "gshard" (one-hot einsums) or "gather"."""
     mo = cfg.moe
     assert mo is not None
+    y, aux = routed_experts(p, x, cfg, router_logits(p, x))
+    if mo.n_shared_experts:
+        y = y + layers.apply_mlp(p["shared"], x, cfg)
+    return y, aux
+
+
+def routed_experts(p: Dict, x: torch.Tensor, cfg: ArchConfig,
+                   logits: torch.Tensor, e0: int = 0
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The routed experts' share of the MoE output, (y (G, S, d), aux):
+    the layer's routes and drops come from its router ``logits`` (G, S,
+    E) over all E experts, and ``p`` holds experts ``e0 .. e0 + E_p - 1``
+    of them (all E by default), so a tensor-parallel shard adds the
+    outputs of its own experts only."""
+    mo = cfg.moe
+    assert mo is not None
+    C = expert_capacity(x.shape[1], mo)
+    n_local = p["experts_w_down"].shape[0]
+    gates, idx, choice, pos_in_e, keep, aux = _route(logits, mo, C)
     if mo.impl == "gather":
-        return apply_moe_gather(p, x, cfg)
-    S = x.shape[1]
-    C = expert_capacity(S, mo)
+        y = _dispatch_gather(p, x, cfg, C, gates, idx, choice, pos_in_e,
+                             keep, e0, n_local)
+    else:
+        y = _dispatch_gshard(p, x, cfg, C, gates, choice, pos_in_e,
+                             keep[..., e0:e0 + n_local])
+    return y, aux.to(torch.float32)
+
+
+def _dispatch_gshard(p: Dict, x: torch.Tensor, cfg: ArchConfig, C: int,
+                     gates, choice, pos_in_e, keep) -> torch.Tensor:
+    """The one-hot dispatch and combine einsums over the experts of ``p``
+    (``keep`` cut to them)."""
     dt = x.dtype
-    gates, idx, choice, pos_in_e, keep, aux = _route(p, x, mo, C)
     # capacity-slot one-hot (G,S,k,C), all zero past C as the reference's
     # one_hot; dispatch and combine in the compute dtype
     slot_c = torch.sum(pos_in_e * choice, dim=-1)
@@ -140,35 +174,32 @@ def apply_moe(p: Dict, x: torch.Tensor, cfg: ArchConfig
     combine = torch.einsum("gske,gsk,gskc->gsec", keep_c, gates.to(dt), slot)
     xe = torch.einsum("gsec,gsd->egcd", dispatch, x)
     ye = _experts(p, xe, cfg)
-    y = torch.einsum("gsec,egcd->gsd", combine, ye)
-    if mo.n_shared_experts:
-        y = y + layers.apply_mlp(p["shared"], x, cfg)
-    return y, aux.to(torch.float32)
+    return torch.einsum("gsec,egcd->gsd", combine, ye)
 
 
-def apply_moe_gather(p: Dict, x: torch.Tensor, cfg: ArchConfig
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+def _dispatch_gather(p: Dict, x: torch.Tensor, cfg: ArchConfig, C: int,
+                     gates, idx, choice, pos_in_e, keep, e0: int,
+                     n_local: int) -> torch.Tensor:
     """The gather dispatch: integer routing tables instead of one-hot
-    einsums (zero-FLOP routing), then the plain gather combine.  Same
-    routes, drops and result as :func:`apply_moe`'s "gshard"."""
-    mo = cfg.moe
-    assert mo is not None
+    einsums (zero-FLOP routing), then the plain gather combine, over
+    experts ``e0 .. e0 + n_local - 1``.  Same routes, drops and result as
+    the "gshard" dispatch."""
     B, S, d = x.shape
-    E, k = mo.n_experts, mo.experts_per_token
-    C = expert_capacity(S, mo)
+    k = idx.shape[-1]
     dt = x.dtype
-    gates, idx, choice, pos_in_e, keep, aux = _route(p, x, mo, C)
-    keep_slot = keep.sum(dim=-1)                            # (G,S,k) 0/1
+    mine = ((idx >= e0) & (idx < e0 + n_local)).to(keep.dtype)
+    keep_slot = keep.sum(dim=-1) * mine                     # (G,S,k) 0/1
+    idx_l = torch.clamp(idx - e0, 0, n_local - 1)
     slot_c = torch.sum(pos_in_e * choice, dim=-1).long()    # (G,S,k)
     # dropped pairs sit past C: they add 0 at slot C - 1, as the
     # reference's out-of-range scatter adds nothing
     slot_in = torch.clamp(slot_c, max=C - 1)
-    # routing table (G, E, C): source token + 1, 0 = empty slot; kept
+    # routing table (G, E_p, C): source token + 1, 0 = empty slot; kept
     # (e, c) pairs are unique per group
     s_idx = torch.arange(S, device=x.device)[None, :, None].expand(B, S, k)
     g_idx = torch.arange(B, device=x.device)[:, None, None].expand(B, S, k)
-    buf = torch.zeros((B, E, C), dtype=torch.long, device=x.device)
-    buf.index_put_((g_idx, idx, slot_in),
+    buf = torch.zeros((B, n_local, C), dtype=torch.long, device=x.device)
+    buf.index_put_((g_idx, idx_l, slot_in),
                    ((s_idx + 1) * keep_slot).long(), accumulate=True)
     valid = buf > 0
     tok = torch.clamp_min(buf - 1, 0)
@@ -177,8 +208,5 @@ def apply_moe_gather(p: Dict, x: torch.Tensor, cfg: ArchConfig
     ye = _experts(p, xe, cfg)
     w = (gates * keep_slot).to(dt)                          # (G,S,k)
     ye_g = ye.transpose(0, 1)                               # (G,E,C,d)
-    yk = ye_g[g_idx, idx, slot_in]                          # (G,S,k,d)
-    y = torch.einsum("gsk,gskd->gsd", w, yk)
-    if mo.n_shared_experts:
-        y = y + layers.apply_mlp(p["shared"], x, cfg)
-    return y, aux.to(torch.float32)
+    yk = ye_g[g_idx, idx_l, slot_in]                        # (G,S,k,d)
+    return torch.einsum("gsk,gskd->gsd", w, yk)

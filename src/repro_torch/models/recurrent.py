@@ -25,7 +25,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, seeded_generator
 from repro_torch.models import layers, ssm as ssm_lib, xlstm as xlstm_lib
 from repro_torch.models.common import (apply_norm, cast_weights, dense_init_,
                                        embed_init_, fan_in_std, norm_params)
@@ -101,8 +101,7 @@ def init_zamba_params(cfg: ArchConfig, *, seed: int = 0, device="cuda",
     from a ``torch.Generator`` seeded with ``seed`` on ``device``; weights
     in ``dtype``, norms and ``A_log``/``dt_bias`` float32."""
     dev = resolve_device(device)
-    g = torch.Generator(device=dev)
-    g.manual_seed(seed)
+    g = seeded_generator(dev, seed)
     n_seg, per = zamba_segments(cfg)
     d = cfg.d_model
     kw = dict(device=dev, dtype=dtype)
@@ -249,8 +248,7 @@ def init_xlstm_params(cfg: ArchConfig, *, seed: int = 0, device="cuda",
     from a ``torch.Generator`` seeded with ``seed`` on ``device``; weights
     in ``dtype``, norms and the gate weights and biases float32."""
     dev = resolve_device(device)
-    g = torch.Generator(device=dev)
-    g.manual_seed(seed)
+    g = seeded_generator(dev, seed)
     n_seg, n_ml = xlstm_segments(cfg)
     kw = dict(device=dev, dtype=dtype)
     p = _embed_and_head(cfg, g, **kw)

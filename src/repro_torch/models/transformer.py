@@ -12,16 +12,27 @@ a Python loop over layers takes the place of ``lax.scan`` (and
 KV caches are one ``(n_layers, ...)`` tensor per leaf over all layers
 (head block i uses layer i), updated in place through per-layer views
 instead of being rebuilt and donated every step.
+
+``tp_ragged_step`` and ``tp_paged_step`` run the serving steps
+tensor-parallel over mesh positions from one controller (a
+:class:`TPPlan`): each position runs every layer on its shard of the
+parameters and its own pools, and a reduce follows a layer's partial sums
+only where the specs cut the contraction, in fixed order on position 0's
+device, so every position sees the same bits.  ``ragged_step`` and
+``paged_step`` are their one-position case, so the serving steps have one
+layer loop.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import dataclasses
+import functools
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, seeded_generator
 from repro_torch.models import layers, moe as moe_lib
 from repro_torch.models.common import (apply_norm, cast_weights, dense_init_,
                                        embed_init_, fan_in_std, norm_params)
@@ -126,8 +137,7 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device="cuda",
     config's ``first_dense_layers`` become the list ``head_blocks``."""
     _check_family(cfg)
     dev = resolve_device(device)
-    g = torch.Generator(device=dev)
-    g.manual_seed(seed)
+    g = seeded_generator(dev, seed)
     d, V = cfg.d_model, cfg.vocab_size
     kw = dict(device=dev, dtype=dtype)
     n_head = cfg.moe.first_dense_layers if cfg.moe else 0
@@ -346,24 +356,37 @@ def _pool_scales(cache_l: Dict) -> Dict:
 # ---------------------------------------------------------------------------
 # Block application
 # ---------------------------------------------------------------------------
-def _apply_block_paged(bp: Dict, x: torch.Tensor, cache_l: Dict,
-                       block_tables: torch.Tensor, pos: torch.Tensor,
-                       q_lens: torch.Tensor, cfg: ArchConfig, *, window: int,
-                       use_kernel: Optional[bool] = None) -> torch.Tensor:
-    """One layer over a chunk of C tokens per lane, x (B, C, d): norm ->
-    QKV (RoPE at ``pos[b] + c``) -> K/V written through ``block_tables``
-    -> the rectangular paged attention read -> out projection -> MLP.
-    Writes past a lane's ``q_lens`` land on slot 0 of the reserved null
-    block, which nothing reads, so padded and paused lanes are
-    harmless."""
+def _kv_heads(k: torch.Tensor, v: torch.Tensor, cache_l: Dict,
+              kv: Optional[Tuple[int, int]]
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K/V cut to the kv heads ``kv = (k0, k1)`` that a tensor-parallel
+    shard's pool holds, where the shard computed more of them (its wk/wv
+    replicated); unchanged otherwise."""
+    if kv is None or k.shape[-2] == cache_l["k"].shape[-2]:
+        return k, v
+    return k[..., kv[0]:kv[1], :], v[..., kv[0]:kv[1], :]
+
+
+def _attn_paged(bp: Dict, xn: torch.Tensor, cache_l: Dict,
+                block_tables: torch.Tensor, pos: torch.Tensor,
+                q_lens: torch.Tensor, cfg: ArchConfig, *, window: int,
+                use_kernel: Optional[bool] = None,
+                kv: Optional[Tuple[int, int]] = None,
+                bias: bool = True) -> torch.Tensor:
+    """The attention of one layer over a chunk of C tokens per lane, xn
+    (B, C, d) normed: QKV (RoPE at ``pos[b] + c``) -> K/V written through
+    ``block_tables`` -> the rectangular paged attention read -> out
+    projection (``bias=False``: without ``bo``).  Writes past a lane's
+    ``q_lens`` land on slot 0 of the reserved null block, which nothing
+    reads, so padded and paused lanes are harmless."""
     from repro_torch.kernels import ops as kernel_ops
-    B, C = x.shape[:2]
+    C = xn.shape[1]
     bs = cache_l["k"].shape[1]
     max_blocks = block_tables.shape[1]
-    xn = apply_norm(cfg.norm_type, bp["attn_norm"], x)
-    offs = torch.arange(C, device=x.device)
+    offs = torch.arange(C, device=xn.device)
     positions = pos[:, None] + offs[None, :]                  # (B, C)
     q, k, v = layers.project_qkv(bp["attn"], xn, positions, cfg)
+    k, v = _kv_heads(k, v, cache_l, kv)
     valid = offs[None, :] < q_lens[:, None]
     lblk = torch.clamp(positions.long() // bs, max=max_blocks - 1)
     blk = torch.where(valid, torch.gather(block_tables.long(), 1, lblk), 0)
@@ -372,24 +395,26 @@ def _apply_block_paged(bp: Dict, x: torch.Tensor, cache_l: Dict,
     attn = kernel_ops.paged_attention_chunk(
         q, cache_l["k"], cache_l["v"], block_tables, pos, q_lens,
         window=window, use_kernel=use_kernel, **_pool_scales(cache_l))
-    attn = layers.project_out(bp["attn"], attn, cfg)
-    return _mlp_residual(bp, x, xn, attn, cfg)[0]
+    return layers.project_out(bp["attn"], attn, cfg, bias=bias)
 
 
-def _apply_block_ragged(bp: Dict, x: torch.Tensor, cache_l: Dict,
-                        token_tables: Optional[torch.Tensor],
-                        token_pos: torch.Tensor, slot_mapping: torch.Tensor,
-                        tile_spec, cfg: ArchConfig, *, window: int,
-                        use_kernel: Optional[bool] = None) -> torch.Tensor:
-    """One layer over the flat stream x (T, d): norm -> QKV (RoPE at
-    ``token_pos``) -> K/V scattered to ``slot_mapping`` -> the paged
-    attention read -> out projection -> MLP.  The read is segment-tiled
-    with ``tile_spec`` (block_tables, tile_meta, row_tile, tile), else
-    per token through ``token_tables`` (T, max_blocks)."""
+def _attn_ragged(bp: Dict, xn: torch.Tensor, cache_l: Dict,
+                 token_tables: Optional[torch.Tensor],
+                 token_pos: torch.Tensor, slot_mapping: torch.Tensor,
+                 tile_spec, cfg: ArchConfig, *, window: int,
+                 use_kernel: Optional[bool] = None,
+                 kv: Optional[Tuple[int, int]] = None,
+                 bias: bool = True) -> torch.Tensor:
+    """The attention of one layer over the flat stream, xn (T, d) normed:
+    QKV (RoPE at ``token_pos``) -> K/V scattered to ``slot_mapping`` ->
+    the paged attention read -> out projection (``bias=False``: without
+    ``bo``).  The read is segment-tiled with ``tile_spec``
+    (block_tables, tile_meta, row_tile, tile), else per token through
+    ``token_tables`` (T, max_blocks)."""
     from repro_torch.kernels import ops as kernel_ops
     bs = cache_l["k"].shape[1]
-    xn = apply_norm(cfg.norm_type, bp["attn_norm"], x)
     q, k, v = layers.project_qkv(bp["attn"], xn, token_pos, cfg)
+    k, v = _kv_heads(k, v, cache_l, kv)
     slots = slot_mapping.long()
     _write_kv_pool(cache_l, k, v, slots // bs, slots % bs)
     if tile_spec is not None:
@@ -402,8 +427,7 @@ def _apply_block_ragged(bp: Dict, x: torch.Tensor, cache_l: Dict,
         attn = kernel_ops.paged_attention_ragged(
             q, cache_l["k"], cache_l["v"], token_tables, token_pos,
             window=window, use_kernel=use_kernel, **_pool_scales(cache_l))
-    attn = layers.project_out(bp["attn"], attn, cfg)
-    return _mlp_residual(bp, x, xn, attn, cfg)[0]
+    return layers.project_out(bp["attn"], attn, cfg, bias=bias)
 
 
 def _apply_block_decode(bp: Dict, x: torch.Tensor, cache_l: Dict,
@@ -470,15 +494,18 @@ def decode_step(params: Dict, cache: Dict, tokens: torch.Tensor,
 def init_paged_cache(cfg: ArchConfig, n_lanes: int, *, num_blocks: int,
                      block_size: int, max_blocks_per_lane: int,
                      dtype: torch.dtype = torch.bfloat16,
-                     device="cuda") -> Dict:
+                     device="cuda", n_kv_heads: Optional[int] = None
+                     ) -> Dict:
     """Paged KV pools shared by all lanes, one (L, num_blocks, bs, Hkv, D)
     tensor per leaf; block 0 is the engine's reserved null block.
     ``dtype=torch.int8`` stores quantized pools with float32
-    ``k_scale``/``v_scale`` pools of shape (L, num_blocks, bs, Hkv)."""
+    ``k_scale``/``v_scale`` pools of shape (L, num_blocks, bs, Hkv).
+    ``n_kv_heads`` (default the config's) sizes a tensor-parallel shard's
+    pools."""
     _check_family(cfg)
     dev = resolve_device(device)
-    shape = (cfg.n_layers, num_blocks, block_size, cfg.n_kv_heads,
-             cfg.resolved_head_dim)
+    shape = (cfg.n_layers, num_blocks, block_size,
+             n_kv_heads or cfg.n_kv_heads, cfg.resolved_head_dim)
     pool = {"k": torch.zeros(shape, dtype=dtype, device=dev),
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
     if not dtype.is_floating_point:
@@ -515,19 +542,11 @@ def paged_step(params: Dict, cache: Dict, tokens: torch.Tensor,
     the real tokens of each chunk (absent: all C).  The KV pools are
     updated in place and ``pos`` advances by ``q_lens``.  Logits cover
     every chunk row (the speculative-decode verification contract)."""
-    _check_compute_dtype(params, compute_dtype)
-    B, C = tokens.shape
-    pos = cache["pos"]
-    q_lens = cache.get("q_lens")
-    if q_lens is None:
-        q_lens = torch.full((B,), C, dtype=torch.int32, device=pos.device)
-    x = _embed(params, tokens, cfg)
-    for l, bp in enumerate(_layers(params, cfg)):
-        cl = {name: arr[l] for name, arr in cache["scan"].items()}
-        x = _apply_block_paged(bp, x, cl, cache["block_tables"], pos, q_lens,
-                               cfg, window=window, use_kernel=use_kernel)
-    cache["pos"] = pos + q_lens
-    return _finish(params, x, cfg), cache
+    logits, _ = tp_paged_step([params], [cache], [tokens], cfg,
+                              tp_plan(cfg, None, [tokens.device]),
+                              window=window, compute_dtype=compute_dtype,
+                              use_kernel=use_kernel)
+    return logits, cache
 
 
 def paged_decode_step(params: Dict, cache: Dict, tokens: torch.Tensor,
@@ -555,18 +574,312 @@ def ragged_step(params: Dict, cache: Dict, tokens: torch.Tensor,
     place.  Logits cover every row of the stream (the speculative-decode
     verification contract), so a draft segment yields the model's greedy
     continuation at every draft slot."""
-    _check_compute_dtype(params, compute_dtype)
-    tables = cache["block_tables"]
-    if "tile_meta" in cache:
-        tile_spec = (tables, cache["tile_meta"], cache["row_tile"], tile)
-        token_tables = None
+    logits, _ = tp_ragged_step([params], [cache], [tokens], cfg,
+                               tp_plan(cfg, None, [tokens.device]),
+                               window=window, tile=tile,
+                               compute_dtype=compute_dtype,
+                               use_kernel=use_kernel)
+    return logits, cache
+
+
+# ---------------------------------------------------------------------------
+# Tensor-parallel serving steps (one device: the one-position plan)
+# ---------------------------------------------------------------------------
+def _cut(spec, tp: int) -> bool:
+    """Whether a leaf's PartitionSpec cuts it over "model" (tp > 1)."""
+    return tp > 1 and any(s == "model" or (isinstance(s, tuple)
+                                           and "model" in s) for s in spec)
+
+
+@dataclasses.dataclass
+class TPPlan:
+    """How the tensor-parallel steps run one model over mesh positions.
+
+    ``devices`` are the positions' devices (position s holds shard s of
+    every leaf cut over "model"; positions may share a device).  The
+    flags say which contractions the specs cut: ``embed`` (the vocab of
+    the embedding: a masked lookup, then a reduce), ``head`` (the vocab
+    of the logits: gathered), and per layer ``attn`` (heads: a reduce
+    after ``wo``), ``mlp`` (d_ff: a reduce after ``w_down``), ``router``
+    (the router's expert columns: logits gathered before routing),
+    ``experts`` (E: a reduce after the combine) and ``shared`` (the
+    shared experts' d_ff).  A sublayer that is not cut runs whole on
+    every position and is not reduced.  ``kv[s]`` is the range of kv
+    heads position s's pools hold and its attention reads: its own heads
+    where wk/wv are cut, else the one kv head its q heads share, else
+    all of them.  ``specs`` place the parameters on the positions: the
+    serving specs, with the per-head q/k norm scales whole (the steps
+    read them whole; the reference's partitioner gathers them at use).
+    ``collectives`` counts the reduces and gathers run since it was last
+    set to 0."""
+    devices: List[torch.device]
+    embed: bool
+    head: bool
+    layers: List[Dict[str, bool]]
+    kv: List[Tuple[int, int]]
+    specs: Dict
+    collectives: int = 0
+
+    @property
+    def tp(self) -> int:
+        return len(self.devices)
+
+    def reduce(self, parts: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Sum the positions' partial tensors in position order on
+        position 0's device and hand every position the sum (on a shared
+        device, the same tensor), so all positions see the same bits."""
+        dst = self.devices[0]
+        total = parts[0].to(dst)
+        for p in parts[1:]:
+            total = total + p.to(dst)
+        self.collectives += 1
+        return [total.to(d) for d in self.devices]
+
+    def gather(self, parts: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Concatenate the positions' pieces along the last dim on
+        position 0's device and hand every position the whole."""
+        dst = self.devices[0]
+        whole = torch.cat([p.to(dst) for p in parts], dim=-1)
+        self.collectives += 1
+        return [whole.to(d) for d in self.devices]
+
+
+def tp_plan(cfg: ArchConfig, specs: Optional[Dict], devices) -> TPPlan:
+    """The :class:`TPPlan` of parameters cut by ``specs`` (the
+    ``serving_param_specs`` of the parameter tree) over ``devices``;
+    ``specs=None``: nothing cut (one position holds the whole model, as
+    :func:`ragged_step` and :func:`paged_step` run it).  Raises where a
+    position's q heads would straddle two kv groups."""
+    _check_family(cfg)
+    devices = list(devices)
+    tp = len(devices)
+    if specs is None:
+        whole = dict.fromkeys(("attn", "mlp", "router", "experts",
+                               "shared"), False)
+        return TPPlan(devices=devices, embed=False, head=False,
+                      layers=[whole] * cfg.n_layers,
+                      kv=[(0, cfg.n_kv_heads)] * tp, specs=None)
+
+    def whole_norms(b: Dict) -> Dict:
+        attn = {k: (None,) * len(v) if k.endswith("norm_scale") else v
+                for k, v in b["attn"].items()}
+        return {**b, "attn": attn}
+
+    specs = {**specs, "blocks": whole_norms(specs["blocks"])}
+    if "head_blocks" in specs:
+        specs["head_blocks"] = [whole_norms(b) for b in specs["head_blocks"]]
+
+    def layer(b: Dict) -> Dict[str, bool]:
+        out = {"attn": _cut(b["attn"]["wo"], tp)}
+        if "moe" in b:
+            m = b["moe"]
+            out.update(router=_cut(m["router"], tp),
+                       experts=_cut(m["experts_w_down"], tp))
+            if "shared" in m:
+                out["shared"] = _cut(m["shared"]["w_down"], tp)
+        else:
+            out["mlp"] = _cut(b["mlp"]["w_down"], tp)
+        return out
+
+    head_blocks = specs.get("head_blocks", [])
+    plan_layers = [layer(b) for b in head_blocks] + \
+        [layer(specs["blocks"])] * (cfg.n_layers - len(head_blocks))
+    H, Hkv = cfg.n_heads, cfg.n_kv_heads
+    attn = specs["blocks"]["attn"]
+    if _cut(attn["wk"], tp):
+        n = Hkv // tp
+        kv = [(s * n, (s + 1) * n) for s in range(tp)]
+    elif _cut(attn["wq"], tp):
+        hs, group = H // tp, H // Hkv
+        if group % hs:
+            raise ValueError(
+                f"{cfg.name}: a position's {hs} q heads straddle kv "
+                f"groups of {group} heads at tp {tp}")
+        kv = [(s * hs // group, s * hs // group + 1) for s in range(tp)]
     else:
-        tile_spec = None
-        token_tables = tables[cache["token_lane"].long()]   # (T, max_blocks)
-    x = _embed(params, tokens, cfg)
-    for l, bp in enumerate(_layers(params, cfg)):
-        cl = {name: arr[l] for name, arr in cache["scan"].items()}
-        x = _apply_block_ragged(bp, x, cl, token_tables, cache["token_pos"],
-                                cache["slot_mapping"], tile_spec, cfg,
-                                window=window, use_kernel=use_kernel)
-    return _finish(params, x, cfg), cache
+        kv = [(0, Hkv)] * tp
+    head = specs["embed"]["embedding"] if cfg.tie_embeddings \
+        else specs["head"]["w"]
+    return TPPlan(devices=devices, embed=_cut(specs["embed"]["embedding"], tp),
+                  head=_cut(head, tp), layers=plan_layers, kv=kv,
+                  specs=specs)
+
+
+def _tp_embed(shards: List[Dict], tokens: List[torch.Tensor],
+              cfg: ArchConfig, plan: TPPlan) -> List[torch.Tensor]:
+    """Each position's embedded tokens: with a vocab-cut embedding, a
+    lookup masked to the position's rows, then a reduce (every token's
+    row lives on one position, so the sum is exact)."""
+    if plan.embed:
+        parts = []
+        for s, (p, t) in enumerate(zip(shards, tokens)):
+            table = p["embed"]["embedding"]
+            rows = table.shape[0]
+            local = t.long() - s * rows
+            inside = (local >= 0) & (local < rows)
+            parts.append(table[local.clamp(0, rows - 1)]
+                         * inside[..., None].to(table.dtype))
+        xs = plan.reduce(parts)
+    else:
+        xs = [layers.embed_tokens(p["embed"], t.long())
+              for p, t in zip(shards, tokens)]
+    if cfg.scale_embeddings:
+        xs = [x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
+                               device=x.device) for x in xs]
+    return xs
+
+
+def _tp_sum(plan: TPPlan, outs) -> List[torch.Tensor]:
+    """The sum of sublayer outputs ``outs``, each (per-position tensors,
+    cut, per-position bias or None): the cut ones' partial sums added per
+    position and reduced once, their biases added after the reduce, the
+    whole ones added per position."""
+    ys = None
+    cut = [o for o, c, _ in outs if c]
+    if cut:
+        ys = plan.reduce([functools.reduce(torch.add, [o[s] for o in cut])
+                          for s in range(plan.tp)])
+    for o, c, bias in outs:
+        if not c:
+            ys = list(o) if ys is None else [y + w for y, w in zip(ys, o)]
+        elif bias is not None:
+            ys = [y + b for y, b in zip(ys, bias)]
+    return ys
+
+
+def _tp_ffn(bps, xms, cfg: ArchConfig, plan: TPPlan, lp: Dict[str, bool]):
+    """The MLP or MoE sublayer on every position, as ``_tp_sum``'s
+    outputs.  The MoE gathers cut router logits first, so every position
+    routes (and drops) as one device would; its capacity groups are
+    x's leading axis, the flat stream one group."""
+    bias = cfg.use_bias
+    if "moe" not in bps[0]:
+        c = lp["mlp"]
+        return [([layers.apply_mlp(bp["mlp"], x, cfg, bias=not c)
+                  for bp, x in zip(bps, xms)], c,
+                 [bp["mlp"]["b_down"] for bp in bps] if c and bias
+                 else None)]
+    flat = xms[0].dim() == 2
+    xg = [x[None] if flat else x for x in xms]
+    logits = [moe_lib.router_logits(bp["moe"], x) for bp, x in zip(bps, xg)]
+    if lp["router"]:
+        logits = plan.gather(logits)
+    routed = []
+    for s, (bp, x, lg) in enumerate(zip(bps, xg, logits)):
+        n = bp["moe"]["experts_w_down"].shape[0]
+        y, _ = moe_lib.routed_experts(bp["moe"], x, cfg, lg,
+                                      e0=s * n if lp["experts"] else 0)
+        routed.append(y[0] if flat else y)
+    outs = [(routed, lp["experts"], None)]
+    if "shared" in bps[0]["moe"]:
+        c = lp["shared"]
+        outs.append(([layers.apply_mlp(bp["moe"]["shared"], x, cfg,
+                                       bias=not c)
+                      for bp, x in zip(bps, xms)], c,
+                     [bp["moe"]["shared"]["b_down"] for bp in bps]
+                     if c and bias else None))
+    return outs
+
+
+def _tp_layer(bps, xs: List[torch.Tensor], attn_fn, cfg: ArchConfig,
+              plan: TPPlan, lp: Dict[str, bool]) -> List[torch.Tensor]:
+    """One layer on every position: ``attn_fn(s, xn, bias)`` is position
+    s's attention output.  A parallel block whose attention is cut takes
+    one reduce for its attention and MLP together; otherwise the
+    attention's residual add comes first, then the MLP's (the order of
+    :func:`_mlp_residual`, so the one-position plan computes the single
+    device's layer), each reduced where it is cut."""
+    xns = [apply_norm(cfg.norm_type, bp["attn_norm"], x)
+           for bp, x in zip(bps, xs)]
+    c = lp["attn"]
+    attn = ([attn_fn(s, xn, not c) for s, xn in enumerate(xns)], c,
+            [bp["attn"]["bo"] for bp in bps] if c and cfg.use_bias
+            else None)
+    if cfg.parallel_block and c:
+        ys = _tp_sum(plan, [attn] + _tp_ffn(bps, xns, cfg, plan, lp))
+        return [x + y for x, y in zip(xs, ys)]
+    xs = [x + y for x, y in zip(xs, _tp_sum(plan, [attn]))]
+    xms = xns if cfg.parallel_block else [
+        apply_norm(cfg.norm_type, bp["mlp_norm"], x)
+        for bp, x in zip(bps, xs)]
+    ys = _tp_sum(plan, _tp_ffn(bps, xms, cfg, plan, lp))
+    return [x + y for x, y in zip(xs, ys)]
+
+
+def _tp_finish(shards: List[Dict], xs: List[torch.Tensor], cfg: ArchConfig,
+               plan: TPPlan) -> torch.Tensor:
+    """Logits on position 0's device: vocab-cut logits gathered."""
+    if not plan.head:
+        return _finish(shards[0], xs[0], cfg)
+    parts = [layers.lm_logits(p.get("head"), p["embed"],
+                              apply_norm(cfg.norm_type, p["final_norm"], x),
+                              cfg.tie_embeddings)
+             for p, x in zip(shards, xs)]
+    return plan.gather(parts)[0]
+
+
+def tp_ragged_step(shards: List[Dict], caches: List[Dict],
+                   tokens: List[torch.Tensor], cfg: ArchConfig,
+                   plan: TPPlan, *, window: int = 0, tile: int = 16,
+                   compute_dtype: Optional[torch.dtype] = None,
+                   use_kernel: Optional[bool] = None
+                   ) -> Tuple[torch.Tensor, List[Dict]]:
+    """:func:`ragged_step` over the mesh positions of ``plan`` (the
+    layer loop of both; one position is the single device): position
+    s runs its shard ``shards[s]`` of the parameters, its own pools and
+    metadata ``caches[s]`` (as ``ragged_step`` reads them) and its copy
+    ``tokens[s]`` of the stream, at its sharded shapes, and the layers'
+    partial sums meet in ``plan``'s reduces.  Returns (logits (T, V)
+    float32 on position 0's device, caches)."""
+    _check_compute_dtype(shards[0], compute_dtype)
+    reads = []
+    for c in caches:
+        if "tile_meta" in c:
+            reads.append((None, (c["block_tables"], c["tile_meta"],
+                                 c["row_tile"], tile)))
+        else:
+            reads.append((c["block_tables"][c["token_lane"].long()], None))
+    xs = _tp_embed(shards, tokens, cfg, plan)
+    for l, bps in enumerate(zip(*(_layers(p, cfg) for p in shards))):
+        def attn(s, xn, bias, _l=l, _bps=bps):
+            c = caches[s]
+            cl = {name: arr[_l] for name, arr in c["scan"].items()}
+            return _attn_ragged(_bps[s], xn, cl, reads[s][0], c["token_pos"],
+                                c["slot_mapping"], reads[s][1], cfg,
+                                window=window, use_kernel=use_kernel,
+                                kv=plan.kv[s], bias=bias)
+        xs = _tp_layer(bps, xs, attn, cfg, plan, plan.layers[l])
+    return _tp_finish(shards, xs, cfg, plan), caches
+
+
+def tp_paged_step(shards: List[Dict], caches: List[Dict],
+                  tokens: List[torch.Tensor], cfg: ArchConfig,
+                  plan: TPPlan, *, window: int = 0,
+                  compute_dtype: Optional[torch.dtype] = None,
+                  use_kernel: Optional[bool] = None
+                  ) -> Tuple[torch.Tensor, List[Dict]]:
+    """:func:`paged_step` over the mesh positions of ``plan``, as
+    :func:`tp_ragged_step` runs ``ragged_step``.  Returns (logits
+    (B, C, V) float32 on position 0's device, caches)."""
+    _check_compute_dtype(shards[0], compute_dtype)
+    B, C = tokens[0].shape
+    lanes = []
+    for c in caches:
+        q_lens = c.get("q_lens")
+        if q_lens is None:
+            q_lens = torch.full((B,), C, dtype=torch.int32,
+                                device=c["pos"].device)
+        lanes.append((c["pos"], q_lens))
+    xs = _tp_embed(shards, tokens, cfg, plan)
+    for l, bps in enumerate(zip(*(_layers(p, cfg) for p in shards))):
+        def attn(s, xn, bias, _l=l, _bps=bps):
+            c = caches[s]
+            cl = {name: arr[_l] for name, arr in c["scan"].items()}
+            return _attn_paged(_bps[s], xn, cl, c["block_tables"],
+                               *lanes[s], cfg, window=window,
+                               use_kernel=use_kernel, kv=plan.kv[s],
+                               bias=bias)
+        xs = _tp_layer(bps, xs, attn, cfg, plan, plan.layers[l])
+    for c, (pos, q_lens) in zip(caches, lanes):
+        c["pos"] = pos + q_lens
+    return _tp_finish(shards, xs, cfg, plan), caches

@@ -18,7 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, seeded_generator
 from repro_torch.models import transformer
 from repro_torch.models.common import dense_init_, fan_in_std
 
@@ -30,8 +30,7 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device="cuda",
     from ``seed + 1``; weights in ``dtype``, biases zero."""
     assert cfg.frontend is not None and cfg.frontend.kind == "image_patches"
     dev = resolve_device(device)
-    g = torch.Generator(device=dev)
-    g.manual_seed(seed)
+    g = seeded_generator(dev, seed)
     d, e = cfg.d_model, cfg.frontend.d_embed
     kw = dict(device=dev, dtype=dtype)
     projector = {
@@ -123,3 +122,22 @@ def paged_decode_step(params: Dict, cache: Dict, tokens: torch.Tensor,
                       cfg: ArchConfig, **kw):
     return transformer.paged_decode_step(params["lm"], cache, tokens, cfg,
                                          **kw)
+
+
+# the tensor-parallel steps serve the backbone's shards
+def tp_plan(cfg: ArchConfig, specs: Optional[Dict], devices):
+    if specs is None:
+        return transformer.tp_plan(cfg, None, devices)
+    plan = transformer.tp_plan(cfg, specs["lm"], devices)
+    plan.specs = {**specs, "lm": plan.specs}
+    return plan
+
+
+def tp_paged_step(shards, caches, tokens, cfg: ArchConfig, plan, **kw):
+    return transformer.tp_paged_step([p["lm"] for p in shards], caches,
+                                     tokens, cfg, plan, **kw)
+
+
+def tp_ragged_step(shards, caches, tokens, cfg: ArchConfig, plan, **kw):
+    return transformer.tp_ragged_step([p["lm"] for p in shards], caches,
+                                      tokens, cfg, plan, **kw)

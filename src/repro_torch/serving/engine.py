@@ -12,7 +12,20 @@ The counterpart of ``repro/serving/engine.py``:
     (``ragged=False``), each through its own Hopper kernel.
   * :class:`SlotDecodeEngine` — the dense per-lane oracle over
     ``decode_step``, and the serving path of the recurrent families.
+  * :class:`ShardedDecodeEngine` — the data-parallel front: one paged
+    engine per data slice of a mesh, requests routed to the least-loaded
+    slice.
   * :func:`DecodeEngine` — the facade picking between them.
+
+With ``mesh=`` (``repro_torch.launch.mesh``) one paged engine runs
+tensor-parallel over the mesh's "model" positions from one controller:
+each position holds its shard of the parameters
+(``launch.sharding.serving_param_specs``) and its own KV pools, cut over
+the kv heads, and runs every layer at its sharded shapes, the paged read
+included (the Hopper kernel per shard on the card); the layers' partial
+sums meet in reduces on position 0's device (``transformer.TPPlan``).
+Scheduler, block manager, CoW, speculation and transfer address logical
+block ids, the same on every position.
 
 The host side (scheduler, block manager, proposer, batch builders) is the
 reference's numpy code, copied.  The device side runs eagerly: the KV
@@ -27,14 +40,13 @@ takes the reference's pool layout: the port keeps every layer in one
 ``"scan"`` pool, and an MoE config's dense first layers (the reference's
 ``"head"`` pools) are split off it on the way out and merged back on the
 way in, so shipments and snapshots cross between the packages.
-
-Left for a later slice, raising ``NotImplementedError``: ``mesh=`` and
-:class:`ShardedDecodeEngine` (ROADMAP A9).
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from collections import OrderedDict
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -70,9 +82,17 @@ def _emit_token(engine, req: "Request", tok: int) -> bool:
     return finished
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP {item})")
+def _mesh_dp_tp(mesh) -> Tuple[int, int]:
+    """(data-parallel degree, tensor-parallel degree) of a serving mesh:
+    tp is the "model" axis, dp the product of everything else."""
+    from repro_torch.launch.mesh import mesh_axis_sizes
+    sizes = mesh_axis_sizes(mesh)
+    tp = sizes.get("model", 1)
+    dp = 1
+    for name, n in sizes.items():
+        if name != "model":
+            dp *= n
+    return dp, tp
 
 
 def _weight(params) -> Optional[torch.Tensor]:
@@ -97,20 +117,25 @@ def _weight(params) -> Optional[torch.Tensor]:
 def DecodeEngine(model_api, params, *, paged: Optional[bool] = None,
                  mesh=None, **kw):
     """Facade: the paged engine when the model family supports it, the
-    dense-slot engine otherwise.  ``paged=True/False`` forces the choice."""
-    if mesh is not None:
-        raise _not_ported("mesh serving", "A9")
+    dense-slot engine otherwise.  ``paged=True/False`` forces the choice.
+
+    ``mesh`` serves across its positions: the "model" axis shards one
+    engine tensor-parallel, and a data axis > 1 routes to
+    :class:`ShardedDecodeEngine`, one paged engine per data slice.  Mesh
+    serving requires the paged path."""
     if paged is None:
         paged = getattr(model_api, "supports_paged", False)
+    if mesh is not None:
+        if not paged:
+            raise ValueError(
+                f"{model_api.cfg.family} models have no paged-KV decode "
+                "path; mesh serving shards the paged engine only")
+        dp, _ = _mesh_dp_tp(mesh)
+        if dp > 1:
+            return ShardedDecodeEngine(model_api, params, mesh=mesh, **kw)
+        return PagedDecodeEngine(model_api, params, mesh=mesh, **kw)
     cls = PagedDecodeEngine if paged else SlotDecodeEngine
     return cls(model_api, params, **kw)
-
-
-class ShardedDecodeEngine:
-    """Data-parallel front over per-slice paged engines (ROADMAP A9)."""
-
-    def __init__(self, *args, **kwargs) -> None:
-        raise _not_ported("ShardedDecodeEngine", "A9")
 
 
 # ---------------------------------------------------------------------------
@@ -122,9 +147,11 @@ class PagedDecodeEngine:
     equivalent (``n_slots`` full sequences plus the null block).  By
     default every step flattens its scheduled tokens into one stream
     (``RaggedBatch``), cuts it into segment tiles (``TileMap``) and runs
-    ``model_api.ragged_step``; ``tiled=False`` runs the same stream
-    through the per-token attention read, and ``ragged=False`` pads every
-    lane to the widest chunk and runs ``model_api.paged_step``.
+    the ragged step; ``tiled=False`` runs the same stream through the
+    per-token attention read, and ``ragged=False`` pads every lane to the
+    widest chunk and runs the rectangular paged step.  Both run as
+    ``model_api.tp_ragged_step`` / ``tp_paged_step`` over a plan of one
+    position, or of the mesh's positions.
     Speculative drafts ride as ``1 + k`` token segments and are verified
     by the step's own per-row argmax.  Greedy outputs do not depend on
     the schedule or the layout, so the engine is token-identical to
@@ -136,6 +163,16 @@ class PagedDecodeEngine:
     (``torch.int8`` stores quantized pools with per-(block, slot, head)
     scales).  ``compute_dtype`` is the parameters' dtype: the port casts
     weights once, so passing another one raises.
+
+    ``mesh`` (a ``repro_torch.launch.mesh.Mesh`` whose data axes are size
+    1) runs the engine tensor-parallel over its "model" positions, which
+    then place everything (``device`` is not read; the parameters may
+    live anywhere): each position gets a contiguous shard of every
+    parameter that ``serving_param_specs`` cuts (replicated ones are
+    shared where the position sits on their device), pools holding the
+    kv heads its attention reads, and each step's metadata once per
+    distinct device.  Logits and greedy tokens are read on position 0's
+    device (``self.device``).
     """
 
     def __init__(self, model_api, params, *, n_slots: int, cache_len: int,
@@ -156,15 +193,28 @@ class PagedDecodeEngine:
             raise ValueError(
                 f"{model_api.cfg.family} models have no paged-KV decode "
                 "path; use DecodeEngine (it falls back to dense slots)")
-        if mesh is not None:
-            raise _not_ported("mesh serving", "A9")
-        self.device = resolve_device(device)
         self.api = model_api
         self.params = params
+        self.mesh = mesh
+        self.tp = 1
         emb = _weight(params)
-        if emb.device != self.device:
-            raise ValueError(f"parameters live on {emb.device}, the engine "
-                             f"runs on {self.device}")
+        if mesh is None:
+            self.device = resolve_device(device)
+            if emb.device != self.device:
+                raise ValueError(f"parameters live on {emb.device}, the "
+                                 f"engine runs on {self.device}")
+            self._positions = [self.device]
+        else:
+            dp, self.tp = _mesh_dp_tp(mesh)
+            if dp > 1:
+                raise ValueError(
+                    f"mesh has a data-parallel extent of {dp}; "
+                    "PagedDecodeEngine shards ONE engine tensor-parallel — "
+                    "use ShardedDecodeEngine (or DecodeEngine(mesh=...)) "
+                    "for data-parallel slices")
+            self._positions = [resolve_device(d)
+                               for d in mesh.devices.reshape(-1)]
+            self.device = self._positions[0]
         if compute_dtype is not None and compute_dtype != emb.dtype:
             raise ValueError(f"compute_dtype {compute_dtype} differs from the "
                              f"parameters' {emb.dtype}; make or convert the "
@@ -243,13 +293,39 @@ class PagedDecodeEngine:
         # own "head" pools; the port's pool holds them as layers 0..n-1
         moe_cfg = getattr(model_api.cfg, "moe", None)
         self._n_head = moe_cfg.first_dense_layers if moe_cfg else 0
-        self.cache = model_api.init_paged_cache(
-            n_slots, num_blocks=num_blocks, block_size=block_size,
-            max_blocks_per_lane=self.max_blocks,
-            dtype=cache_dtype if cache_dtype is not None else emb.dtype,
-            device=self.device)
-        self._step_fn = (ragged_fn if self.ragged
-                         else model_api.resolve_paged_step())
+        pool_kw = dict(num_blocks=num_blocks, block_size=block_size,
+                       max_blocks_per_lane=self.max_blocks,
+                       dtype=cache_dtype if cache_dtype is not None
+                       else emb.dtype)
+        self._collectives_per_step = 0
+        self.collective_ops = 0
+        # one step for both: off a mesh, the one-position plan over the
+        # whole parameters
+        if mesh is None:
+            self._plan = model_api.tp_plan(None, self._positions)
+            self._shards = [params]
+        else:
+            from repro_torch.launch import sharding as shlib
+            from repro_torch.launch.mesh import mesh_axis_sizes
+            specs = shlib.serving_param_specs(params, mesh_axis_sizes(mesh))
+            self._plan = model_api.tp_plan(specs, self._positions)
+            self._shards = shlib.shard_tree(params, self._plan.specs, mesh)
+        self._kv_ranges = self._plan.kv
+        self._caches = [model_api.init_paged_cache(
+            n_slots, device=dev, n_kv_heads=k1 - k0, **pool_kw)
+            for dev, (k0, k1) in zip(self._positions, self._kv_ranges)]
+        self._step_fn = (model_api.tp_ragged_step if self.ragged
+                         else model_api.tp_paged_step)
+        # the positions whose pools cover the kv heads in order: a block
+        # payload is gathered from them along the kv heads
+        self._kv_sources: List[int] = []
+        covered = 0
+        for s, (k0, k1) in enumerate(self._kv_ranges):
+            if k0 == covered:
+                self._kv_sources.append(s)
+                covered = k1
+        self.kv_heads_sharded = len(self._kv_sources) > 1
+        self.cache = self._caches[0]
         self._step_kw = {"window": window}
         if self.tiled:
             self._step_kw["tile"] = tile
@@ -270,10 +346,32 @@ class PagedDecodeEngine:
         self.spec_tokens_emitted = 0
 
     # ------------------------------------------------------------------
-    def _put(self, x: np.ndarray) -> torch.Tensor:
-        """A host-built int32 metadata array on the engine's device."""
-        return torch.from_numpy(np.ascontiguousarray(x, np.int32)).to(
-            self.device)
+    def _put(self, x: np.ndarray) -> List[torch.Tensor]:
+        """A host-built int32 array on every position's device (one copy
+        per distinct device), in position order."""
+        host = torch.from_numpy(np.ascontiguousarray(x, np.int32))
+        per: Dict[torch.device, torch.Tensor] = {}
+        for dev in self._positions:
+            if dev not in per:
+                per[dev] = host.to(dev)
+        return [per[dev] for dev in self._positions]
+
+    def _set_meta(self, name: str, x: np.ndarray) -> None:
+        """Put step metadata ``name`` into every position's cache."""
+        for cache, t in zip(self._caches, self._put(x)):
+            cache[name] = t
+
+    def _run_step(self, tokens: np.ndarray) -> torch.Tensor:
+        """The model step on the scheduled tokens; logits on
+        ``self.device``.  Counts the step's collectives (none off a
+        mesh)."""
+        self._plan.collectives = 0
+        logits, _ = self._step_fn(self._shards, self._caches,
+                                  self._put(tokens), self._plan,
+                                  **self._step_kw)
+        self._collectives_per_step = self._plan.collectives
+        self.collective_ops += self._plan.collectives
+        return logits
 
     def set_clock(self, clock) -> None:
         """Install a virtual clock (any object with ``.now``) as the source
@@ -334,12 +432,12 @@ class PagedDecodeEngine:
     # ------------------------------------------------------------------
     def _apply_copies(self, copies: List[Tuple[int, int]]) -> None:
         """Copy-on-write: pool[:, dst] = pool[:, src] for every pool leaf
-        (K, V and int8 scale planes).  The gather on the right makes a
-        copy, so overlapping src and dst are safe."""
-        src = torch.tensor([s for s, _ in copies], device=self.device)
-        dst = torch.tensor([d for _, d in copies], device=self.device)
-        for _, arr in self.cache["scan"].items():
-            arr[:, dst] = arr[:, src]
+        (K, V and int8 scale planes) of every position.  The gather on the
+        right makes a copy, so overlapping src and dst are safe."""
+        pairs = self._put(np.asarray(copies, np.int32).T)
+        for cache, (src, dst) in zip(self._caches, pairs):
+            for arr in cache["scan"].values():
+                arr[:, dst.long()] = arr[:, src.long()]
 
     def _gather_greedy(self, decision: StepDecision,
                        flat_logits: torch.Tensor, seg_start):
@@ -383,12 +481,10 @@ class PagedDecodeEngine:
                 n = decision.num_scheduled[r.request_id]
                 q_lens[r.lane] = n
                 tokens[r.lane, :n] = decision.segment_tokens(r)
-        self.cache["block_tables"] = self._put(tables)
-        self.cache["pos"] = self._put(pos)
-        self.cache["q_lens"] = self._put(q_lens)
-        logits, self.cache = self._step_fn(self.params, self.cache,
-                                           self._put(tokens),
-                                           **self._step_kw)
+        self._set_meta("block_tables", tables)
+        self._set_meta("pos", pos)
+        self._set_meta("q_lens", q_lens)
+        logits = self._run_step(tokens)
         self.scheduled_tokens += int(q_lens.sum())
         self.padded_tokens += self.n_slots * width
         return self._gather_greedy(
@@ -405,18 +501,16 @@ class PagedDecodeEngine:
         tables = np.zeros((self.n_slots, self.max_blocks), np.int32)
         for r in self.scheduler.running:
             tables[r.lane] = self.kv.padded_table(r.request_id)
-        self.cache["block_tables"] = self._put(tables)
-        self.cache["token_pos"] = self._put(batch.token_pos)
-        self.cache["slot_mapping"] = self._put(batch.slot_mapping)
+        self._set_meta("block_tables", tables)
+        self._set_meta("token_pos", batch.token_pos)
+        self._set_meta("slot_mapping", batch.slot_mapping)
         if self.tiled:
             tiles = batch.tiles(self.n_slots, self.tile)
-            self.cache["tile_meta"] = self._put(tiles.meta)
-            self.cache["row_tile"] = self._put(tiles.row_tile)
+            self._set_meta("tile_meta", tiles.meta)
+            self._set_meta("row_tile", tiles.row_tile)
         else:
-            self.cache["token_lane"] = self._put(batch.token_lane)
-        logits, self.cache = self._step_fn(self.params, self.cache,
-                                           self._put(batch.tokens),
-                                           **self._step_kw)
+            self._set_meta("token_lane", batch.token_lane)
+        logits = self._run_step(batch.tokens)
         self.scheduled_tokens += batch.total_tokens
         self.padded_tokens += batch.padded_tokens
         return self._gather_greedy(decision, logits,
@@ -517,13 +611,19 @@ class PagedDecodeEngine:
         """One physical block's slice of every pool leaf, copied into CPU
         tensors in the reference's pool layout (``part -> {"k", "v",
         ...}``, each (layers, bs, Hkv[, D])): ``"scan"``, and ``"head"``
-        for the dense first layers of an MoE config."""
-        out = {"scan": {name: arr[self._n_head:, blk].to("cpu", copy=True)
-                        for name, arr in self.cache["scan"].items()}}
+        for the dense first layers of an MoE config.  On a mesh the kv
+        heads are gathered from the positions that hold them, so the
+        payload does not depend on the sharding."""
+        def part(name: str, layers: slice) -> torch.Tensor:
+            got = [self._caches[s]["scan"][name][layers, blk].to(
+                "cpu", copy=True) for s in self._kv_sources]
+            return got[0] if len(got) == 1 else torch.cat(got, dim=2)
+
+        names = list(self.cache["scan"])
+        out = {"scan": {n: part(n, slice(self._n_head, None))
+                        for n in names}}
         if self._n_head:
-            out["head"] = {name: arr[:self._n_head, blk].to("cpu",
-                                                              copy=True)
-                           for name, arr in self.cache["scan"].items()}
+            out["head"] = {n: part(n, slice(0, self._n_head)) for n in names}
         return out
 
     def _write_block_payloads(self, blocks: List[int],
@@ -532,8 +632,8 @@ class PagedDecodeEngine:
         ``_read_block_payload`` gives it) into the device pools at
         ``blocks`` (block axis 1 of every pool leaf)."""
         pools = self.cache["scan"]
+        n_layers = pools["k"].shape[0]
         parts = ("head", "scan") if self._n_head else ("scan",)
-        idx = torch.tensor(blocks, device=self.device)
         for part in parts:
             for p in payloads:
                 if part not in p or set(p[part]) != set(pools):
@@ -541,22 +641,28 @@ class PagedDecodeEngine:
                         f"payload pool-name mismatch on '{part}': got "
                         f"{sorted(p.get(part, {}))}, engine pools are "
                         f"{sorted(pools)} (fp and int8 pools do not mix)")
+        idx = self._put(np.asarray(blocks, np.int32))
+        hkv = self.api.cfg.n_kv_heads
         for name, arr in pools.items():
             rows = []
             for p in payloads:
                 got = [p[part][name] for part in parts]
                 for part, t in zip(parts, got):
                     n = self._n_head if part == "head" \
-                        else arr.shape[0] - self._n_head
-                    want = (n,) + tuple(arr.shape[2:])
+                        else n_layers - self._n_head
+                    want = (n, arr.shape[2], hkv) + tuple(arr.shape[4:])
                     if tuple(t.shape) != want:
                         raise ValueError(
                             f"payload KV geometry mismatch on "
                             f"'{part}/{name}': got {tuple(t.shape)}, "
                             f"engine pool expects {want}")
                 rows.append(got[0] if len(got) == 1 else torch.cat(got))
-            stack = torch.stack(rows, dim=1)
-            arr[:, idx] = stack.to(device=self.device, dtype=arr.dtype)
+            stack = torch.stack(rows, dim=1)    # (L, n, bs, Hkv[, D])
+            for cache, (k0, k1), blk in zip(self._caches, self._kv_ranges,
+                                            idx):
+                dst = cache["scan"][name]
+                dst[:, blk.long()] = stack[:, :, :, k0:k1].to(
+                    device=dst.device, dtype=dst.dtype)
 
     def _swap_out_block(self, digest: str, blk: int, parent: str,
                         tokens) -> None:
@@ -752,6 +858,240 @@ class PagedDecodeEngine:
             "released_seqs": self.kv.released_seqs,
             "swap_ins_dropped": self.kv.swap_ins_dropped,
             "host_purged": self.host_purged,
+            # mesh / tensor-parallel accounting (tp=1, zeros off-mesh):
+            # the reduces and gathers of one step, and their running total
+            "tp": self.tp,
+            "kv_heads_sharded": int(self.kv_heads_sharded),
+            "collectives_per_step": self._collectives_per_step,
+            "collective_ops": self.collective_ops,
+        }
+
+
+# ---------------------------------------------------------------------------
+def _step_on_thread(eng: PagedDecodeEngine) -> None:
+    """Step a slice from a pool thread, which must enter grad mode and its
+    slice's current CUDA device itself: both are per thread."""
+    dev = eng.device
+    with torch.no_grad(), (torch.cuda.device(dev) if dev.type == "cuda"
+                           else contextlib.nullcontext()):
+        eng.step()
+
+
+class ShardedDecodeEngine:
+    """Data-parallel serving front: one full paged engine per mesh slice.
+
+    The mesh's data axes are cut into ``dp`` slices of ``tp`` positions
+    (:func:`repro_torch.launch.mesh.mesh_slices`); each slice runs a
+    complete :class:`PagedDecodeEngine` (scheduler, block pool, prefix
+    cache, CoW, speculation, transfer) tensor-parallel over its own
+    "model" axis.  Requests go to the least-loaded slice by outstanding
+    tokens (lowest index breaks ties), so arrivals never queue on one
+    slice while another idles; greedy decode per request does not depend
+    on the schedule, so a dense model's fleet output equals one engine's.
+    Slices share no device state; with more than one slice their steps
+    run on a thread pool.
+
+    ``n_slots`` (and the pool size derived from it) is per slice: the
+    front scales capacity with the mesh instead of splitting a budget.
+    """
+
+    def __init__(self, model_api, params, *, mesh=None, **engine_kw) -> None:
+        """Split ``mesh`` (default: every visible CUDA card, pure data
+        parallel) into slices and build one :class:`PagedDecodeEngine`
+        per slice; ``engine_kw`` goes to every slice unchanged."""
+        from repro_torch.launch.mesh import make_host_mesh, mesh_slices
+        if mesh is None:
+            mesh = make_host_mesh()
+        self.mesh = mesh
+        self.engines = [PagedDecodeEngine(model_api, params, mesh=m,
+                                          **engine_kw)
+                        for m in mesh_slices(mesh)]
+        self.api = model_api
+        self.device = self.engines[0].device
+        self.n_slices = len(self.engines)
+        # global request id -> (slice index, slice-local id); finished
+        # requests are handed back under their global id
+        self._route: Dict[int, tuple] = {}
+        self._gid_of: Dict[tuple, int] = {}
+        self._next_id = 0
+        self._finished: List[Request] = []
+        self._on_token = None
+        self.clock = None
+        self._pool = (ThreadPoolExecutor(max_workers=self.n_slices)
+                      if self.n_slices > 1 else None)
+
+    # ------------------------------------------------------------------
+    @staticmethod
+    def _outstanding(eng: PagedDecodeEngine) -> int:
+        """Tokens a slice still owes: remaining feed plus unemitted budget
+        of its running requests, and the full prompt + budget of queued
+        ones."""
+        sched = eng.scheduler
+        load = 0
+        for r in sched.running:
+            load += (r.remaining_feed
+                     + (r.max_new_tokens - len(r.generated)))
+        for r in sched.waiting:
+            load += (len(r.prompt) + len(r.generated)
+                     + (r.max_new_tokens - len(r.generated)))
+        return load
+
+    def submit(self, prompt: np.ndarray, max_new_tokens: int,
+               priority: int = 0) -> int:
+        """Queue a request on the least-loaded slice; returns its global
+        id."""
+        gid = self._next_id
+        i = min(range(self.n_slices),
+                key=lambda k: (self._outstanding(self.engines[k]), k))
+        local = self.engines[i].submit(prompt, max_new_tokens,
+                                       priority=priority)
+        self._next_id += 1
+        self._route[gid] = (i, local)
+        self._gid_of[(i, local)] = gid
+        return gid
+
+    def cancel(self, request_id: int) -> bool:
+        """Abort a queued or mid-flight request by global id on its slice;
+        False if unknown or already finished."""
+        loc = self._route.get(request_id)
+        if loc is None:
+            return False
+        i, local = loc
+        ok = self.engines[i].cancel(local)
+        if ok:
+            self._collect()
+        return ok
+
+    def set_clock(self, clock) -> None:
+        """Install one virtual clock on every slice."""
+        self.clock = clock
+        for e in self.engines:
+            e.set_clock(clock)
+
+    @property
+    def on_token(self):
+        """Streaming callback ``(global_id, token, finished)``; setting it
+        installs per-slice wrappers that rewrite local ids to global."""
+        return self._on_token
+
+    @on_token.setter
+    def on_token(self, cb) -> None:
+        self._on_token = cb
+        for i, e in enumerate(self.engines):
+            if cb is None:
+                e.on_token = None
+            else:
+                e.on_token = (lambda rid, tok, fin, _i=i:
+                              cb(self._gid_of[(_i, rid)], tok, fin))
+
+    def _collect(self) -> None:
+        """Move every slice's finished requests into the global list under
+        their global ids."""
+        for i, eng in enumerate(self.engines):
+            done, eng._finished = eng._finished, []
+            for r in done:
+                r.request_id = self._gid_of[(i, r.request_id)]
+                self._finished.append(r)
+
+    def has_work(self) -> bool:
+        """True while any slice holds queued or running requests."""
+        return any(e.scheduler.has_work() for e in self.engines)
+
+    def step(self) -> None:
+        """One iteration of every slice that has work, on the thread pool
+        when more than one has."""
+        active = [e for e in self.engines if e.scheduler.has_work()]
+        if self._pool is not None and len(active) > 1:
+            list(self._pool.map(_step_on_thread, active))
+        else:
+            for e in active:
+                e.step()
+        self._collect()
+
+    def run_until_drained(self, max_steps: int = 100_000) -> List[Request]:
+        """Step all slices until no work remains; returns the requests
+        finished since the last call, under global ids."""
+        for _ in range(max_steps):
+            if not self.has_work():
+                break
+            self.step()
+        return self.take_finished()
+
+    def take_finished(self) -> List[Request]:
+        """Hand off (and clear) finished requests under global ids."""
+        self._collect()
+        out, self._finished = self._finished, []
+        return out
+
+    # fleet totals, for callers written against one engine
+    @property
+    def steps(self) -> int:
+        """Most steps of any slice (slices step together)."""
+        return max((e.steps for e in self.engines), default=0)
+
+    @property
+    def tokens_decoded(self) -> int:
+        return sum(e.tokens_decoded for e in self.engines)
+
+    @property
+    def tokens_prefilled(self) -> int:
+        return sum(e.tokens_prefilled for e in self.engines)
+
+    # ------------------------------------------------------------------
+    # KV transfer across the slice set
+    # ------------------------------------------------------------------
+    def cached_digests(self) -> frozenset:
+        """Digests EVERY slice holds: the safe dedup set, since a sender
+        may strip only blocks no receiving slice would miss."""
+        out = None
+        for e in self.engines:
+            d = e.cached_digests()
+            out = d if out is None else (out & d)
+        return out if out is not None else frozenset()
+
+    def export_kv_prefix(self, feed: np.ndarray):
+        """Export ``feed``'s cached prefix from the slice covering the
+        most of it."""
+        best = max(self.engines,
+                   key=lambda e: len(e.kv.export_chain(feed)))
+        return best.export_kv_prefix(feed)
+
+    def import_kv_shipment(self, shipment) -> Dict[str, int]:
+        """Import a shipment into every slice (each has its own pool),
+        summing the per-slice stats, so a warmed prefix hits on whichever
+        slice serves the prompt."""
+        total: Dict[str, int] = {}
+        for e in self.engines:
+            for k, v in e.import_kv_shipment(shipment).items():
+                total[k] = total.get(k, 0) + v
+        return total
+
+    # ------------------------------------------------------------------
+    def stats(self) -> Dict[str, Any]:
+        """Fleet totals plus the per-slice lists that show imbalance."""
+        per = [e.stats() for e in self.engines]
+        return {
+            "slices": self.n_slices,
+            "tp": per[0]["tp"] if per else 1,
+            "steps": max((p["steps"] for p in per), default=0),
+            "tokens_decoded": sum(p["tokens_decoded"] for p in per),
+            "tokens_prefilled": sum(p["tokens_prefilled"] for p in per),
+            "active": sum(p["active"] for p in per),
+            "waiting": sum(p["waiting"] for p in per),
+            "preemptions": sum(p["preemptions"] for p in per),
+            "cancelled": sum(p["cancelled"] for p in per),
+            "shed": sum(p["shed"] for p in per),
+            "collective_ops": sum(p["collective_ops"] for p in per),
+            "collectives_per_step": (per[0]["collectives_per_step"]
+                                     if per else 0),
+            "padding_efficiency": (
+                sum(e.scheduled_tokens for e in self.engines)
+                / max(sum(e.padded_tokens for e in self.engines), 1)),
+            "tokens_decoded_per_slice": [p["tokens_decoded"] for p in per],
+            "tokens_prefilled_per_slice": [p["tokens_prefilled"]
+                                           for p in per],
+            "collective_ops_per_slice": [p["collective_ops"] for p in per],
+            "per_slice": per,
         }
 
 

@@ -19,9 +19,11 @@ from repro.configs import get_config as jax_get_config
 from repro.models import build_model as jax_build_model
 from repro.serving import PagedDecodeEngine as JaxPagedEngine
 from repro_torch.configs import get_config
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models.api import build_model
 from repro_torch.models.convert import from_reference_params
 from repro_torch.serving.engine import (DecodeEngine, PagedDecodeEngine,
+                                        ShardedDecodeEngine,
                                         SlotDecodeEngine)
 
 PORT = dict(cache_dtype=torch.float32, device="cpu")
@@ -191,20 +193,24 @@ def test_int8_pools_serve(model, layout):
 
 
 def test_facade_and_unported_options(model, tmp_path):
-    """The facade picks the paged engine; ``mesh=``, which a later slice
-    ports, raises ``NotImplementedError``; the KV transfer and persistence
-    methods are ported (``tests/test_torch_kv_transfer.py`` holds them to
-    the reference): on an empty cache they export only the partial tail
-    and snapshot nothing; a mismatched compute dtype raises."""
+    """The facade picks the paged engine, and with a data-parallel mesh
+    (four CPU positions) the ``ShardedDecodeEngine``, which one
+    ``PagedDecodeEngine`` refuses (``tests/test_torch_serving_sharded.py``
+    holds mesh serving to the single engine); the KV transfer and
+    persistence methods are ported (``tests/test_torch_kv_transfer.py``
+    holds them to the reference): on an empty cache they export only the
+    partial tail and snapshot nothing; a mismatched compute dtype
+    raises."""
     arch, _, _, api, tparams = model
     kw = dict(n_slots=2, cache_len=32, **PORT)
     assert isinstance(DecodeEngine(api, tparams, **kw), PagedDecodeEngine)
     assert isinstance(DecodeEngine(api, tparams, paged=False, **kw),
                       SlotDecodeEngine)
-    with pytest.raises(NotImplementedError):
-        PagedDecodeEngine(api, tparams, mesh=object(), **kw)
-    with pytest.raises(NotImplementedError):
-        DecodeEngine(api, tparams, mesh=object(), **kw)
+    mesh = make_host_mesh(devices=[torch.device("cpu")] * 4)
+    assert isinstance(DecodeEngine(api, tparams, mesh=mesh, **kw),
+                      ShardedDecodeEngine)
+    with pytest.raises(ValueError):
+        PagedDecodeEngine(api, tparams, mesh=mesh, **kw)
     eng = PagedDecodeEngine(api, tparams, **kw)
     ship = eng.export_kv_prefix(np.arange(4, dtype=np.int32))
     assert (ship.n_blocks, ship.partial_tokens) == (0, [0, 1, 2, 3])

@@ -29,7 +29,8 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
                  "core.system", "core.transfer",
                  "launch.remote_retrain_flow", "launch.edge_serving",
                  "serving.frontend", "models.cookienetae",
-                 "launch.crossover_analysis"):
+                 "launch.crossover_analysis", "launch.mesh",
+                 "launch.sharding"):
         assert f"repro_torch.{name}" in mods, name
     code = ("import sys\n"
             f"for m in {mods!r}:\n"

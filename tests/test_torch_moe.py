@@ -179,7 +179,8 @@ def test_apply_moe_matches_reference(arch, impl, cf):
     logits = np.asarray(jnp.einsum("gsd,de->gse", jnp.asarray(x),
                                    jp["router"]))
     _, jidx = jax_moe.route_topk(jnp.asarray(logits), mo.experts_per_token)
-    _, tidx, _, _, keep, _ = moe._route(tp, torch.from_numpy(x), mo, C)
+    _, tidx, _, _, keep, _ = moe._route(
+        moe.router_logits(tp, torch.from_numpy(x)), mo, C)
     ties = _ties(np.asarray(jax.nn.softmax(logits)), mo.experts_per_token)
     if ties:
         warnings.warn(f"{arch}: top-k ties at (group, token) {sorted(ties)}"
@@ -404,8 +405,8 @@ class _DropCounter:
         self.dropped = 0
         inner = moe._route
 
-        def route(p, x, mo, C):
-            out = inner(p, x, mo, C)
+        def route(logits, mo, C):
+            out = inner(logits, mo, C)
             self.dropped += int(out[2].sum().item() - out[4].sum().item())
             return out
 
