@@ -59,7 +59,8 @@ printing its own line(s):
    window (S 8192, 36 q and 4 kv heads x 128, window 4096), and at
    phase 13's training shapes, whisper-base's decoder (B 8, 8 x 64 heads,
    S 448) and zamba2-2.7b's shared attention (32 x 80 heads, S 2048),
-   each with its
+   and at phase 15's TP 2 shards, gemma-7b's 8 x 256 heads at S 4096 and
+   deepseek-moe-16b's 8 x 128 at S 2048, each with its
    time, the plain version's, ``scaled_dot_product_attention``'s and the
    least time the card could take, and its achieved TFLOP/s and share of
    that bound; bfloat16 runs the tensor-core kernels (wgmma fed by TMA:
@@ -221,7 +222,27 @@ printing its own line(s):
    x the slices' steps summed, the per-slice lists sum to the totals and
    both slices decode; (d, e) in float32 cut to MESH_F32_LAYERS
    layers, the TP 2, TP 4 and both DP fleets' tokens equal the tp 1
-   engine's.
+   engine's;
+15. sharded training (``make_train_step_fn(mesh=)`` on
+   ``sharding.place``'s float32 pieces), on mesh positions that all name
+   the one card, each line tagged with the card's name and power limit:
+   (a) gemma-7b at its published width, phase 8b's 4 layers, seed state
+   and first batch (1 x 4096), TP 2; (b) the same on DP 2 x TP 2 with
+   ``pre_gather`` at 2 x 2048; (c) deepseek-moe-16b at its published
+   width (32 of 64 experts a position), its dense first layer and 2 MoE
+   layers, TP 2 at 1 x 2048, ``impl="gshard"``.  Each trains a few bf16
+   steps on one batch, whose loss must fall; every step must launch B6f
+   2 x L, dq and dk/dv L times per position and no B6, and count the
+   step design's collectives (the forward's reduces and gathers, their
+   backward duals and the layers' again under remat); its first step's
+   loss and gradient norm against the one-position step's from the same
+   state within SHARD_BF16_*; and one float32 step from that state
+   (without ``pre_gather``) against the one-position float32 step within
+   SHARD_F32_RTOL: loss, gradient norm, the MoE aux, and every leaf's
+   post-AdamW parameters and first moment as relative 2-norms, (c)'s
+   float32 run routed as the one position's (``_RoutePin``) and its own
+   top-k sets that differ from them counted.  Walls, tokens/s, launches,
+   collectives and peak memory are printed.
 
 Then one JSON line of per-kernel numbers, and last
 ``{"ok": true, "device": {...}}``.  Any failed phase raises, so the run
@@ -1258,6 +1279,19 @@ def _fa_tensor_core_check() -> None:
                              "HGMMA or no TMA load")
 
 
+# phase 8a's cells: (label, B, H, Hkv, S, D, window); the first is the
+# main path's (phase 8b's) shape
+FA_CASES = [("gemma-7b S=4096", 1, 16, 16, 4096, 256, 0),
+            ("starcoder2-7b S=8192 window=4096", 1, 36, 4, 8192, 128, 4096),
+            # phase 13's training shapes: whisper-base's decoder and
+            # zamba2-2.7b's shared attention block
+            ("whisper-base S=448", 8, 8, 8, 448, 64, 0),
+            ("zamba2-2.7b S=2048", 1, 32, 32, 2048, 80, 0),
+            # phase 15's TP 2 shards: half the heads on a position
+            ("gemma-7b TP 2 shard S=4096", 1, 8, 8, 4096, 256, 0),
+            ("deepseek-moe-16b TP 2 shard S=2048", 1, 8, 8, 2048, 128, 0)]
+
+
 def phase_flash_kernels():
     """B6, B6f, dq and dk/dv against their plain versions at gemma-7b's
     training shape and at starcoder2-7b's heads and window; the bf16
@@ -1268,12 +1302,7 @@ def phase_flash_kernels():
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref as kref
     _fa_tensor_core_check()
-    cases = [("gemma-7b S=4096", 1, 16, 16, 4096, 256, 0),
-             ("starcoder2-7b S=8192 window=4096", 1, 36, 4, 8192, 128, 4096),
-             # phase 13's training shapes: whisper-base's decoder and
-             # zamba2-2.7b's shared attention block
-             ("whisper-base S=448", 8, 8, 8, 448, 64, 0),
-             ("zamba2-2.7b S=2048", 1, 32, 32, 2048, 80, 0)]
+    cases = FA_CASES
     results = {}
     for label, B, H, Hkv, S, D, window in cases:
         g = torch.Generator(device=DEVICE)
@@ -2157,14 +2186,18 @@ class _RoutePin:
     its token's later layers, its lane's later tokens and its group's
     capacity slots by O(1).  Either way ``own`` logs each call's own
     top-k, and ``dropped`` counts the (token, choice) pairs of the run's
-    routes past their expert's capacity, padding rows included."""
+    routes past their expert's capacity, padding rows included.  A
+    replaying run over ``per`` tensor-parallel positions (each routes
+    every layer on the same gathered logits, in position order) takes the
+    kept run's call i // per at its call i."""
 
     def __init__(self, mo):
         self.mo, self.kernel, self.own = mo, [], []
-        self.replay, self.dropped = False, 0
+        self.replay, self.dropped, self.per = False, 0, 1
 
-    def start(self, use_kernel: bool) -> None:
+    def start(self, use_kernel: bool, per: int = 1) -> None:
         self.replay, self.own, self.dropped = not use_kernel, [], 0
+        self.per = per
         if use_kernel:
             self.kernel = []
 
@@ -2177,7 +2210,7 @@ class _RoutePin:
             gates, idx = inner(logits, k)
             self.own.append(idx)
             if self.replay:
-                idx = self.kernel[len(self.own) - 1]
+                idx = self.kernel[(len(self.own) - 1) // self.per]
                 gates = torch.softmax(logits.to(torch.float32), -1) \
                     .gather(-1, idx)
                 gates = gates / torch.clamp_min(
@@ -3243,12 +3276,14 @@ def _train_steps(label, step_fn, state: dict, batch, steps: int,
 
 
 def _train_summary(label, losses, times, tokens) -> None:
-    """Median ms a step after the first, tokens/s, peak memory, the loss."""
+    """Median ms a step after the first, steps/s, tokens/s, peak memory,
+    the loss."""
     import torch
     ms = statistics.median(times[1:]) * 1e3
     print(f"{label}: {len(times)} steps, median ms/step after the first="
           f"{ms:.2f} (steps: {', '.join(f'{t * 1e3:.1f}' for t in times)}), "
-          f"tokens/s={tokens / (ms / 1e3):.1f}, peak memory "
+          f"steps/s={1e3 / ms:.3f}, tokens/s={tokens / (ms / 1e3):.1f}, "
+          f"peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
           f"(max_memory_allocated), loss {losses[0]:.6f} -> "
           f"{losses[-1]:.6f} [{CARD}]", flush=True)
@@ -3796,6 +3831,236 @@ def phase_mesh() -> None:
     _tag(f"phase 14: {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 15: sharded training
+# ---------------------------------------------------------------------------
+# (label, arch, layers, (dp, tp), batch, seq, bf16 steps, pre_gather)
+SHARD_RUNS = [("15a gemma-7b TP 2", "gemma-7b", TRAIN_LAYERS, (1, 2), 1,
+               4096, 5, False),
+              ("15b gemma-7b DP 2 x TP 2", "gemma-7b", TRAIN_LAYERS, (2, 2),
+               2, 2048, 3, True),
+              ("15c deepseek-moe-16b TP 2", "deepseek-moe-16b", 3, (1, 2),
+               1, 2048, 3, False)]
+# the first bf16 step from the seed state, the sharded step against the
+# one position's: the partial products summed in another order and
+# rounded to bf16 at other points, over a few layers, averaged over the
+# batch's tokens in the loss; written before the first card run (PERF.md)
+SHARD_BF16_LOSS_RTOL = 5e-3
+SHARD_BF16_NORM_RTOL = 5e-2
+# one float32 step from the seed state, the sharded step against the one
+# position's: loss, gradient norm and the MoE aux as relative
+# differences, each leaf's post-AdamW parameters and AdamW first moment
+# as relative 2-norms; the order of sums only (written before the first
+# card run, PERF.md)
+SHARD_F32_RTOL = 1e-5
+
+
+def _shard_design(plan) -> int:
+    """A sharded train step's collectives on one data slice by the step
+    design: the forward's (the embedding's reduce, the logits' gather,
+    one reduce per cut sublayer and a gather of cut router logits), one
+    backward dual each, and the layers' forward ones again in the remat
+    recomputation."""
+    fwd = int(plan.embed) + int(plan.head)
+    layers = 0
+    for lp in plan.layers:
+        ffn = [v for k, v in lp.items() if k not in ("attn", "router")]
+        layers += int(lp["attn"]) + int(any(ffn)) + int(lp.get("router",
+                                                              False))
+    return 2 * (fwd + layers) + layers
+
+
+def _rel2(a, b) -> float:
+    return ((a.float() - b.float()).norm() / b.float().norm()
+            .clamp_min(1e-30)).item()
+
+
+def _shard_f32_check(label, api, shape, mesh, specs, placed, batch, base,
+                     routes) -> None:
+    """One float32 step of the sharded path from ``placed`` against the
+    one position's ``base`` (loss, grad norm, aux, and the new parameters'
+    and first moments' leaves on the host), within SHARD_F32_RTOL."""
+    import torch
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.specs import make_train_step_fn
+    from repro_torch.optim.optimizers import tree_leaves
+    step, opt = make_train_step_fn(api, shape, lr=TRAIN_LR, mesh=mesh,
+                                   specs=specs,
+                                   compute_dtype=torch.float32)
+    tp = mesh.shape["model"]
+    if routes is not None:
+        routes.start(use_kernel=False, per=tp)
+    _zero_counts()
+    t0 = time.perf_counter()
+    new_p, new_s, m = step(placed, opt.init(placed), batch)
+    _sync()
+    wall = time.perf_counter() - t0
+    counts = {k: v for k, v in _read_counts().items() if v}
+    if routes is not None:
+        E = routes.mo.n_experts
+        sets = lambda idx: torch.nn.functional.one_hot(idx, E).sum(-2) > 0
+        differ = sum(int((sets(own) != sets(routes.kernel[i // tp]))
+                         .any(-1).sum()) for i, own in enumerate(routes.own))
+        _tag(f"{label} float32: the one position's routes replayed; "
+             f"(token, routing call) whose own top-k set differs from them "
+             f"{differ} over {len(routes.own)} calls")
+    gaps = {k: abs(float(m[k]) - base[k]) / abs(base[k])
+            for k in base if k in ("loss", "grad_norm", "moe_aux")}
+    worst, where = {}, {}
+    paths = []
+    sh._map_with_path(lambda path, _: paths.append(path), specs)
+    for name, tree in (("params", new_p), ("m", new_s["m"])):
+        whole = tree_leaves(sh.unshard(tree, specs, mesh))
+        gaps_l = [_rel2(a, b.to(a.device)) for a, b in zip(whole,
+                                                           base[name])]
+        worst[name] = max(gaps_l)
+        where[name] = paths[gaps_l.index(worst[name])]
+        del whole
+    _tag(f"{label} float32 step vs one position: wall_ms={wall * 1e3:.2f} "
+         + " ".join(f"{k}={float(m[k]):.6f} (rel {g:.3e})"
+                    for k, g in gaps.items())
+         + f"; max leaf rel_l2 params {worst['params']:.3e} "
+         f"({where['params']}), first moment {worst['m']:.3e} "
+         f"({where['m']}) (limit {SHARD_F32_RTOL:g}); kernel_launches="
+         f"{json.dumps(counts)}")
+    if not (max(gaps.values()) <= SHARD_F32_RTOL
+            and max(worst.values()) <= SHARD_F32_RTOL):
+        raise AssertionError(f"{label}: the float32 sharded step disagrees "
+                             "with the one position's")
+    del new_p, new_s, m
+
+
+def _shard_run(label, arch, layers, dp_tp, batch_size, seq, steps,
+               pre_gather) -> dict:
+    """One phase-15 run (see the module docstring).  Returns the
+    launches of its bf16 steps by kernel."""
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.data.synthetic import lm_token_batch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.specs import (_bf16, make_loss_for_shape,
+                                          make_train_step_fn, train_specs)
+    from repro_torch.models.api import build_model
+    from repro_torch.optim.optimizers import tree_leaves
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, impl="gshard"))
+    api = build_model(cfg)
+    dp, tp = dp_tp
+    P = dp * tp
+    mesh = _positions(tp, dp)
+    shape = InputShape("phase15", seq, batch_size, "train")
+    params = api.init(seed=SEED, device=DEVICE, dtype=torch.float32)
+    gen = torch.Generator()
+    gen.manual_seed(SEED + 1)
+    batch = lm_token_batch(gen, batch_size, seq, cfg.vocab_size,
+                           device=DEVICE)
+    n = sum(t.numel() for t in _leaves(params))
+    _tag(f"{label}: {cfg.name} d_model={cfg.d_model} heads={cfg.n_heads}x"
+         f"{cfg.resolved_head_dim} layers={layers} of "
+         f"{get_config(arch).n_layers}"
+         + (f" (experts {cfg.moe.n_experts}, {cfg.moe.n_experts // tp} a "
+            f"position)" if cfg.moe else "")
+         + f", {n / 1e9:.3f} B params float32, {dp} x {tp} positions on "
+         f"{DEVICE}:0, batch {batch_size} x {seq}, pre_gather={pre_gather}, "
+         f"adamw(lr={TRAIN_LR}, grad_clip_norm=1.0)")
+    routes = _RoutePin(cfg.moe) if cfg.moe else None
+
+    # the one position from the seed state: the bf16 step's loss and
+    # gradient norm, then a float32 step whose results go to the host
+    loss = make_loss_for_shape(api, shape)
+    base16 = _loss_and_grad_norm(
+        (lambda p, b: loss(_bf16(p), b)) if pre_gather else loss, params,
+        batch)
+    torch.cuda.empty_cache()
+    one_step, one_opt = make_train_step_fn(api, shape, lr=TRAIN_LR,
+                                           compute_dtype=torch.float32)
+    if routes is not None:
+        routes.__enter__()
+        routes.start(use_kernel=True)
+    new_p, new_s, m = one_step(params, one_opt.init(params), batch)
+    base = {k: float(v) for k, v in m.items()}
+    base["params"] = [t.cpu() for t in tree_leaves(new_p)]
+    base["m"] = [t.cpu() for t in tree_leaves(new_s["m"])]
+    del new_p, new_s, m
+    torch.cuda.empty_cache()
+
+    try:
+        specs = train_specs(api, params, mesh)
+        placed = sh.place(params, specs, mesh)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        _shard_f32_check(label, api, shape, mesh, specs, placed, batch,
+                         base, routes)
+    finally:
+        if routes is not None:
+            routes.__exit__()
+    del base
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    step, opt = make_train_step_fn(api, shape, lr=TRAIN_LR, mesh=mesh,
+                                   specs=specs, pre_gather=pre_gather)
+    design = [_shard_design(p) for p in step.plans]
+    seen = []
+
+    def counted(p, s, b):
+        for plan in step.plans:
+            plan.collectives = 0
+        out = step(p, s, b)
+        seen.append([plan.collectives for plan in step.plans])
+        if seen[-1] != design:
+            raise AssertionError(f"{label}: collectives {seen[-1]} a slice "
+                                 f"!= the design's {design}")
+        return out
+
+    L = cfg.n_layers
+    want = {fa.B6: 0, fa.B6F: 2 * L * P, fa.B6_DQ: L * P, fa.B6_DKV: L * P}
+    state = {"params": placed, "opt_state": opt.init(placed)}
+    del placed
+    _tag(f"{label}: peak memory of the float32 steps "
+         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB held before the "
+         "bf16 steps")
+    torch.cuda.reset_peak_memory_stats()
+    _, _, losses, norms, times = _train_steps(f"{label} bf16", counted,
+                                              state, batch, steps, want)
+    rel_l = abs(losses[0] - base16[0]) / abs(base16[0])
+    rel_n = abs(norms[0] - base16[1]) / base16[1]
+    _tag(f"{label}: first bf16 step vs one position from the same state "
+         f"and batch: loss {losses[0]:.6f} vs {base16[0]:.6f} (rel "
+         f"{rel_l:.3e}, limit {SHARD_BF16_LOSS_RTOL:g}), grad_norm "
+         f"{norms[0]:.6f} vs {base16[1]:.6f} (rel {rel_n:.3e}, limit "
+         f"{SHARD_BF16_NORM_RTOL:g}); collectives a step a slice {seen[0]} "
+         f"(design {design}); launches a step "
+         f"{json.dumps({k: v for k, v in want.items() if v})} "
+         f"({P} positions)")
+    _train_summary(f"{label} bf16", losses, times, batch_size * seq)
+    if not (rel_l <= SHARD_BF16_LOSS_RTOL and rel_n <= SHARD_BF16_NORM_RTOL):
+        raise AssertionError(f"{label}: the first bf16 sharded step "
+                             "disagrees with the one position's")
+    gc.collect()
+    torch.cuda.empty_cache()
+    _tag(f"phase {label.split()[0]}: {time.perf_counter() - t0:.1f} s")
+    return {k: v * steps for k, v in want.items()}
+
+
+def phase_sharded_training() -> dict:
+    """15a-c; returns the launches of their bf16 steps by kernel."""
+    totals = {}
+    for run in SHARD_RUNS:
+        for k, v in _shard_run(*run).items():
+            totals[k] = totals.get(k, 0) + v
+    return totals
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -3906,6 +4171,12 @@ def main() -> None:
     # and the data-parallel front on positions that share the card
     torch.cuda.empty_cache()
     phase_mesh()
+
+    # 15. sharded training: gemma-7b and deepseek-moe-16b at full width
+    # over mesh positions that share the card
+    torch.cuda.empty_cache()
+    for name, n in phase_sharded_training().items():
+        launches[name] += n
 
     # each kernel's numbers at its main path's shapes
     numbers = {name: c["gemma-7b bf16"] for name, c in checks.items()}

@@ -223,15 +223,16 @@ cudaError_t launch(const BwdArgs& a, int B, bool dkv, cudaStream_t stream) {
   static_assert(dq_smem<D>() <= kSmemLimit && dkv_smem<D>() <= kSmemLimit,
                 "tiles exceed shared memory");
   if (dkv) {
-    static bool granted = false;
+    static PerDevice granted;
     const cudaError_t e = allow_smem(dkv_kernel<T, D>, dkv_smem<D>(),
-                                     granted);
+                                     granted.here());
     if (e != cudaSuccess) return e;
     const dim3 grid((a.S + kBKV - 1) / kBKV, a.Hkv, B);
     dkv_kernel<T, D><<<grid, kThreads, dkv_smem<D>(), stream>>>(a);
   } else {
-    static bool granted = false;
-    const cudaError_t e = allow_smem(dq_kernel<T, D>, dq_smem<D>(), granted);
+    static PerDevice granted;
+    const cudaError_t e = allow_smem(dq_kernel<T, D>, dq_smem<D>(),
+                                     granted.here());
     if (e != cudaSuccess) return e;
     const dim3 grid((a.S + kBQ - 1) / kBQ, a.H, B);
     dq_kernel<T, D><<<grid, kThreads, dq_smem<D>(), stream>>>(a);

@@ -524,15 +524,15 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   p.scale = scale; p.causal = causal; p.window = window;
   cudaError_t e;
   if (dkv) {
-    static bool granted = false;
-    e = allow_smem(dkv_kernel<D>, Dkv<D>::kSmem, granted);
+    static hopper::PerDevice granted;
+    e = allow_smem(dkv_kernel<D>, Dkv<D>::kSmem, granted.here());
     if (e != cudaSuccess) return e;
     p.n_tiles = (S + Dkv<D>::kBN - 1) / Dkv<D>::kBN;
     dkv_kernel<D><<<dim3(Hkv, B, p.n_tiles), kThreads, Dkv<D>::kSmem,
                     stream>>>(p);
   } else {
-    static bool granted = false;
-    e = allow_smem(dq_kernel<D>, Dq<D>::kSmem, granted);
+    static hopper::PerDevice granted;
+    e = allow_smem(dq_kernel<D>, Dq<D>::kSmem, granted.here());
     if (e != cudaSuccess) return e;
     p.n_tiles = (S + Dq<D>::kBM - 1) / Dq<D>::kBM;
     dq_kernel<D><<<dim3(H, B, p.n_tiles), kThreads, Dq<D>::kSmem, stream>>>(

@@ -185,8 +185,21 @@ __device__ __forceinline__ bool visible(int row, int key, int S, int causal,
   return ok;
 }
 
+// A kernel's dynamic shared-memory opt-in (cudaFuncSetAttribute) acts on
+// the current device's context, so a process that launches on several
+// cards grants it once on each: one flag a device.
+struct PerDevice {
+  bool on[64] = {};
+  __host__ bool& here() {
+    int d = 0;
+    cudaGetDevice(&d);
+    return on[d];
+  }
+};
+
 // Opt the kernel into ``smem`` bytes of dynamic shared memory, once per
-// kernel (a static per template instantiation of the caller).
+// kernel and device (a static PerDevice per template instantiation of the
+// caller, its flag for the current device).
 template <typename K>
 __host__ cudaError_t allow_smem(K kernel, size_t smem, bool& done) {
   if (done || smem <= 48 * 1024) return cudaSuccess;

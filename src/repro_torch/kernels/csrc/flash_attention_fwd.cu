@@ -151,10 +151,10 @@ __global__ void __launch_bounds__(kThreads, 1) fwd_kernel(FwdArgs a) {
 
 template <typename T, int D>
 cudaError_t launch(const FwdArgs& a, int B, cudaStream_t stream) {
-  static bool granted = false;
+  static PerDevice granted;
   const size_t smem = fwd_smem<D>();
   static_assert(fwd_smem<D>() <= kSmemLimit, "tiles exceed shared memory");
-  cudaError_t e = allow_smem(fwd_kernel<T, D>, smem, granted);
+  cudaError_t e = allow_smem(fwd_kernel<T, D>, smem, granted.here());
   if (e != cudaSuccess) return e;
   const dim3 grid((a.S + kBQ - 1) / kBQ, a.H, B);
   fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(a);

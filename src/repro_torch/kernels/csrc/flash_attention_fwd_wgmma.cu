@@ -282,13 +282,13 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   p.H = H; p.Hkv = Hkv; p.S = S;
   p.n_qtiles = (S + C::kBM - 1) / C::kBM;
   p.scale = scale; p.causal = causal; p.window = window;
-  static bool granted = false;
-  if (!granted) {
+  static hopper::PerDevice granted;
+  if (!granted.here()) {
     const cudaError_t e = cudaFuncSetAttribute(
         fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(C::kSmem));
     if (e != cudaSuccess) return e;
-    granted = true;
+    granted.here() = true;
   }
   const dim3 grid(H, B, p.n_qtiles);
   fwd_kernel<D><<<grid, kThreads, C::kSmem, stream>>>(p);

@@ -508,4 +508,16 @@ __device__ __forceinline__ void wgmma_rs<256>(float (&d)[128],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 
+// A kernel's dynamic shared-memory opt-in (cudaFuncSetAttribute) acts on
+// the current device's context, so a process that launches on several
+// cards grants it once on each: one flag a device.
+struct PerDevice {
+  bool on[64] = {};
+  __host__ bool& here() {
+    int d = 0;
+    cudaGetDevice(&d);
+    return on[d];
+  }
+};
+
 }  // namespace hopper

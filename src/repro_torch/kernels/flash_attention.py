@@ -22,11 +22,13 @@ one is 1 (transposed views of the model's (B, S, H, D) activations are
 read in place), causal with an optional sliding window; any S, since the
 kernels mask their ragged tail.  The bfloat16 kernels load their tiles by
 TMA, which needs 16-byte aligned tensors and strides: the same layout
-check covers both.  For CUDA tensors a wrapper checks its
-inputs, allocates the outputs and launches on the current stream, or
-raises: there is no fallback.  For CPU tensors it runs the kernel's plain
-version in ``ref.py``.  ``launch_counts`` counts kernel launches by name,
-so a run can show that its path went through the kernels.
+check covers both.  For CUDA tensors a wrapper checks its inputs,
+allocates the outputs and launches on the current stream of the inputs'
+device (made current for the launch, so positions on several cards
+each launch on their own), or raises: there is no fallback.  For CPU
+tensors it runs the kernel's plain version in ``ref.py``.
+``launch_counts`` counts kernel launches by name, so a run can show that
+its path went through the kernels.
 """
 from __future__ import annotations
 
@@ -140,11 +142,12 @@ def _forward(q, k, v, causal: bool, window: int, with_lse: bool):
     o = torch.empty_like(q)
     lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
            if with_lse else None)
-    _raise_on(_kernel("fwd", q.dtype)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr() if with_lse else None, _strides(q, k, v, o), B, H,
-        k.shape[1], S, D, _DTYPES[q.dtype], int(causal), window,
-        1.0 / D ** 0.5, _stream(q)), _source("fwd", q.dtype))
+    with torch.cuda.device(q.device):
+        _raise_on(_kernel("fwd", q.dtype)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr() if with_lse else None, _strides(q, k, v, o), B,
+            H, k.shape[1], S, D, _DTYPES[q.dtype], int(causal), window,
+            1.0 / D ** 0.5, _stream(q)), _source("fwd", q.dtype))
     launch_counts[B6F if with_lse else B6] += 1
     return o, lse
 
@@ -206,12 +209,13 @@ def launch_bwd_kernel(which: str, q: torch.Tensor, k: torch.Tensor,
     checked and outputs it has allocated (``delta`` contiguous (B, H, S)
     float32); it runs both, and a timing can run one alone."""
     B, H, S, D = q.shape
-    _raise_on(_kernel(which, q.dtype)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), _strides(q, k, v, do, dq, dk, dv), B, H, k.shape[1],
-        S, D, _DTYPES[q.dtype], int(causal), window, 1.0 / D ** 0.5,
-        _stream(q)), f"{_source(which, q.dtype)} {which}")
+    with torch.cuda.device(q.device):
+        _raise_on(_kernel(which, q.dtype)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), _strides(q, k, v, do, dq, dk, dv), B, H,
+            k.shape[1], S, D, _DTYPES[q.dtype], int(causal), window,
+            1.0 / D ** 0.5, _stream(q)), f"{_source(which, q.dtype)} {which}")
     launch_counts[B6_DQ if which == "dq" else B6_DKV] += 1
 
 

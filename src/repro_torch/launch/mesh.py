@@ -1,13 +1,14 @@
-"""Device meshes of the port's serving engines.
+"""Device meshes of the port's serving engines and sharded training.
 
 The counterpart of ``repro/launch/mesh.py``.  A :class:`Mesh` is an
 object array of ``torch.device`` positions with named axes: "data" (the
-data-parallel slices of ``ShardedDecodeEngine``) and "model" (the
-tensor-parallel shards of one ``PagedDecodeEngine``).  Two positions may
-name the same device: a mesh of four ``cpu`` positions runs the sharded
-code on the CPU, and positions that share one card run every shard's
-kernels at the sharded shapes on that card.  Building a mesh touches no
-device state.
+data-parallel slices of ``ShardedDecodeEngine``, or of a sharded train
+step's batch and FSDP pieces) and "model" (the tensor-parallel shards of
+one ``PagedDecodeEngine`` or of one slice's training forward).  Two
+positions may name the same device: a mesh of four ``cpu`` positions
+runs the sharded code on the CPU, and positions that share one card run
+every shard's kernels at the sharded shapes on that card.  Building a
+mesh touches no device state.
 """
 from __future__ import annotations
 
@@ -62,6 +63,35 @@ def make_host_mesh(model_parallel: int = 1,
                          f"the {n} devices")
     return Mesh(devs, ("data", "model"),
                 shape=(n // model_parallel, model_parallel))
+
+
+def build_mesh(mesh_shape: str, tp: int, device: str) -> Optional[Mesh]:
+    """The launchers' mesh: ``mesh_shape`` "dp,tp" (the first dp x tp
+    devices), else ``tp`` > 0 (every visible card, model_parallel tp; tp
+    CPU positions with ``device="cpu"``); None when neither is given.
+    Refuses a mesh larger than the devices present, and never falls back
+    to the CPU."""
+    if not (mesh_shape or tp):
+        return None
+    if mesh_shape:
+        dp, tp = (int(x) for x in mesh_shape.split(","))
+    else:
+        dp = 0
+    if device == "cpu":
+        return Mesh([torch.device("cpu")] * (max(dp, 1) * tp),
+                    ("data", "model"), shape=(max(dp, 1), tp))
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if dp == 0:
+        if n == 0 or n % tp:
+            raise SystemExit(f"--tp {tp} does not divide the {n} visible "
+                             "CUDA devices")
+        dp = n // tp
+    if dp * tp > n:
+        raise SystemExit(f"--mesh-shape {dp},{tp} needs {dp * tp} devices, "
+                         f"found {n} CUDA devices (--device cpu lays the "
+                         "positions on the CPU)")
+    return Mesh([torch.device("cuda", i) for i in range(dp * tp)],
+                ("data", "model"), shape=(dp, tp))
 
 
 def mesh_axis_sizes(mesh: Mesh) -> Dict[str, int]:

@@ -31,40 +31,12 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.launch.mesh import Mesh
+from repro_torch.launch.mesh import build_mesh
 from repro_torch.models.api import build_model
 from repro_torch.serving.engine import DecodeEngine
 
 _CACHE_DTYPES = {"auto": None, "bf16": torch.bfloat16, "f32": torch.float32,
                  "int8": torch.int8}
-
-
-def _build_mesh(mesh_shape: str, tp: int, device: str):
-    """The serving mesh of ``--mesh-shape dp,tp`` (the first dp x tp
-    devices) or ``--tp N`` (every visible card, model_parallel N; N CPU
-    positions with ``--device cpu``); None when neither is given.
-    Refuses a mesh larger than the devices present."""
-    if not (mesh_shape or tp):
-        return None
-    if mesh_shape:
-        dp, tp = (int(x) for x in mesh_shape.split(","))
-    else:
-        dp = 0
-    if device == "cpu":
-        return Mesh([torch.device("cpu")] * (max(dp, 1) * tp),
-                    ("data", "model"), shape=(max(dp, 1), tp))
-    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
-    if dp == 0:
-        if n == 0 or n % tp:
-            raise SystemExit(f"--tp {tp} does not divide the {n} visible "
-                             "CUDA devices")
-        dp = n // tp
-    if dp * tp > n:
-        raise SystemExit(f"--mesh-shape {dp},{tp} needs {dp * tp} devices, "
-                         f"found {n} CUDA devices (--device cpu lays the "
-                         "positions on the CPU)")
-    return Mesh([torch.device("cuda", i) for i in range(dp * tp)],
-                ("data", "model"), shape=(dp, tp))
 
 
 def main(argv=None) -> None:
@@ -128,7 +100,7 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
     if args.mesh_shape and args.tp:
         raise SystemExit("--mesh-shape and --tp are exclusive")
-    mesh = _build_mesh(args.mesh_shape, args.tp, args.device)
+    mesh = build_mesh(args.mesh_shape, args.tp, args.device)
 
     cfg = get_config(args.arch)
     if not args.full:

@@ -18,10 +18,15 @@ A spec is a :class:`PartitionSpec`, one axis choice per leaf dim: None,
 an axis name or a tuple of axis names.  Trees are the port's nested dicts
 and lists; a leaf's path joins dict keys and list indices with "/"
 (``head_blocks/0/attn/wq``), as the reference's ``_path_str`` does.
-:func:`shard_tree` cuts a tree into one local tree per mesh position.
-The reference's ``maybe_shard`` and ``models.common.constrain`` are
-sharding hints to XLA's partitioner, which an eager program has no use
-for, so they have no counterpart.
+:func:`shard_tree` cuts a tree into one local tree per mesh position
+(serving).  Sharded training stores each element once: :func:`place` is
+the counterpart of ``jax.device_put(params, to_named(specs, mesh))``,
+:func:`local_trees` hands every position its differentiable local tree
+(the FSDP all-gather over "data", whose backward is the reduce-scatter)
+and :func:`unshard` rebuilds the whole tree.  The reference's
+``maybe_shard`` and ``models.common.constrain`` are sharding hints to
+XLA's partitioner, which an eager program has no use for, so they have
+no counterpart.
 """
 from __future__ import annotations
 
@@ -359,9 +364,11 @@ def shard_tree(tree: PyTree, specs: PyTree, mesh) -> List[PyTree]:
 
 
 def _zip_map(fn, tree: PyTree, specs: PyTree) -> PyTree:
-    if isinstance(tree, dict):
-        return {k: _zip_map(fn, v, specs[k]) for k, v in tree.items()}
-    if isinstance(tree, list):
+    """``fn(leaf, spec)`` down the structure of ``specs`` (so a placed
+    leaf, a list of pieces, reaches ``fn`` whole)."""
+    if isinstance(specs, dict):
+        return {k: _zip_map(fn, tree[k], v) for k, v in specs.items()}
+    if isinstance(specs, list):
         return [_zip_map(fn, v, s) for v, s in zip(tree, specs)]
     return fn(tree, specs)
 
@@ -373,3 +380,139 @@ def leaves(tree: PyTree) -> List:
     if isinstance(tree, list):
         return [x for v in tree for x in leaves(v)]
     return [tree]
+
+
+# ---------------------------------------------------------------------------
+# Placement for sharded training: every element stored once
+# ---------------------------------------------------------------------------
+def _cut_axes(spec: PartitionSpec, sizes: Dict[str, int],
+              axis_names: Sequence[str]) -> List[str]:
+    """The mesh axes (in mesh order) that cut a leaf: named by its spec and
+    larger than 1."""
+    return [a for a in axis_names if sizes[a] > 1 and has_axis(spec, a)]
+
+
+def _pieces(mesh, spec: PartitionSpec):
+    """(coords, position index) of a leaf's distinct pieces, in row-major
+    order over the axes that cut it: each piece sits on the first position
+    that holds it (every other axis at 0)."""
+    sizes = dict(zip(mesh.axis_names, mesh.devices.shape))
+    cut = _cut_axes(spec, sizes, mesh.axis_names)
+    out = []
+    for idx in np.ndindex(*[sizes[a] for a in cut]):
+        coords = dict.fromkeys(mesh.axis_names, 0)
+        coords.update(zip(cut, idx))
+        flat = int(np.ravel_multi_index(
+            [coords[a] for a in mesh.axis_names], mesh.devices.shape))
+        out.append((coords, flat))
+    return out
+
+
+def place(tree: PyTree, specs: PyTree, mesh) -> PyTree:
+    """The tree with each leaf replaced by the list of its distinct pieces:
+    one tensor per combination of the mesh axes its spec cuts (row-major
+    over them, in mesh order), on the first position that holds it, so
+    every element is stored once (a replicated leaf is one piece).  A
+    piece cut along the leaf's first cut dim with nothing cut before it
+    is a view of the leaf where the leaf already sits on its device."""
+    sizes = dict(zip(mesh.axis_names, mesh.devices.shape))
+    devices = mesh.devices.reshape(-1)
+
+    def per_leaf(leaf, spec):
+        return [_local(leaf, spec, coords, sizes).to(devices[flat])
+                .contiguous() for coords, flat in _pieces(mesh, spec)]
+
+    return _zip_map(per_leaf, tree, specs)
+
+
+def _data_dims(spec: PartitionSpec, sizes: Dict[str, int]
+               ) -> List[Tuple[int, Tuple[str, ...]]]:
+    """(dim, axes) of the dims a spec cuts over data axes (every cut axis
+    but "model"), larger than 1.  A dim cut over "model" jointly with a
+    data axis (the ``fsdp_flat`` policy) is refused."""
+    out = []
+    for dim, choice in enumerate(spec):
+        if choice is None:
+            continue
+        names = tuple(a for a in (choice if isinstance(choice, tuple)
+                                  else (choice,)) if sizes[a] > 1)
+        if "model" in names and len(names) > 1:
+            raise NotImplementedError(
+                f"a dim cut over {names} jointly (the fsdp_flat policy) "
+                "is not trained sharded yet (ROADMAP A9c)")
+        data = tuple(a for a in names if a != "model")
+        if data:
+            out.append((dim, data))
+    return out
+
+
+def local_trees(placed: PyTree, specs: PyTree, mesh, *,
+                dtype: Optional[torch.dtype] = None) -> List[PyTree]:
+    """One local tree per mesh position (row-major over the mesh), built
+    differentiably from the pieces of :func:`place`: a leaf's cuts over
+    "model" are that position's piece, its cuts over the data axes are
+    the pieces concatenated along their dims (the FSDP all-gather; its
+    backward sums the positions' gradients into each piece, the
+    reduce-scatter).  With ``dtype`` every float piece is cast to it once,
+    before the concatenation (the reference's ``pre_gather`` bf16
+    gather).  A piece that needs no cast, no move and no concatenation is
+    handed over as is, so a replicated leaf's gradient sums over the
+    positions that read it."""
+    sizes = dict(zip(mesh.axis_names, mesh.devices.shape))
+    flat_devices = mesh.devices.reshape(-1)
+    memo: Dict[Tuple[int, torch.device], torch.Tensor] = {}
+
+    def fetch(piece: torch.Tensor, dev: torch.device) -> torch.Tensor:
+        key = (id(piece), dev)
+        if key not in memo:
+            t = piece
+            if dtype is not None and t.is_floating_point():
+                t = memo.setdefault((id(piece), None), t.to(dtype))
+            memo[key] = t.to(dev)
+        return memo[key]
+
+    out = []
+    for flat, dev in enumerate(flat_devices):
+        here = dict(zip(mesh.axis_names,
+                        np.unravel_index(flat, mesh.devices.shape)))
+
+        def per_leaf(pieces, spec, _here=here, _dev=dev):
+            cut = _cut_axes(spec, sizes, mesh.axis_names)
+            index = {tuple(c[a] for a in cut): i for i, (c, _) in
+                     enumerate(_pieces(mesh, spec))}
+
+            def assemble(coords, dims):
+                if not dims:
+                    return fetch(pieces[index[tuple(coords[a] for a in cut)]],
+                                 _dev)
+                dim, names = dims[0]
+                parts = [assemble({**coords, **dict(zip(names, idx))},
+                                  dims[1:])
+                         for idx in np.ndindex(*[sizes[a] for a in names])]
+                return torch.cat(parts, dim=dim)
+
+            return assemble(dict(_here), _data_dims(spec, sizes))
+
+        out.append(_zip_map(per_leaf, placed, specs))
+    return out
+
+
+@torch.no_grad()
+def unshard(placed: PyTree, specs: PyTree, mesh) -> PyTree:
+    """The whole tree of :func:`place`'s pieces, each leaf on its first
+    piece's device."""
+    sizes = dict(zip(mesh.axis_names, mesh.devices.shape))
+
+    def per_leaf(pieces, spec):
+        first = pieces[0]
+        shape = list(first.shape)
+        for dim, choice in enumerate(spec):
+            if choice is not None:
+                for a in (choice if isinstance(choice, tuple) else (choice,)):
+                    shape[dim] *= sizes[a]
+        whole = torch.empty(shape, dtype=first.dtype, device=first.device)
+        for piece, (coords, _) in zip(pieces, _pieces(mesh, spec)):
+            _local(whole, spec, coords, sizes).copy_(piece)
+        return whole
+
+    return _zip_map(per_leaf, placed, specs)

@@ -3,6 +3,17 @@ counterpart of ``make_loss_for_shape``, ``make_train_step_fn``,
 ``make_prefill_step_fn`` and ``make_serve_step_fn`` in
 ``repro/launch/specs.py``.
 
+``make_train_step_fn(..., mesh=, specs=)`` is the sharded train step of
+the dense and MoE families, the counterpart of jitting the reference's
+step on ``device_put`` parameters: its state is ``sharding.place``'s
+tree of pieces (each element stored once, float32) and
+``opt.init(placed)``; every step hands each mesh position its local tree
+(``sharding.local_trees``, the FSDP gather over "data", in bfloat16 first
+with ``pre_gather``), runs each data slice's rows through
+``transformer.tp_loss_fn`` (tensor-parallel over the slice's positions,
+the slices' loss sums added before dividing) and updates the pieces
+with ``adamw``.
+
 :func:`abstract_params` is the parameter tree on the ``meta`` device
 (shapes and dtypes, no storage), which the sharding rules read.  The
 reference's abstract input specs and its AOT/HLO step builders read XLA's
@@ -12,15 +23,22 @@ A10).  Options that the reference does not have (``compute_dtype``,
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.shapes import InputShape
+from repro_torch.launch import sharding as shard_lib
+from repro_torch.launch.mesh import (Mesh, data_axes_of, mesh_axis_sizes,
+                                     mesh_slices)
+from repro_torch.models import transformer
 from repro_torch.models.api import ModelAPI
 from repro_torch.models.common import cast_weights
 from repro_torch.optim import Optimizer, adamw
 from repro_torch.train.trainer import make_train_step
+
+# the families whose training forward runs tensor-parallel over a mesh
+SHARDED_FAMILIES = ("dense", "moe")
 
 
 def abstract_params(api: ModelAPI, dtype: torch.dtype = torch.bfloat16):
@@ -53,21 +71,84 @@ def _bf16(tree):
     return cast_weights(tree, torch.bfloat16, keep_norms=False)
 
 
+def train_specs(api: ModelAPI, params, mesh: Mesh,
+                policy: str = "baseline"):
+    """The sharded train step's parameter specs, which :func:`place
+    <repro_torch.launch.sharding.place>` takes too: the reference
+    launcher's ``param_specs(params, axes, data_axes)``, with the
+    per-head q/k norm scales whole, as the tensor-parallel layers read
+    them (``transformer.tp_specs``)."""
+    specs = shard_lib.param_specs(params, mesh_axis_sizes(mesh),
+                                  data_axes_of(mesh), policy)
+    return transformer.tp_specs(specs)
+
+
+def _data_slices(batch: Dict, mesh: Mesh, dp: int) -> list:
+    """The batch's rows cut over the data slices by ``batch_spec``; where
+    they do not divide, every slice takes the whole batch."""
+    spec = shard_lib.batch_spec(tuple(batch["tokens"].shape),
+                                mesh_axis_sizes(mesh), data_axes_of(mesh))
+    if spec[0] is None:
+        return [batch] * dp
+    n = batch["tokens"].shape[0] // dp
+    return [{k: v[i * n:(i + 1) * n] for k, v in batch.items()}
+            for i in range(dp)]
+
+
 def make_train_step_fn(api: ModelAPI, shape: InputShape, *,
                        lr: float = 1e-4, attn_chunk: int = 512,
                        remat: bool = True, pre_gather: bool = False,
+                       mesh: Optional[Mesh] = None, specs=None,
                        **model_kw) -> Tuple[Callable, Optimizer]:
     """(train_step, opt): train_step(params, opt_state, batch) ->
     (params, opt_state, metrics) with ``adamw(lr, grad_clip_norm=1.0)``;
-    metrics hold the loss's metrics, ``loss`` and ``grad_norm``."""
-    loss = make_loss_for_shape(api, shape, attn_chunk=attn_chunk,
-                               remat=remat, **model_kw)
+    metrics hold the loss's metrics, ``loss`` and ``grad_norm``.
+
+    With a ``mesh`` the step is sharded (the dense and MoE families):
+    params is ``place(params, specs, mesh)`` (``specs`` default:
+    :func:`train_specs` of the arch's tree), the optimizer state
+    ``opt.init`` of it, and gradients, their norm and the update are the
+    pieces', each element once.  Every position's local tree comes from
+    the pieces (``sharding.local_trees``; bf16 first with
+    ``pre_gather``), the batch's rows are cut over the data slices and
+    each slice runs ``transformer.tp_loss_fn``'s tensor-parallel forward;
+    ``train_step.plans`` are the slices' ``TPPlan``s (their
+    ``collectives``)."""
     opt = adamw(lr, grad_clip_norm=1.0)
+    if mesh is None:
+        loss = make_loss_for_shape(api, shape, attn_chunk=attn_chunk,
+                                   remat=remat, **model_kw)
 
-    def loss_of(p, b):
-        return loss(_bf16(p) if pre_gather else p, b)
+        def loss_of(p, b):
+            return loss(_bf16(p) if pre_gather else p, b)
 
-    return make_train_step(loss_of, opt), opt
+        return make_train_step(loss_of, opt), opt
+    cfg = api.cfg
+    if cfg.family not in SHARDED_FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name}: sharded training of the {cfg.family} family (no "
+            "tensor-parallel layer loop yet) is ROADMAP A9c")
+    if specs is None:
+        specs = train_specs(api, abstract_params(api, torch.float32), mesh)
+    elif transformer.tp_specs(specs) != specs:
+        raise ValueError("place the parameters with train_specs: the q/k "
+                         "norm scales must be whole")
+    plans = [api.tp_plan(specs, list(m.devices.reshape(-1)))
+             for m in mesh_slices(mesh)]
+    tp = plans[0].tp
+    window = api.effective_window(shape.seq_len)
+    dtype = torch.bfloat16 if pre_gather else None
+
+    def sharded_loss(placed, batch):
+        local = shard_lib.local_trees(placed, specs, mesh, dtype=dtype)
+        shards = [local[i * tp:(i + 1) * tp] for i in range(len(plans))]
+        return transformer.tp_loss_fn(
+            shards, _data_slices(batch, mesh, len(plans)), cfg, plans,
+            window=window, attn_chunk=attn_chunk, remat=remat, **model_kw)
+
+    step = make_train_step(sharded_loss, opt)
+    step.plans = plans
+    return step, opt
 
 
 def make_prefill_step_fn(api: ModelAPI, shape: InputShape, *,

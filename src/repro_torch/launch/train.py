@@ -14,7 +14,22 @@ published width with ``--full``.  It runs on the CUDA card, where
 attention goes through the flash-attention kernels forward and backward
 (the recurrent families' scans through their plain chunkwise forms: the
 scan kernels have no backward), unless ``--device cpu`` is given.
-``--model-parallel`` above 1 needs sharded training (ROADMAP A9b).
+
+``--model-parallel N`` trains sharded over the reference's host mesh
+(every visible card, (cards / N) data slices x N-way tensor parallelism;
+``launch/mesh.py::build_mesh``), ``--mesh-shape dp,tp`` over the first
+dp x tp cards; with ``--device cpu`` the positions are CPU positions
+(``--model-parallel N``: N of them), which run every shard's layers and
+reduces on the CPU.  The float32 masters are placed once by the
+reference's ``param_specs`` (``launch/specs.py::train_specs``,
+``sharding.place``), each step's ``lm_token_batch`` is drawn whole and
+cut by rows over the data slices, and a checkpoint holds the whole tree
+(``sharding.unshard``) in the reference's format.  The dense and MoE
+families train sharded; the others train on one device with a model axis
+of 1 and raise ``NotImplementedError`` above it (ROADMAP A9c):
+
+    python -m repro_torch.launch.train --arch gemma-7b --device cpu \\
+        --mesh-shape 2,2
 """
 from __future__ import annotations
 
@@ -28,7 +43,9 @@ from repro_torch.configs import get_config
 from repro_torch.configs.shapes import InputShape
 from repro_torch.data.synthetic import lm_token_batch
 from repro_torch.device import resolve_device
+from repro_torch.launch import sharding as shard_lib
 from repro_torch.launch import specs as specs_lib
+from repro_torch.launch.mesh import build_mesh
 from repro_torch.models.api import build_model
 from repro_torch.train import checkpoint as ckpt_lib
 
@@ -59,27 +76,48 @@ def main(argv=None) -> None:
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--full", action="store_true",
                     help="use the full (non-smoke) config")
-    ap.add_argument("--model-parallel", type=int, default=1)
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="tensor-parallel degree over every visible card "
+                         "(N CPU positions with --device cpu)")
+    ap.add_argument("--mesh-shape", default="",
+                    help='"dp,tp" mesh: dp data-parallel slices x tp-way '
+                         "tensor-parallel shards each")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--log-every", type=int, default=5)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
-    if args.model_parallel > 1:
-        raise NotImplementedError(
-            "--model-parallel > 1 needs sharded training, not ported "
-            "yet (ROADMAP A9b)")
 
     cfg = get_config(args.arch)
     if not args.full:
         cfg = cfg.smoke_variant()
     api = build_model(cfg)
-    dev = resolve_device(args.device)
+    mesh = build_mesh(args.mesh_shape, args.model_parallel, args.device)
+    if mesh is not None and cfg.family not in specs_lib.SHARDED_FAMILIES:
+        if mesh.shape["model"] > 1:
+            raise NotImplementedError(
+                f"{cfg.name}: sharded training of the {cfg.family} family "
+                "(no tensor-parallel layer loop yet) is ROADMAP A9c")
+        mesh = None                 # a model axis of 1: one device
+    if mesh is not None and mesh.devices.size == 1:
+        mesh = None
+    dev = (resolve_device(args.device) if mesh is None
+           else mesh.devices.reshape(-1)[0])
     shape = InputShape("cli_train", args.seq, args.batch, "train")
-    print(f"device {dev}; arch {cfg.name} ({cfg.family}); "
-          f"L={cfg.n_layers} d={cfg.d_model}")
+    print(f"device {dev}; mesh "
+          f"{mesh.shape if mesh is not None else None}; arch {cfg.name} "
+          f"({cfg.family}); L={cfg.n_layers} d={cfg.d_model}")
 
     params = api.init(seed=0, device=dev, dtype=torch.float32)
-    step_fn, opt = specs_lib.make_train_step_fn(api, shape, lr=args.lr)
+    specs = None
+    if mesh is not None:
+        specs = specs_lib.train_specs(api, params, mesh)
+        params = shard_lib.place(params, specs, mesh)
+    # per-layer remat over positions on several cards is refused
+    # (transformer.tp_forward)
+    remat = mesh is None or len(set(mesh.devices.reshape(-1))) == 1
+    step_fn, opt = specs_lib.make_train_step_fn(api, shape, lr=args.lr,
+                                                mesh=mesh, specs=specs,
+                                                remat=remat)
     opt_state = opt.init(params)
     gen = torch.Generator()
 
@@ -98,6 +136,10 @@ def main(argv=None) -> None:
                   f"grad_norm {float(metrics['grad_norm']):.3f}  "
                   f"({(time.perf_counter() - t0) / step:.3f}s/step)")
     assert np.isfinite(losses[-1]), "training diverged"
+    if mesh is not None:
+        print(f"collectives a step per slice: "
+              f"{[p.collectives // args.steps for p in step_fn.plans]}")
+        params = shard_lib.unshard(params, specs, mesh)
     if args.ckpt_dir:
         ckpt_lib.save_checkpoint(args.ckpt_dir, args.steps,
                                  {"params": params})

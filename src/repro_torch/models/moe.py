@@ -15,11 +15,19 @@ dispatch and combine tensors are made in the compute dtype (the combine
 with the gates rounded to it), as the reference does.  The expert
 products and the dispatch/combine contractions are plain products that
 the reference computes outside any Pallas kernel, so they stay
-``torch.einsum``.  The reference's expert-parallel ``shard_map`` combine
-has no counterpart: a tensor-parallel shard of the port
-(``transformer.tp_ragged_step``) runs :func:`routed_experts` on its own
-experts with the gathered router logits, and the step reduces the
-shards' partial outputs.
+``torch.einsum``.  The counterpart of the reference's expert-parallel
+``shard_map`` combine: a tensor-parallel shard of the port
+(``transformer._tp_ffn``, serving and training) runs
+:func:`routed_experts` on its own experts with the gathered router
+logits, and the step reduces the shards' partial outputs (in training,
+through a reduce whose backward hands every shard the summed output
+gradient).
+
+The load-balance loss is kept as its two per-expert means
+(:func:`balance_means`): a data-parallel step averages each over its
+slices before the product, as the reference's global-batch aux is, and
+a tensor-parallel layer takes them from one shard, so the aux counts
+once.
 """
 from __future__ import annotations
 
@@ -78,12 +86,19 @@ def route_topk(logits: torch.Tensor, k: int
     return gates, idx
 
 
-def load_balance_loss(probs: torch.Tensor, dispatch_counts: torch.Tensor,
-                      n_experts: int) -> torch.Tensor:
-    """GShard aux loss: E * sum_e(mean prob_e * mean dispatch_e) over
-    (G, S, E) router probabilities and 0/1 dispatch counts."""
-    me = probs.mean(dim=(0, 1))
-    ce = dispatch_counts.to(torch.float32).mean(dim=(0, 1))
+def balance_means(probs: torch.Tensor, dispatch_counts: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(mean prob_e, mean dispatch_e), each (E,) float32, over (G, S, E)
+    router probabilities and 0/1 dispatch counts."""
+    return (probs.mean(dim=(0, 1)),
+            dispatch_counts.to(torch.float32).mean(dim=(0, 1)))
+
+
+def balance_loss(means: Tuple[torch.Tensor, torch.Tensor],
+                 n_experts: int) -> torch.Tensor:
+    """The GShard aux loss (the reference's ``load_balance_loss``) from
+    :func:`balance_means`: E * sum_e(mean prob_e * mean dispatch_e)."""
+    me, ce = means
     return n_experts * torch.sum(me * ce)
 
 
@@ -98,7 +113,7 @@ def _route(logits: torch.Tensor, mo: MoEConfig, C: int):
     """The capacity bookkeeping both dispatches share, from the layer's
     router logits (G,S,E): (gates (G,S,k), idx (G,S,k), choice (G,S,k,E)
     one-hot, pos_in_e (G,S,k,E) earlier claims on the same expert, keep
-    (G,S,k,E) 0/1, aux)."""
+    (G,S,k,E) 0/1, the balance means)."""
     B, S, _ = logits.shape
     E, k = mo.n_experts, mo.experts_per_token
     probs = torch.softmax(logits, dim=-1)
@@ -108,8 +123,8 @@ def _route(logits: torch.Tensor, mo: MoEConfig, C: int):
     flat = choice.reshape(B, S * k, E)
     pos_in_e = (torch.cumsum(flat, dim=1) - flat).reshape(B, S, k, E)
     keep = choice * (pos_in_e < C)
-    aux = load_balance_loss(probs, keep.sum(dim=2), E)
-    return gates, idx, choice, pos_in_e, keep, aux
+    return (gates, idx, choice, pos_in_e, keep,
+            balance_means(probs, keep.sum(dim=2)))
 
 
 def _experts(p: Dict, xe: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
@@ -131,16 +146,18 @@ def apply_moe(p: Dict, x: torch.Tensor, cfg: ArchConfig
     "gshard" (one-hot einsums) or "gather"."""
     mo = cfg.moe
     assert mo is not None
-    y, aux = routed_experts(p, x, cfg, router_logits(p, x))
+    y, means = routed_experts(p, x, cfg, router_logits(p, x))
     if mo.n_shared_experts:
         y = y + layers.apply_mlp(p["shared"], x, cfg)
-    return y, aux
+    return y, balance_loss(means, mo.n_experts)
 
 
 def routed_experts(p: Dict, x: torch.Tensor, cfg: ArchConfig,
                    logits: torch.Tensor, e0: int = 0
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The routed experts' share of the MoE output, (y (G, S, d), aux):
+                   ) -> Tuple[torch.Tensor, Tuple[torch.Tensor,
+                                                  torch.Tensor]]:
+    """The routed experts' share of the MoE output, (y (G, S, d), the
+    layer's :func:`balance_means`):
     the layer's routes and drops come from its router ``logits`` (G, S,
     E) over all E experts, and ``p`` holds experts ``e0 .. e0 + E_p - 1``
     of them (all E by default), so a tensor-parallel shard adds the
@@ -149,14 +166,14 @@ def routed_experts(p: Dict, x: torch.Tensor, cfg: ArchConfig,
     assert mo is not None
     C = expert_capacity(x.shape[1], mo)
     n_local = p["experts_w_down"].shape[0]
-    gates, idx, choice, pos_in_e, keep, aux = _route(logits, mo, C)
+    gates, idx, choice, pos_in_e, keep, means = _route(logits, mo, C)
     if mo.impl == "gather":
         y = _dispatch_gather(p, x, cfg, C, gates, idx, choice, pos_in_e,
                              keep, e0, n_local)
     else:
         y = _dispatch_gshard(p, x, cfg, C, gates, choice, pos_in_e,
                              keep[..., e0:e0 + n_local])
-    return y, aux.to(torch.float32)
+    return y, means
 
 
 def _dispatch_gshard(p: Dict, x: torch.Tensor, cfg: ArchConfig, C: int,

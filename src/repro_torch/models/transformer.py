@@ -20,7 +20,11 @@ parameters and its own pools, and a reduce follows a layer's partial sums
 only where the specs cut the contraction, in fixed order on position 0's
 device, so every position sees the same bits.  ``ragged_step`` and
 ``paged_step`` are their one-position case, so the serving steps have one
-layer loop.
+layer loop.  ``tp_forward`` and ``tp_loss_fn`` are the training forward
+and loss over the same layer loop (``forward`` and ``loss_fn`` their
+one-position case), with the reduces and gathers autograd Functions
+whose backward is a reduce or a reduce-scatter; ``tp_loss_fn`` adds
+data-parallel slices' loss sums before dividing.
 """
 from __future__ import annotations
 
@@ -29,7 +33,7 @@ import functools
 from typing import Dict, List, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device, seeded_generator
@@ -207,26 +211,8 @@ def _mlp_residual(bp: Dict, x: torch.Tensor, xn: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Forward (train / prefill) and loss
+# Forward (train / prefill) and loss: the one-position case of tp_forward
 # ---------------------------------------------------------------------------
-def _apply_block(bp: Dict, x: torch.Tensor, positions: torch.Tensor,
-                 cfg: ArchConfig, *, window: int, attn_chunk: int = 512,
-                 use_kernel: Optional[bool] = None
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One layer over x (B, S, d): norm -> QKV (RoPE at ``positions``) ->
-    causal attention -> out projection -> MLP or MoE.  Returns (x, the
-    layer's MoE aux loss, 0 for a dense MLP)."""
-    xn = apply_norm(cfg.norm_type, bp["attn_norm"], x)
-    q, k, v = layers.project_qkv(bp["attn"], xn, positions, cfg)
-    attn = layers.causal_attention(q, k, v, window=window, chunk=attn_chunk,
-                                   use_kernel=use_kernel)
-    attn = layers.project_out(bp["attn"], attn, cfg)
-    x, aux = _mlp_residual(bp, x, xn, attn, cfg)
-    if aux is None:
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x, aux
-
-
 def forward(params: Dict, tokens: torch.Tensor, cfg: ArchConfig, *,
             window: int = 0, extra_embeds: Optional[torch.Tensor] = None,
             compute_dtype: torch.dtype = torch.bfloat16,
@@ -247,26 +233,46 @@ def forward(params: Dict, tokens: torch.Tensor, cfg: ArchConfig, *,
     autograd records, so the backward pass recomputes its insides.
     Attention follows ``layers.causal_attention``'s ``use_kernel`` rule.
     aux sums the MoE layers' load-balance losses (0 for the dense
-    family)."""
+    family).  The one-position case of :func:`tp_forward`."""
     _check_family(cfg)
-    p = cast_weights(params, compute_dtype)
-    x = _embed(p, tokens, cfg)
-    if extra_embeds is not None:
-        x = torch.cat([extra_embeds.to(compute_dtype), x], dim=1)
-    positions = torch.arange(x.shape[1], device=x.device)
+    plan = tp_plan(cfg, None, [tokens.device])
+    logits, means = tp_forward(
+        [params], [tokens], cfg, plan, window=window,
+        extra_embeds=None if extra_embeds is None else [extra_embeds],
+        compute_dtype=compute_dtype, attn_chunk=attn_chunk, remat=remat,
+        use_kernel=use_kernel)
+    return logits, _balance_aux([means], cfg, logits.device)
 
-    def block(bp, x_):
-        return _apply_block(bp, x_, positions, cfg, window=window,
-                            attn_chunk=attn_chunk, use_kernel=use_kernel)
 
-    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for bp in _layers(p, cfg):
-        if remat and torch.is_grad_enabled():
-            x, aux = checkpoint(block, bp, x, use_reentrant=False)
-        else:
-            x, aux = block(bp, x)
-        aux_total = aux_total + aux
-    return _finish(p, x, cfg), aux_total
+def lm_loss_parts(logits: torch.Tensor, labels: torch.Tensor
+                  ) -> Dict[str, torch.Tensor]:
+    """The sums :func:`lm_loss` divides, over the kept positions (label
+    -1 = ignore) of logits (B, S, V) float32: ``nll`` (the negative
+    log-likelihoods), ``z`` (the squared logsumexps) and ``tokens``.  A
+    data-parallel step adds its slices' parts before dividing."""
+    mask = (labels >= 0).to(torch.float32)
+    labels_c = torch.clamp(labels, min=0).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels_c[..., None])[..., 0]
+    nll = (logz - gold) * mask
+    return {"nll": nll.sum(), "z": ((logz * mask) ** 2).sum(),
+            "tokens": mask.sum()}
+
+
+def lm_loss_from_parts(parts: Dict[str, torch.Tensor],
+                       aux: Optional[torch.Tensor] = None,
+                       aux_weight: float = 0.0, z_loss: float = 1e-4
+                       ) -> Tuple[torch.Tensor, Dict]:
+    """:func:`lm_loss` from (summed) :func:`lm_loss_parts`."""
+    denom = torch.clamp(parts["tokens"], min=1.0)
+    ce = parts["nll"] / denom
+    zl = z_loss * parts["z"] / denom
+    loss = ce + zl
+    metrics = {"ce": ce, "z_loss": zl, "tokens": parts["tokens"]}
+    if aux is not None and aux_weight:
+        loss = loss + aux_weight * aux
+        metrics["moe_aux"] = aux
+    return loss, metrics
 
 
 def lm_loss(logits: torch.Tensor, labels: torch.Tensor,
@@ -275,20 +281,8 @@ def lm_loss(logits: torch.Tensor, labels: torch.Tensor,
     """Cross-entropy with label -1 = ignore, plus the z-loss
     ``z_loss * mean(logsumexp^2)`` over the kept positions.  logits
     (B, S, V) float32.  Returns (loss, {"ce", "z_loss", "tokens"})."""
-    mask = (labels >= 0).to(torch.float32)
-    labels_c = torch.clamp(labels, min=0).long()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels_c[..., None])[..., 0]
-    nll = (logz - gold) * mask
-    denom = torch.clamp(mask.sum(), min=1.0)
-    ce = nll.sum() / denom
-    zl = z_loss * ((logz * mask) ** 2).sum() / denom
-    loss = ce + zl
-    metrics = {"ce": ce, "z_loss": zl, "tokens": mask.sum()}
-    if aux is not None and aux_weight:
-        loss = loss + aux_weight * aux
-        metrics["moe_aux"] = aux
-    return loss, metrics
+    return lm_loss_from_parts(lm_loss_parts(logits, labels), aux,
+                              aux_weight, z_loss)
 
 
 def loss_fn(params: Dict, batch: Dict, cfg: ArchConfig, *, window: int = 0,
@@ -300,19 +294,12 @@ def loss_fn(params: Dict, batch: Dict, cfg: ArchConfig, *, window: int = 0,
     ``batch["labels"]``, the frontend positions labelled -1 (no loss),
     with the MoE aux loss at ``router_aux_weight``.  The reference always
     computes in bfloat16 here; ``compute_dtype`` lets a float32 run
-    compare against its float32 forward."""
-    extra = batch.get("extra_embeds")
-    logits, aux = forward(params, batch["tokens"], cfg, window=window,
-                          extra_embeds=extra, compute_dtype=compute_dtype,
-                          attn_chunk=attn_chunk, remat=remat,
-                          use_kernel=use_kernel)
-    labels = batch["labels"]
-    if extra is not None:
-        pad = -torch.ones(extra.shape[:2], dtype=labels.dtype,
-                          device=labels.device)
-        labels = torch.cat([pad, labels], dim=1)
-    aw = cfg.moe.router_aux_weight if cfg.moe else 0.0
-    return lm_loss(logits, labels, aux, aw)
+    compare against its float32 forward.  The one-position case of
+    :func:`tp_loss_fn`."""
+    plan = tp_plan(cfg, None, [batch["tokens"].device])
+    return tp_loss_fn([[params]], [batch], cfg, [plan], window=window,
+                      attn_chunk=attn_chunk, remat=remat,
+                      compute_dtype=compute_dtype, use_kernel=use_kernel)
 
 
 # ---------------------------------------------------------------------------
@@ -611,7 +598,8 @@ class TPPlan:
     serving specs, with the per-head q/k norm scales whole (the steps
     read them whole; the reference's partitioner gathers them at use).
     ``collectives`` counts the reduces and gathers run since it was last
-    set to 0."""
+    set to 0: in training, their backward duals too (each is an autograd
+    Function), and under per-block remat a layer's forward ones again."""
     devices: List[torch.device]
     embed: bool
     head: bool
@@ -627,21 +615,91 @@ class TPPlan:
     def reduce(self, parts: List[torch.Tensor]) -> List[torch.Tensor]:
         """Sum the positions' partial tensors in position order on
         position 0's device and hand every position the sum (on a shared
-        device, the same tensor), so all positions see the same bits."""
-        dst = self.devices[0]
-        total = parts[0].to(dst)
-        for p in parts[1:]:
-            total = total + p.to(dst)
-        self.collectives += 1
-        return [total.to(d) for d in self.devices]
+        device, the same tensor), so all positions see the same bits.
+        Its backward is a reduce too: every part's gradient is the sum of
+        the positions' output gradients."""
+        return list(_Reduce.apply(self, *parts))
 
     def gather(self, parts: List[torch.Tensor]) -> List[torch.Tensor]:
         """Concatenate the positions' pieces along the last dim on
-        position 0's device and hand every position the whole."""
-        dst = self.devices[0]
+        position 0's device and hand every position the whole.  Its
+        backward sums the positions' output gradients and splits the sum
+        (a reduce-scatter)."""
+        return list(_Gather.apply(self, *parts))
+
+
+def _sum_on(dst: torch.device, grads) -> Optional[torch.Tensor]:
+    """The sum of the gradients that are not None, in position order on
+    ``dst`` (None if every one is)."""
+    total = None
+    for g in grads:
+        if g is not None:
+            total = g.to(dst) if total is None else total + g.to(dst)
+    return total
+
+
+class _Reduce(torch.autograd.Function):
+    """:meth:`TPPlan.reduce` with its backward, each counted."""
+
+    @staticmethod
+    def forward(ctx, plan: TPPlan, *parts: torch.Tensor):
+        ctx.set_materialize_grads(False)
+        ctx.plan = plan
+        ctx.part_devices = [p.device for p in parts]
+        dst = plan.devices[0]
+        total = parts[0].to(dst)
+        for p in parts[1:]:
+            total = total + p.to(dst)
+        plan.collectives += 1
+        return tuple(total.to(d) for d in plan.devices)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        plan = ctx.plan
+        total = _sum_on(plan.devices[0], grads)
+        plan.collectives += 1
+        return (None,) + tuple(None if total is None else total.to(d)
+                               for d in ctx.part_devices)
+
+
+class _Gather(torch.autograd.Function):
+    """:meth:`TPPlan.gather` with its backward, each counted."""
+
+    @staticmethod
+    def forward(ctx, plan: TPPlan, *parts: torch.Tensor):
+        ctx.set_materialize_grads(False)
+        ctx.plan = plan
+        ctx.part_devices = [p.device for p in parts]
+        ctx.widths = [p.shape[-1] for p in parts]
+        dst = plan.devices[0]
         whole = torch.cat([p.to(dst) for p in parts], dim=-1)
-        self.collectives += 1
-        return [whole.to(d) for d in self.devices]
+        plan.collectives += 1
+        return tuple(whole.to(d) for d in plan.devices)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        plan = ctx.plan
+        total = _sum_on(plan.devices[0], grads)
+        plan.collectives += 1
+        if total is None:
+            return (None,) * (1 + len(ctx.widths))
+        return (None,) + tuple(g.to(d) for g, d in zip(
+            total.split(ctx.widths, dim=-1), ctx.part_devices))
+
+
+def tp_specs(specs: Dict) -> Dict:
+    """Parameter specs as the tensor-parallel steps read them: the
+    per-head q/k norm scales whole (the steps read them whole; the
+    reference's partitioner gathers them at use)."""
+    def whole_norms(b: Dict) -> Dict:
+        attn = {k: (None,) * len(v) if k.endswith("norm_scale") else v
+                for k, v in b["attn"].items()}
+        return {**b, "attn": attn}
+
+    specs = {**specs, "blocks": whole_norms(specs["blocks"])}
+    if "head_blocks" in specs:
+        specs["head_blocks"] = [whole_norms(b) for b in specs["head_blocks"]]
+    return specs
 
 
 def tp_plan(cfg: ArchConfig, specs: Optional[Dict], devices) -> TPPlan:
@@ -660,14 +718,7 @@ def tp_plan(cfg: ArchConfig, specs: Optional[Dict], devices) -> TPPlan:
                       layers=[whole] * cfg.n_layers,
                       kv=[(0, cfg.n_kv_heads)] * tp, specs=None)
 
-    def whole_norms(b: Dict) -> Dict:
-        attn = {k: (None,) * len(v) if k.endswith("norm_scale") else v
-                for k, v in b["attn"].items()}
-        return {**b, "attn": attn}
-
-    specs = {**specs, "blocks": whole_norms(specs["blocks"])}
-    if "head_blocks" in specs:
-        specs["head_blocks"] = [whole_norms(b) for b in specs["head_blocks"]]
+    specs = tp_specs(specs)
 
     def layer(b: Dict) -> Dict[str, bool]:
         out = {"attn": _cut(b["attn"]["wo"], tp)}
@@ -748,17 +799,19 @@ def _tp_sum(plan: TPPlan, outs) -> List[torch.Tensor]:
 
 
 def _tp_ffn(bps, xms, cfg: ArchConfig, plan: TPPlan, lp: Dict[str, bool]):
-    """The MLP or MoE sublayer on every position, as ``_tp_sum``'s
-    outputs.  The MoE gathers cut router logits first, so every position
-    routes (and drops) as one device would; its capacity groups are
-    x's leading axis, the flat stream one group."""
+    """The MLP or MoE sublayer on every position: (``_tp_sum``'s outputs,
+    the MoE layer's ``moe.balance_means`` or None).  The MoE gathers cut
+    router logits first, so every position routes (and drops) as one
+    device would, and the balance means come from position 0 alone (the
+    aux counts once); its capacity groups are x's leading axis, the flat
+    stream one group."""
     bias = cfg.use_bias
     if "moe" not in bps[0]:
         c = lp["mlp"]
         return [([layers.apply_mlp(bp["mlp"], x, cfg, bias=not c)
                   for bp, x in zip(bps, xms)], c,
                  [bp["mlp"]["b_down"] for bp in bps] if c and bias
-                 else None)]
+                 else None)], None
     flat = xms[0].dim() == 2
     xg = [x[None] if flat else x for x in xms]
     logits = [moe_lib.router_logits(bp["moe"], x) for bp, x in zip(bps, xg)]
@@ -767,9 +820,11 @@ def _tp_ffn(bps, xms, cfg: ArchConfig, plan: TPPlan, lp: Dict[str, bool]):
     routed = []
     for s, (bp, x, lg) in enumerate(zip(bps, xg, logits)):
         n = bp["moe"]["experts_w_down"].shape[0]
-        y, _ = moe_lib.routed_experts(bp["moe"], x, cfg, lg,
+        y, m = moe_lib.routed_experts(bp["moe"], x, cfg, lg,
                                       e0=s * n if lp["experts"] else 0)
         routed.append(y[0] if flat else y)
+        if s == 0:
+            means = m
     outs = [(routed, lp["experts"], None)]
     if "shared" in bps[0]["moe"]:
         c = lp["shared"]
@@ -778,12 +833,14 @@ def _tp_ffn(bps, xms, cfg: ArchConfig, plan: TPPlan, lp: Dict[str, bool]):
                       for bp, x in zip(bps, xms)], c,
                      [bp["moe"]["shared"]["b_down"] for bp in bps]
                      if c and bias else None))
-    return outs
+    return outs, means
 
 
 def _tp_layer(bps, xs: List[torch.Tensor], attn_fn, cfg: ArchConfig,
-              plan: TPPlan, lp: Dict[str, bool]) -> List[torch.Tensor]:
-    """One layer on every position: ``attn_fn(s, xn, bias)`` is position
+              plan: TPPlan, lp: Dict[str, bool]
+              ) -> Tuple[List[torch.Tensor], Optional[Tuple]]:
+    """One layer on every position: (the positions' outputs, the MoE
+    layer's balance means or None).  ``attn_fn(s, xn, bias)`` is position
     s's attention output.  A parallel block whose attention is cut takes
     one reduce for its attention and MLP together; otherwise the
     attention's residual add comes first, then the MLP's (the order of
@@ -796,14 +853,16 @@ def _tp_layer(bps, xs: List[torch.Tensor], attn_fn, cfg: ArchConfig,
             [bp["attn"]["bo"] for bp in bps] if c and cfg.use_bias
             else None)
     if cfg.parallel_block and c:
-        ys = _tp_sum(plan, [attn] + _tp_ffn(bps, xns, cfg, plan, lp))
-        return [x + y for x, y in zip(xs, ys)]
+        ffn, means = _tp_ffn(bps, xns, cfg, plan, lp)
+        ys = _tp_sum(plan, [attn] + ffn)
+        return [x + y for x, y in zip(xs, ys)], means
     xs = [x + y for x, y in zip(xs, _tp_sum(plan, [attn]))]
     xms = xns if cfg.parallel_block else [
         apply_norm(cfg.norm_type, bp["mlp_norm"], x)
         for bp, x in zip(bps, xs)]
-    ys = _tp_sum(plan, _tp_ffn(bps, xms, cfg, plan, lp))
-    return [x + y for x, y in zip(xs, ys)]
+    ffn, means = _tp_ffn(bps, xms, cfg, plan, lp)
+    ys = _tp_sum(plan, ffn)
+    return [x + y for x, y in zip(xs, ys)], means
 
 
 def _tp_finish(shards: List[Dict], xs: List[torch.Tensor], cfg: ArchConfig,
@@ -816,6 +875,133 @@ def _tp_finish(shards: List[Dict], xs: List[torch.Tensor], cfg: ArchConfig,
                               cfg.tie_embeddings)
              for p, x in zip(shards, xs)]
     return plan.gather(parts)[0]
+
+
+def _tp_attention(bps, positions, cfg: ArchConfig, plan: TPPlan, *,
+                  window: int, attn_chunk: int,
+                  use_kernel: Optional[bool]):
+    """``_tp_layer``'s attention for the training forward: position s
+    projects its q heads, reads the kv heads ``plan.kv[s]`` (cut from the
+    whole set where its wk/wv are replicated), runs
+    ``layers.causal_attention`` at its shard's head count (on CUDA
+    tensors the flash kernels, forward and backward) and projects out."""
+    def attn(s, xn, bias):
+        p = bps[s]["attn"]
+        q, k, v = layers.project_qkv(p, xn, positions[s], cfg)
+        k0, k1 = plan.kv[s]
+        if k.shape[-2] != k1 - k0:
+            k, v = k[..., k0:k1, :], v[..., k0:k1, :]
+        o = layers.causal_attention(q, k, v, window=window,
+                                    chunk=attn_chunk, use_kernel=use_kernel)
+        return layers.project_out(p, o, cfg, bias=bias)
+
+    return attn
+
+
+def tp_forward(shards: List[Dict], tokens: List[torch.Tensor],
+               cfg: ArchConfig, plan: TPPlan, *, window: int = 0,
+               extra_embeds: Optional[List[torch.Tensor]] = None,
+               compute_dtype: torch.dtype = torch.bfloat16,
+               attn_chunk: int = 512, remat: bool = True,
+               use_kernel: Optional[bool] = None
+               ) -> Tuple[torch.Tensor, List[Tuple]]:
+    """:func:`forward` over the mesh positions of ``plan``: position s
+    runs its local parameters ``shards[s]`` (cast to ``compute_dtype``
+    once) on its copy ``tokens[s]`` (B, S) of the batch (after its
+    ``extra_embeds[s]``), and the layers' partial sums meet in
+    ``plan``'s reduces, whose backward duals carry the gradients.  With
+    ``remat`` each layer runs under non-reentrant
+    ``torch.utils.checkpoint`` over all positions when autograd records,
+    with early stopping off, so its recomputation repeats every forward
+    collective of the layer.  Returns (logits (B, S_extra + S, V)
+    float32 on position 0's device, the MoE layers'
+    ``moe.balance_means`` in order, from position 0)."""
+    _check_family(cfg)
+    if remat and torch.is_grad_enabled() and len(set(plan.devices)) > 1:
+        # the backward's device threads can each start the layer's
+        # recomputation (checkpoint marks it done only after the rerun),
+        # which then fails with "trying to save more tensors during
+        # recomputation"
+        raise NotImplementedError(
+            "per-layer remat over positions on several devices is not "
+            "supported (ROADMAP A9c); pass remat=False")
+    ps = [cast_weights(p, compute_dtype) for p in shards]
+    xs = _tp_embed(ps, tokens, cfg, plan)
+    if extra_embeds is not None:
+        xs = [torch.cat([e.to(compute_dtype), x], dim=1)
+              for e, x in zip(extra_embeds, xs)]
+    positions = [torch.arange(x.shape[1], device=x.device) for x in xs]
+
+    def block(l, bps, xs_):
+        attn = _tp_attention(bps, positions, cfg, plan, window=window,
+                             attn_chunk=attn_chunk, use_kernel=use_kernel)
+        return _tp_layer(bps, xs_, attn, cfg, plan, plan.layers[l])
+
+    means = []
+    with set_checkpoint_early_stop(False):
+        for l, bps in enumerate(zip(*(_layers(p, cfg) for p in ps))):
+            if remat and torch.is_grad_enabled():
+                xs, m = checkpoint(block, l, list(bps), xs,
+                                   use_reentrant=False)
+            else:
+                xs, m = block(l, list(bps), xs)
+            if m is not None:
+                means.append(m)
+    return _tp_finish(ps, xs, cfg, plan), means
+
+
+def _balance_aux(means: List[List[Tuple]], cfg: ArchConfig,
+                 dst: torch.device) -> torch.Tensor:
+    """The MoE aux loss of data-parallel slices' balance means (one list
+    of per-layer means a slice): each layer's two per-expert means
+    averaged over the slices on ``dst`` (equal token counts a slice) before
+    their product, as the reference's global-batch aux; the layers'
+    losses summed (0 for the dense family)."""
+    aux = torch.zeros((), dtype=torch.float32, device=dst)
+    for per_slice in zip(*means):
+        n = len(per_slice)
+        me = sum(m[0].to(dst) for m in per_slice) / n
+        ce = sum(m[1].to(dst) for m in per_slice) / n
+        aux = aux + moe_lib.balance_loss((me, ce), cfg.moe.n_experts)
+    return aux
+
+
+def tp_loss_fn(slices: List[List[Dict]], batches: List[Dict],
+               cfg: ArchConfig, plans: List[TPPlan], *, window: int = 0,
+               attn_chunk: int = 512, remat: bool = True,
+               compute_dtype: torch.dtype = torch.bfloat16,
+               use_kernel: Optional[bool] = None
+               ) -> Tuple[torch.Tensor, Dict]:
+    """:func:`loss_fn` over data-parallel slices, each tensor-parallel:
+    slice i runs :func:`tp_forward` on its positions' local parameters
+    ``slices[i]`` under ``plans[i]`` over its rows ``batches[i]``.  The
+    slices' :func:`lm_loss_parts` are added on slice 0's first device
+    before dividing (a mean of the slices' losses is wrong where the
+    label masks fall unevenly), and the MoE aux comes from the slices'
+    averaged balance means (:func:`_balance_aux`).  Returns the loss and
+    the metrics of :func:`lm_loss`."""
+    dst = plans[0].devices[0]
+    totals: Dict[str, torch.Tensor] = {}
+    means = []
+    for shards, batch, plan in zip(slices, batches, plans):
+        extra = batch.get("extra_embeds")
+        logits, m = tp_forward(
+            shards, [batch["tokens"].to(d) for d in plan.devices], cfg,
+            plan, window=window,
+            extra_embeds=None if extra is None else [
+                extra.to(d) for d in plan.devices],
+            compute_dtype=compute_dtype, attn_chunk=attn_chunk, remat=remat,
+            use_kernel=use_kernel)
+        labels = batch["labels"].to(logits.device)
+        if extra is not None:
+            pad = -torch.ones(extra.shape[:2], dtype=labels.dtype,
+                              device=labels.device)
+            labels = torch.cat([pad, labels], dim=1)
+        for k, v in lm_loss_parts(logits, labels).items():
+            totals[k] = v.to(dst) if k not in totals else totals[k] + v.to(dst)
+        means.append(m)
+    aw = cfg.moe.router_aux_weight if cfg.moe else 0.0
+    return lm_loss_from_parts(totals, _balance_aux(means, cfg, dst), aw)
 
 
 def tp_ragged_step(shards: List[Dict], caches: List[Dict],
@@ -848,7 +1034,7 @@ def tp_ragged_step(shards: List[Dict], caches: List[Dict],
                                 c["slot_mapping"], reads[s][1], cfg,
                                 window=window, use_kernel=use_kernel,
                                 kv=plan.kv[s], bias=bias)
-        xs = _tp_layer(bps, xs, attn, cfg, plan, plan.layers[l])
+        xs, _ = _tp_layer(bps, xs, attn, cfg, plan, plan.layers[l])
     return _tp_finish(shards, xs, cfg, plan), caches
 
 
@@ -879,7 +1065,7 @@ def tp_paged_step(shards: List[Dict], caches: List[Dict],
                                *lanes[s], cfg, window=window,
                                use_kernel=use_kernel, kv=plan.kv[s],
                                bias=bias)
-        xs = _tp_layer(bps, xs, attn, cfg, plan, plan.layers[l])
+        xs, _ = _tp_layer(bps, xs, attn, cfg, plan, plan.layers[l])
     for c, (pos, q_lens) in zip(caches, lanes):
         c["pos"] = pos + q_lens
     return _tp_finish(shards, xs, cfg, plan), caches

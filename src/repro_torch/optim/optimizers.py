@@ -11,7 +11,10 @@ over (nested) dicts of tensors:
 is updated in place.  ``state["step"]`` is an int32 tensor, bias
 corrections are ``1 - b ** step`` in float32 and gradient clipping uses
 the global norm, as in the reference.  Optimizer state trees mirror the
-parameter tree.
+parameter tree.  Leaves may sit on several devices (a sharded step's
+pieces, ``launch/sharding.py::place``): the norm is summed on the first
+leaf's device and each leaf's update reads the step's scalars on its
+own.
 """
 from __future__ import annotations
 
@@ -68,11 +71,16 @@ def _clip(gf: Tree, grad_clip_norm: Optional[float]) -> Tree:
     if grad_clip_norm is None:
         return gf
     scale = torch.clamp(grad_clip_norm / (global_norm(gf) + 1e-9), max=1.0)
-    return tree_map(lambda g: g * scale, gf)
+    return tree_map(lambda g: g * scale.to(g.device), gf)
 
 
 def _lr_at(lr, step: torch.Tensor):
     return lr(step) if callable(lr) else lr
+
+
+def _on(x, dev: torch.device):
+    """A step scalar (a tensor or a float) for a leaf on ``dev``."""
+    return x.to(dev) if torch.is_tensor(x) else x
 
 
 # ---------------------------------------------------------------------------
@@ -100,10 +108,11 @@ def adamw(lr: float | Callable[[torch.Tensor], Any] = 1e-3,
         bc2 = 1 - b2 ** t
 
         def upd(p, m_, v_):
-            d = (m_ / bc1) / (torch.sqrt(v_ / bc2) + eps)
+            dev = p.device
+            d = (m_ / _on(bc1, dev)) / (torch.sqrt(v_ / _on(bc2, dev)) + eps)
             if weight_decay:
                 d = d + weight_decay * p.to(torch.float32)
-            return (p.to(torch.float32) - lr_t * d).to(p.dtype)
+            return (p.to(torch.float32) - _on(lr_t, dev) * d).to(p.dtype)
 
         return tree_map(upd, params, m, v), {"step": step, "m": m, "v": v}
 
@@ -203,6 +212,9 @@ def _map_pairs(fn: Callable, grads: Tree, slots: Tree, params: Tree
 
 # ---------------------------------------------------------------------------
 def global_norm(tree: Tree) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in float32."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
-                          for x in tree_leaves(tree)))
+    """sqrt of the sum of squares of every leaf, in float32, on the first
+    leaf's device."""
+    leaves = tree_leaves(tree)
+    dev = leaves[0].device
+    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32))).to(dev)
+                          for x in leaves))

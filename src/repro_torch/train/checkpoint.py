@@ -9,7 +9,10 @@ over the stored bytes, checked on restore.  bfloat16 and float8_e4m3fn
 leaves are stored as their uint16 / uint8 bit patterns (npz cannot hold
 them) under their own dtype name, so either package restores what the
 other wrote without ``ml_dtypes``.  Leaves are written in sorted path
-order, as the reference flattens dicts.
+order, as the reference flattens dicts.  A sharded step's state (each
+leaf a list of its pieces, ``launch/sharding.py::place``) is saved whole
+(:func:`save_placed`), as the reference saves its sharded arrays, and
+restored into pieces (:func:`restore_placed`).
 """
 from __future__ import annotations
 
@@ -20,6 +23,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.launch import sharding as shard_lib
 
 Tree = Any
 
@@ -146,6 +151,25 @@ def restore_checkpoint(directory: str, template: Tree,
 
     with np.load(base + ".npz") as data:
         return restore(template, ""), manifest
+
+
+def save_placed(directory: str, step: int, placed: Tree, specs: Tree,
+                mesh, **kw) -> str:
+    """:func:`save_checkpoint` of ``{"params": the whole tree}`` of a
+    sharded step's pieces (``sharding.unshard``), in the reference's
+    format."""
+    return save_checkpoint(directory, step, {
+        "params": shard_lib.unshard(placed, specs, mesh)}, **kw)
+
+
+def restore_placed(directory: str, placed: Tree, specs: Tree, mesh,
+                   step: Optional[int] = None) -> Tuple[Tree, Dict]:
+    """The ``params`` of a checkpoint (either package's, whole) placed
+    into pieces by ``specs`` on ``mesh``, as ``placed``'s dtypes; and the
+    manifest."""
+    template = {"params": shard_lib.unshard(placed, specs, mesh)}
+    tree, manifest = restore_checkpoint(directory, template, step)
+    return shard_lib.place(tree["params"], specs, mesh), manifest
 
 
 def tree_nbytes(tree: Tree) -> int:

@@ -3,7 +3,10 @@
 The counterpart of ``repro/train/trainer.py``.  PyTorch runs eagerly, so
 the step is a plain function: gradients come from ``torch.autograd.grad``
 over the parameter leaves, and the optimizer's functional ``update``
-returns the new parameters.  ``fit`` checkpoints parameters and
+returns the new parameters.  The leaves are those ``tree_leaves`` walks,
+lists included, so a sharded step's state (``sharding.place``: each leaf
+a list of its pieces) takes its gradients, norm and update per piece,
+every element once.  ``fit`` checkpoints parameters and
 optimizer state through ``train/checkpoint.py``, in the reference's
 on-disk format.
 """

@@ -435,6 +435,6 @@ def test_train_launcher_runs_on_cpu(tmp_path, capsys):
     assert "step     1" in out and "step     2" in out
     assert out.strip().endswith("done")
     assert ck.latest_step(str(tmp_path)) == 2
-    with pytest.raises(NotImplementedError, match="A9"):
-        train_launcher.main(["--arch", "gemma-7b", "--device", "cpu",
+    with pytest.raises(NotImplementedError, match="A9c"):
+        train_launcher.main(["--arch", "whisper-base", "--device", "cpu",
                              "--model-parallel", "2"])

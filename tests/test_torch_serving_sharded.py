@@ -33,7 +33,7 @@ from repro.serving import PagedDecodeEngine as JaxPagedEngine
 from repro_torch.configs import get_config
 from repro_torch.launch import serve as serve_launcher
 from repro_torch.launch import sharding as sh
-from repro_torch.launch.mesh import Mesh, make_host_mesh
+from repro_torch.launch.mesh import Mesh, build_mesh, make_host_mesh
 from repro_torch.launch.specs import abstract_params
 from repro_torch.models.api import build_model
 from repro_torch.models.convert import from_reference_params
@@ -453,7 +453,7 @@ def test_mesh_refusals(model):
     with pytest.raises(ValueError, match="paged"):
         DecodeEngine(zapi, zparams, n_slots=2, mesh=_tp_mesh(2), **COMMON)
     with pytest.raises(SystemExit, match="needs 16 devices"):
-        serve_launcher._build_mesh("4,4", 0, "cuda")
+        build_mesh("4,4", 0, "cuda")
 
 
 def test_serve_launcher_on_a_cpu_mesh(capsys):
