@@ -60,7 +60,9 @@ printing its own line(s):
    phase 13's training shapes, whisper-base's decoder (B 8, 8 x 64 heads,
    S 448) and zamba2-2.7b's shared attention (32 x 80 heads, S 2048),
    and at phase 15's TP 2 shards, gemma-7b's 8 x 256 heads at S 4096 and
-   deepseek-moe-16b's 8 x 128 at S 2048, each with its
+   deepseek-moe-16b's 8 x 128 at S 2048, and at phase 16a's, llava's 16
+   q and 4 kv heads x 128 at S 4096 with its 4096-token window, each with
+   its
    time, the plain version's, ``scaled_dot_product_attention``'s and the
    least time the card could take, and its achieved TFLOP/s and share of
    that bound; bfloat16 runs the tensor-core kernels (wgmma fed by TMA:
@@ -222,7 +224,9 @@ printing its own line(s):
    x the slices' steps summed, the per-slice lists sum to the totals and
    both slices decode; (d, e) in float32 cut to MESH_F32_LAYERS
    layers, the TP 2, TP 4 and both DP fleets' tokens equal the tp 1
-   engine's;
+   engine's.  Where ``torch.cuda.device_count() >= 2``, (a)'s TP 2 fleet
+   runs again on two cards (gated as (a)) and in float32 (tokens equal
+   tp 1's); on one card a line says it did not run;
 15. sharded training (``make_train_step_fn(mesh=)`` on
    ``sharding.place``'s float32 pieces), on mesh positions that all name
    the one card, each line tagged with the card's name and power limit:
@@ -239,10 +243,30 @@ printing its own line(s):
    state within SHARD_BF16_*; and one float32 step from that state
    (without ``pre_gather``) against the one-position float32 step within
    SHARD_F32_RTOL: loss, gradient norm, the MoE aux, and every leaf's
-   post-AdamW parameters and first moment as relative 2-norms, (c)'s
+   post-AdamW parameters and first moment as relative 2-norms (the
+   elements within SHARD_EPS_SPAN eps of a zero gradient within 2 lr), (c)'s
    float32 run routed as the one position's (``_RoutePin``) and its own
    top-k sets that differ from them counted.  Walls, tokens/s, launches,
-   collectives and peak memory are printed.
+   collectives and peak memory are printed;
+16. sharded training of the other families, gated as phase 15, on
+   positions that all name the one card: (a) llava-next-mistral-7b at
+   its published width, phase 8b's 4 of 32 layers, TP 2 (the projector
+   cut over "model"), batch 1 x (2880 seeded patch embeddings + 1216
+   tokens), 6 L + 4 + 2 collectives a step; then, in the gathered regime
+   (every position gathers the whole tree, the rows cut over all
+   positions; the gathers and their duals printed): (b) whisper-base
+   whole on DP 2 x TP 2 at phase 13a's 8 x (1500 frames, 448 tokens);
+   (c) zamba2-2.7b at its published width, 2 of 9 segments (12 Mamba2
+   layers), on (1, 2) at 2 x 2048; (d) xlstm-1.3b, 1 of 6 segments (8
+   layers), on (2, 2) under ``fsdp_flat`` with ``pre_gather`` at 4 x 256.
+   Launches a position a step: B6f twice and dq, dk/dv once per
+   attention application (L for (a), whisper's 6 decoder layers, zamba2's
+   2 shared-block applications; no B5, and none at all in (d)).  The
+   gathered runs' float32 reference is the one position summing the
+   same row shares (the rows' order of sums, batched against shares, is
+   printed).  Where
+   ``torch.cuda.device_count() >= 2``, (a) runs again on two cards; on
+   one card a line says it did not run.
 
 Then one JSON line of per-kernel numbers, and last
 ``{"ok": true, "device": {...}}``.  Any failed phase raises, so the run
@@ -1289,7 +1313,11 @@ FA_CASES = [("gemma-7b S=4096", 1, 16, 16, 4096, 256, 0),
             ("zamba2-2.7b S=2048", 1, 32, 32, 2048, 80, 0),
             # phase 15's TP 2 shards: half the heads on a position
             ("gemma-7b TP 2 shard S=4096", 1, 8, 8, 4096, 256, 0),
-            ("deepseek-moe-16b TP 2 shard S=2048", 1, 8, 8, 2048, 128, 0)]
+            ("deepseek-moe-16b TP 2 shard S=2048", 1, 8, 8, 2048, 128, 0),
+            # phase 16a's TP 2 shard of llava's backbone: 16 q and 4 kv
+            # heads, its 4096-token window over 2880 patches + 1216 tokens
+            ("llava-next-mistral-7b TP 2 shard S=4096 window=4096", 1, 16, 4,
+             4096, 128, 4096)]
 
 
 def phase_flash_kernels():
@@ -3610,13 +3638,27 @@ MESH_F32_LAYERS = 4           # 14d-e: float32 at full width, depth cut
 MESH_BF16_REL_L2 = 0.1
 
 
-def _positions(tp: int, dp: int = 1):
+def _positions(tp: int, dp: int = 1, cards: bool = False):
     """A ("data", "model") mesh of dp x tp positions that all name the
-    one card."""
+    one card, or with ``cards`` position i on card i."""
     import torch
     from repro_torch.launch.mesh import Mesh
-    return Mesh([torch.device(DEVICE, 0)] * (dp * tp), ("data", "model"),
-                shape=(dp, tp))
+    n = dp * tp
+    devices = ([torch.device(DEVICE, i) for i in range(n)] if cards
+               else [torch.device(DEVICE, 0)] * n)
+    return Mesh(devices, ("data", "model"), shape=(dp, tp))
+
+
+def _where(mesh) -> str:
+    """The positions' cards, as the phases' lines print them."""
+    devices = [str(d) for d in mesh.devices.reshape(-1)]
+    if len(set(devices)) == 1:
+        return f"all {devices[0]} (they share the card)"
+    return f"on {', '.join(devices)}"
+
+
+TWO_CARDS_SKIP = ("not run: torch.cuda.device_count() is {n}, and this "
+                  "run needs a second card")
 
 
 def _mesh_gib(api, params, tp: int, slices: int = 1,
@@ -3648,9 +3690,10 @@ def _mesh_gib(api, params, tp: int, slices: int = 1,
 
 
 def _mesh_fleet(api, params, label, *, kernel=None, tp=1, dp=1,
-                **engine_kw) -> tuple:
+                cards=False, **engine_kw) -> tuple:
     """Phase 4's fleet through a paged engine on ``tp`` positions of the
-    card, or (dp > 1) a ShardedDecodeEngine of dp slices of tp; counts
+    card (with ``cards``, position i on card i), or (dp > 1) a
+    ShardedDecodeEngine of dp slices of tp; counts
     zeroed just before and read just after.  Every request must finish
     with its tokens, and the path must launch ``kernel`` layers x tp x
     steps (the slices' steps summed) and no other paged read.  A single
@@ -3666,15 +3709,15 @@ def _mesh_fleet(api, params, label, *, kernel=None, tp=1, dp=1,
     copied, pool = _mesh_gib(api, params, tp, dp,
                              engine_kw.get("cache_dtype"))
     mesh_kw = {}
+    mesh = _positions(tp, dp, cards)
     if dp > 1:
-        mesh_kw = dict(engine_cls=ShardedDecodeEngine,
-                       mesh=_positions(tp, dp))
+        mesh_kw = dict(engine_cls=ShardedDecodeEngine, mesh=mesh)
     elif tp > 1:
-        mesh_kw = dict(mesh=_positions(tp))
+        mesh_kw = dict(mesh=mesh)
     before = torch.cuda.memory_allocated() / 2**30
-    _tag(f"mesh [{label}]: {dp} x {tp} positions, all {DEVICE}:0 (they "
-         f"share the card); reckoned {copied:.2f} GiB of shard copies + "
-         f"{pool:.2f} GiB of pools over the {before:.2f} GiB held")
+    _tag(f"mesh [{label}]: {dp} x {tp} positions, {_where(mesh)}; "
+         f"reckoned {copied:.2f} GiB of shard copies + {pool:.2f} GiB of "
+         f"pools over the {before:.2f} GiB held")
     _zero_counts()
     eng, finished, wall = serve_fleet(api, params, max_new=DIS_NEW,
                                       seed=SEED, device=DEVICE, **mesh_kw,
@@ -3770,6 +3813,20 @@ def phase_mesh() -> None:
         del eng
         gc.collect()
         torch.cuda.empty_cache()
+    # (a) on two cards where there are two: the launches as on one card
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        eng, got, wall = _mesh_fleet(api, params, "TP 2 on 2 cards",
+                                     kernel=tiled, tp=2, cards=True)
+        agree1, agree = _agreement(got, base)
+        _tag(f"mesh [TP 2 on 2 cards]: bf16 greedy agreement with tp 1: "
+             f"first tokens {agree1:.4f}, all tokens {agree:.4f}; wall "
+             f"{wall / base_wall:.3f} x tp 1's")
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    else:
+        _tag("mesh [TP 2 on 2 cards]: " + TWO_CARDS_SKIP.format(n=n_cards))
     # (b) TP 2 in the per-token and rectangular layouts and with int8
     # pools, then (c) in every layout the first prefill step's logits
     # against tp 1's in the same layout
@@ -3816,7 +3873,10 @@ def phase_mesh() -> None:
                        for tp in MESH_TPS]
                       + [(f"f32 DP 2 x TP {tp}",
                           {"kernel": tiled, "tp": tp, "dp": 2})
-                         for tp in (1, 2)]):
+                         for tp in (1, 2)]
+                      + ([("f32 TP 2 on 2 cards",
+                           {"kernel": tiled, "tp": 2, "cards": True})]
+                         if n_cards >= 2 else [])):
         eng, got, _ = _mesh_fleet(api, params, label, **kw)
         _tag(f"mesh [{label}]: tokens equal tp 1's: {got == base}")
         if got != base:
@@ -3834,13 +3894,27 @@ def phase_mesh() -> None:
 # ---------------------------------------------------------------------------
 # phase 15: sharded training
 # ---------------------------------------------------------------------------
-# (label, arch, layers, (dp, tp), batch, seq, bf16 steps, pre_gather)
+# (label, arch, layers, (dp, tp), batch, seq, bf16 steps, pre_gather,
+# policy)
 SHARD_RUNS = [("15a gemma-7b TP 2", "gemma-7b", TRAIN_LAYERS, (1, 2), 1,
-               4096, 5, False),
+               4096, 5, False, "baseline"),
               ("15b gemma-7b DP 2 x TP 2", "gemma-7b", TRAIN_LAYERS, (2, 2),
-               2, 2048, 3, True),
+               2, 2048, 3, True, "baseline"),
               ("15c deepseek-moe-16b TP 2", "deepseek-moe-16b", 3, (1, 2),
-               1, 2048, 3, False)]
+               1, 2048, 3, False, "baseline")]
+# phase 16: the other families.  (a) tensor-parallel at phase 8b's depth
+# cut, its 1216 tokens after the 2880 patch embeddings; (b)-(d) gathered
+# (the whole tree on every position, the rows cut over all of them):
+# whisper-base whole at phase 13a's batch, zamba2-2.7b at 2 of 9
+# segments, xlstm-1.3b at 1 of 6 under fsdp_flat with pre_gather
+FAMILY_RUNS = [("16a llava-next-mistral-7b TP 2", "llava-next-mistral-7b",
+                TRAIN_LAYERS, (1, 2), 1, 1216, 3, False, "baseline"),
+               ("16b whisper-base DP 2 x TP 2 gathered", "whisper-base", 6,
+                (2, 2), 8, 448, 3, False, "baseline"),
+               ("16c zamba2-2.7b (1, 2) gathered", "zamba2-2.7b", 12, (1, 2),
+                2, 2048, 3, False, "baseline"),
+               ("16d xlstm-1.3b (2, 2) fsdp_flat", "xlstm-1.3b", 8, (2, 2), 4,
+                256, 3, True, "fsdp_flat")]
 # the first bf16 step from the seed state, the sharded step against the
 # one position's: the partial products summed in another order and
 # rounded to bf16 at other points, over a few layers, averaged over the
@@ -3853,21 +3927,43 @@ SHARD_BF16_NORM_RTOL = 5e-2
 # as relative 2-norms; the order of sums only (written before the first
 # card run, PERF.md)
 SHARD_F32_RTOL = 1e-5
+# AdamW's first step moves an element by lr * g / (|g| + eps): a sign for
+# |g| >> eps, but where the (clipped) gradient lies within
+# SHARD_EPS_SPAN * eps of zero it turns the gradient's rounding into a
+# visible move.  Such elements (a zero-initialised bias fed by cancelling
+# sums: llava's projector/b1 behind the patches, which carry no loss) are
+# held within 2 lr, AdamW's largest first step, of the one position's;
+# every other element by its leaf's relative 2-norm
+SHARD_EPS_SPAN = 100
 
 
 def _shard_design(plan) -> int:
     """A sharded train step's collectives on one data slice by the step
     design: the forward's (the embedding's reduce, the logits' gather,
-    one reduce per cut sublayer and a gather of cut router logits), one
-    backward dual each, and the layers' forward ones again in the remat
-    recomputation."""
+    one reduce per cut sublayer, a gather of cut router logits and the
+    VLM's projector reduce), one backward dual each, and the layers'
+    forward ones again in the remat recomputation."""
+    from repro_torch.models import vlm
     fwd = int(plan.embed) + int(plan.head)
+    if plan.specs is not None and "projector" in plan.specs:
+        fwd += int(vlm._projector_cut(plan))
     layers = 0
     for lp in plan.layers:
         ffn = [v for k, v in lp.items() if k not in ("attn", "router")]
         layers += int(lp["attn"]) + int(any(ffn)) + int(lp.get("router",
                                                               False))
     return 2 * (fwd + layers) + layers
+
+
+def _attention_layers(cfg) -> int:
+    """Causal attention applications of a training forward: every layer
+    of the transformer families and whisper's decoder, zamba2's shared
+    block once a segment, none in xLSTM."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.hybrid_attn_every
+    return cfg.n_layers
 
 
 def _rel2(a, b) -> float:
@@ -3909,31 +4005,46 @@ def _shard_f32_check(label, api, shape, mesh, specs, placed, batch, base,
     worst, where = {}, {}
     paths = []
     sh._map_with_path(lambda path, _: paths.append(path), specs)
+    # the one position's clipped gradient is its first moment / (1 - b1)
+    near = [(b / 0.1).abs() < SHARD_EPS_SPAN * 1e-8 for b in base["m"]]
+    step_lr = []
     for name, tree in (("params", new_p), ("m", new_s["m"])):
         whole = tree_leaves(sh.unshard(tree, specs, mesh))
-        gaps_l = [_rel2(a, b.to(a.device)) for a, b in zip(whole,
-                                                           base[name])]
+        gaps_l = []
+        for a, b, nz in zip(whole, base[name], near):
+            b, nz = b.to(a.device), nz.to(a.device)
+            if name == "m":
+                gaps_l.append(_rel2(a, b))
+                continue
+            gaps_l.append(_rel2(a[~nz], b[~nz]) if (~nz).any() else 0.0)
+            if nz.any():
+                step_lr.append((a - b)[nz].abs().max().item() / TRAIN_LR)
         worst[name] = max(gaps_l)
         where[name] = paths[gaps_l.index(worst[name])]
         del whole
+    n_near = sum(int(nz.sum()) for nz in near)
     _tag(f"{label} float32 step vs one position: wall_ms={wall * 1e3:.2f} "
          + " ".join(f"{k}={float(m[k]):.6f} (rel {g:.3e})"
                     for k, g in gaps.items())
          + f"; max leaf rel_l2 params {worst['params']:.3e} "
          f"({where['params']}), first moment {worst['m']:.3e} "
-         f"({where['m']}) (limit {SHARD_F32_RTOL:g}); kernel_launches="
+         f"({where['m']}) (limit {SHARD_F32_RTOL:g}); {n_near} elements "
+         f"within {SHARD_EPS_SPAN} eps of a zero gradient moved {max(step_lr, default=0.0):.3f} lr at most from "
+         f"the one position's (limit 2); kernel_launches="
          f"{json.dumps(counts)}")
     if not (max(gaps.values()) <= SHARD_F32_RTOL
-            and max(worst.values()) <= SHARD_F32_RTOL):
+            and max(worst.values()) <= SHARD_F32_RTOL
+            and max(step_lr, default=0.0) <= 2):
         raise AssertionError(f"{label}: the float32 sharded step disagrees "
                              "with the one position's")
     del new_p, new_s, m
 
 
 def _shard_run(label, arch, layers, dp_tp, batch_size, seq, steps,
-               pre_gather) -> dict:
-    """One phase-15 run (see the module docstring).  Returns the
-    launches of its bf16 steps by kernel."""
+               pre_gather, policy, cards=False) -> dict:
+    """One phase-15 or phase-16 run (see the module docstring), on
+    positions that share the card or, with ``cards``, one card each.
+    Returns the launches of its bf16 steps by kernel."""
     import gc
     import torch
     from repro_torch.configs import get_config
@@ -3941,8 +4052,10 @@ def _shard_run(label, arch, layers, dp_tp, batch_size, seq, steps,
     from repro_torch.data.synthetic import lm_token_batch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch import sharding as sh
-    from repro_torch.launch.specs import (_bf16, make_loss_for_shape,
+    from repro_torch.launch.specs import (_bf16, gathers_whole,
+                                          make_loss_for_shape,
                                           make_train_step_fn, train_specs)
+    from repro_torch.launch.train import frontend_inputs
     from repro_torch.models.api import build_model
     from repro_torch.optim.optimizers import tree_leaves
     t0 = time.perf_counter()
@@ -3954,21 +4067,26 @@ def _shard_run(label, arch, layers, dp_tp, batch_size, seq, steps,
     api = build_model(cfg)
     dp, tp = dp_tp
     P = dp * tp
-    mesh = _positions(tp, dp)
-    shape = InputShape("phase15", seq, batch_size, "train")
+    mesh = _positions(tp, dp, cards)
+    extra = cfg.frontend.n_tokens if cfg.family == "vlm" else 0
+    shape = InputShape("phase15", extra + seq, batch_size, "train")
     params = api.init(seed=SEED, device=DEVICE, dtype=torch.float32)
     gen = torch.Generator()
     gen.manual_seed(SEED + 1)
     batch = lm_token_batch(gen, batch_size, seq, cfg.vocab_size,
                            device=DEVICE)
+    batch.update(frontend_inputs(cfg, batch_size, gen, DEVICE))
     n = sum(t.numel() for t in _leaves(params))
+    inputs = "".join(f" + {k} {tuple(v.shape[1:])}" for k, v in batch.items()
+                     if k not in ("tokens", "labels"))
     _tag(f"{label}: {cfg.name} d_model={cfg.d_model} heads={cfg.n_heads}x"
          f"{cfg.resolved_head_dim} layers={layers} of "
          f"{get_config(arch).n_layers}"
          + (f" (experts {cfg.moe.n_experts}, {cfg.moe.n_experts // tp} a "
             f"position)" if cfg.moe else "")
-         + f", {n / 1e9:.3f} B params float32, {dp} x {tp} positions on "
-         f"{DEVICE}:0, batch {batch_size} x {seq}, pre_gather={pre_gather}, "
+         + f", {n / 1e9:.3f} B params float32, {dp} x {tp} positions "
+         f"{_where(mesh)}, batch {batch_size} x {seq} tokens{inputs}, "
+         f"policy {policy}, pre_gather={pre_gather}, "
          f"adamw(lr={TRAIN_LR}, grad_clip_norm=1.0)")
     routes = _RoutePin(cfg.moe) if cfg.moe else None
 
@@ -3984,15 +4102,28 @@ def _shard_run(label, arch, layers, dp_tp, batch_size, seq, steps,
     if routes is not None:
         routes.__enter__()
         routes.start(use_kernel=True)
-    new_p, new_s, m = one_step(params, one_opt.init(params), batch)
-    base = {k: float(v) for k, v in m.items()}
-    base["params"] = [t.cpu() for t in tree_leaves(new_p)]
-    base["m"] = [t.cpu() for t in tree_leaves(new_s["m"])]
-    del new_p, new_s, m
-    torch.cuda.empty_cache()
+    specs = train_specs(api, params, mesh, policy)
+    base = _one_position_f32(one_step(params, one_opt.init(params), batch))
+    if gathers_whole(api, specs):
+        # the gathered step sums its rows' shares; the one position on
+        # the same shares is its float32 reference, and the order of
+        # sums over the rows alone is printed
+        shares = _one_position_f32(_shares_step(api, shape, P)(
+            params, one_opt.init(params), batch))
+        paths = []
+        sh._map_with_path(lambda path, _: paths.append(path), specs)
+        gaps = [_rel2(a, b) for a, b in zip(shares["m"], base["m"])]
+        rel = {k: abs(shares[k] - base[k]) / base[k]
+               for k in ("loss", "grad_norm")}
+        _tag(f"{label} float32, one position, the rows batched vs summed "
+             f"in {P} shares: loss rel {rel['loss']:.3e}, grad_norm rel "
+             f"{rel['grad_norm']:.3e}, "
+             f"max leaf rel_l2 first moment {max(gaps):.3e} "
+             f"({paths[gaps.index(max(gaps))]}): the order of sums over "
+             "the rows")
+        base = shares
 
     try:
-        specs = train_specs(api, params, mesh)
         placed = sh.place(params, specs, mesh)
         del params
         gc.collect()
@@ -4008,21 +4139,23 @@ def _shard_run(label, arch, layers, dp_tp, batch_size, seq, steps,
 
     step, opt = make_train_step_fn(api, shape, lr=TRAIN_LR, mesh=mesh,
                                    specs=specs, pre_gather=pre_gather)
-    design = [_shard_design(p) for p in step.plans]
+    gathered = gathers_whole(api, specs)
+    plans = [] if gathered else step.plans
+    design = [_shard_design(p) for p in plans]
     seen = []
 
     def counted(p, s, b):
-        for plan in step.plans:
+        for plan in plans:
             plan.collectives = 0
         out = step(p, s, b)
-        seen.append([plan.collectives for plan in step.plans])
+        seen.append([plan.collectives for plan in plans])
         if seen[-1] != design:
             raise AssertionError(f"{label}: collectives {seen[-1]} a slice "
                                  f"!= the design's {design}")
         return out
 
-    L = cfg.n_layers
-    want = {fa.B6: 0, fa.B6F: 2 * L * P, fa.B6_DQ: L * P, fa.B6_DKV: L * P}
+    A = _attention_layers(cfg)
+    want = {fa.B6: 0, fa.B6F: 2 * A * P, fa.B6_DQ: A * P, fa.B6_DKV: A * P}
     state = {"params": placed, "opt_state": opt.init(placed)}
     del placed
     _tag(f"{label}: peak memory of the float32 steps "
@@ -4034,15 +4167,20 @@ def _shard_run(label, arch, layers, dp_tp, batch_size, seq, steps,
                                               state, batch, steps, want)
     rel_l = abs(losses[0] - base16[0]) / abs(base16[0])
     rel_n = abs(norms[0] - base16[1]) / base16[1]
+    regime = (f"gathered on {len(step.gather.devices)} positions, "
+              f"{step.gather.gathers} leaves gathered, collectives a step "
+              f"{step.gather.collectives} (gathers and their duals)"
+              if gathered else f"collectives a step a slice {seen[0]} "
+              f"(design {design})")
     _tag(f"{label}: first bf16 step vs one position from the same state "
          f"and batch: loss {losses[0]:.6f} vs {base16[0]:.6f} (rel "
          f"{rel_l:.3e}, limit {SHARD_BF16_LOSS_RTOL:g}), grad_norm "
          f"{norms[0]:.6f} vs {base16[1]:.6f} (rel {rel_n:.3e}, limit "
-         f"{SHARD_BF16_NORM_RTOL:g}); collectives a step a slice {seen[0]} "
-         f"(design {design}); launches a step "
+         f"{SHARD_BF16_NORM_RTOL:g}); {regime}; launches a step "
          f"{json.dumps({k: v for k, v in want.items() if v})} "
          f"({P} positions)")
-    _train_summary(f"{label} bf16", losses, times, batch_size * seq)
+    _train_summary(f"{label} bf16", losses, times,
+                   batch_size * (extra + seq))
     if not (rel_l <= SHARD_BF16_LOSS_RTOL and rel_n <= SHARD_BF16_NORM_RTOL):
         raise AssertionError(f"{label}: the first bf16 sharded step "
                              "disagrees with the one position's")
@@ -4052,12 +4190,69 @@ def _shard_run(label, arch, layers, dp_tp, batch_size, seq, steps,
     return {k: v * steps for k, v in want.items()}
 
 
-def phase_sharded_training() -> dict:
-    """15a-c; returns the launches of their bf16 steps by kernel."""
+def _one_position_f32(out) -> dict:
+    """A one-position float32 step's metrics, and its new parameters' and
+    first moments' leaves on the host."""
+    import torch
+    from repro_torch.optim.optimizers import tree_leaves
+    new_p, new_s, m = out
+    base = {k: float(v) for k, v in m.items()}
+    base["params"] = [t.cpu() for t in tree_leaves(new_p)]
+    base["m"] = [t.cpu() for t in tree_leaves(new_s["m"])]
+    del new_p, new_s, m, out
+    torch.cuda.empty_cache()
+    return base
+
+
+def _shares_step(api, shape, n: int):
+    """The one-position float32 step whose loss sums the batch's rows in
+    ``n`` shares (``loss_parts`` each, added before dividing), as the
+    gathered regime sums its positions' rows."""
+    import torch
+    from repro_torch.launch import specs as specs_lib
+    from repro_torch.models import transformer
+    from repro_torch.optim import adamw
+    from repro_torch.train.trainer import make_train_step
+    kw = specs_lib._loss_kwargs(api, shape, compute_dtype=torch.float32)
+
+    def loss(p, b):
+        dev = b["tokens"].device
+        return transformer.parts_loss(
+            [api.loss_parts(p, rows, **kw)
+             for rows in specs_lib._rows(b, [dev] * n)], api.cfg, dev)
+
+    return make_train_step(loss, adamw(TRAIN_LR, grad_clip_norm=1.0))
+
+
+def _runs(runs) -> dict:
+    """``_shard_run`` of each of ``runs``; the launches of their bf16
+    steps by kernel, summed."""
     totals = {}
-    for run in SHARD_RUNS:
+    for run in runs:
         for k, v in _shard_run(*run).items():
             totals[k] = totals.get(k, 0) + v
+    return totals
+
+
+def phase_sharded_training() -> dict:
+    """15a-c; returns the launches of their bf16 steps by kernel."""
+    return _runs(SHARD_RUNS)
+
+
+def phase_sharded_families() -> dict:
+    """16a-d, then 16a again on two cards where there are two; returns
+    the launches of the one-card runs' bf16 steps by kernel."""
+    import torch
+    t0 = time.perf_counter()
+    totals = _runs(FAMILY_RUNS)
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        _shard_run(FAMILY_RUNS[0][0] + " on 2 cards", *FAMILY_RUNS[0][1:],
+                   cards=True)
+    else:
+        _tag(f"{FAMILY_RUNS[0][0]} on 2 cards: "
+             + TWO_CARDS_SKIP.format(n=n_cards))
+    _tag(f"phase 16: {time.perf_counter() - t0:.1f} s")
     return totals
 
 
@@ -4176,6 +4371,11 @@ def main() -> None:
     # over mesh positions that share the card
     torch.cuda.empty_cache()
     for name, n in phase_sharded_training().items():
+        launches[name] += n
+
+    # 16. sharded training of the VLM, audio, hybrid and ssm families
+    torch.cuda.empty_cache()
+    for name, n in phase_sharded_families().items():
         launches[name] += n
 
     # each kernel's numbers at its main path's shapes

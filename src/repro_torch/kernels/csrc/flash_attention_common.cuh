@@ -26,6 +26,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "per_device.cuh"
+
 namespace flash_attention {
 
 constexpr int kBQ = 64;          // q rows per tile
@@ -185,17 +187,8 @@ __device__ __forceinline__ bool visible(int row, int key, int S, int causal,
   return ok;
 }
 
-// A kernel's dynamic shared-memory opt-in (cudaFuncSetAttribute) acts on
-// the current device's context, so a process that launches on several
-// cards grants it once on each: one flag a device.
-struct PerDevice {
-  bool on[64] = {};
-  __host__ bool& here() {
-    int d = 0;
-    cudaGetDevice(&d);
-    return on[d];
-  }
-};
+// the per-device opt-in record (per_device.cuh): one flag a device
+using PerDevice = ::PerDevice<bool>;
 
 // Opt the kernel into ``smem`` bytes of dynamic shared memory, once per
 // kernel and device (a static PerDevice per template instantiation of the

@@ -36,6 +36,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "per_device.cuh"
+
 namespace hopper {
 
 // ---------------------------------------------------------------------------
@@ -508,16 +510,7 @@ __device__ __forceinline__ void wgmma_rs<256>(float (&d)[128],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 
-// A kernel's dynamic shared-memory opt-in (cudaFuncSetAttribute) acts on
-// the current device's context, so a process that launches on several
-// cards grants it once on each: one flag a device.
-struct PerDevice {
-  bool on[64] = {};
-  __host__ bool& here() {
-    int d = 0;
-    cudaGetDevice(&d);
-    return on[d];
-  }
-};
+// the per-device opt-in record (per_device.cuh): one flag a device
+using PerDevice = ::PerDevice<bool>;
 
 }  // namespace hopper

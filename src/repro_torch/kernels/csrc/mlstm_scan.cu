@@ -335,7 +335,7 @@ cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
   scores_kernel<T><<<dim3(nc, a.H, B), kThreads, 0, stream>>>(a);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  static bool granted = false;
+  static PerDevice<bool> granted;
   e = scan::allow_smem(scan_kernel<T>, granted);
   if (e != cudaSuccess) return e;
   const dim3 grid((a.hd + kE - 1) / kE, a.H, B);

@@ -779,7 +779,7 @@ int mlstm_scan_tc_launch(const void* q, const void* k, const void* v,
   gates_kernel<<<dim3(a.nc, H, B), 32, 0, st>>>(a);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  static bool scores_granted = false, scan_granted = false;
+  static PerDevice<bool> scores_granted, scan_granted;
   e = scan::allow_smem(scores_kernel, scores_granted);
   if (e != cudaSuccess) return e;
   scores_kernel<<<dim3(a.nc, H, B), kThreads, kScoresSmem, st>>>(a);

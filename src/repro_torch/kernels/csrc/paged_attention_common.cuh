@@ -39,6 +39,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "per_device.cuh"
+
 namespace paged_attention {
 
 constexpr float kNegInf = -1e30f;
@@ -245,10 +247,13 @@ __device__ __forceinline__ void attend_rows(
   }
 }
 
-// Opt a kernel in to more than 48 KB of dynamic shared memory; `granted`
-// is the caller's record of the largest opt-in so far for that kernel.
+// Opt a kernel in to more than 48 KB of dynamic shared memory; `record`
+// is the caller's static record of the largest opt-in so far for that
+// kernel, one value a device (the opt-in acts on the current device).
 template <typename Kernel>
-inline cudaError_t allow_smem(Kernel kernel, size_t bytes, size_t& granted) {
+inline cudaError_t allow_smem(Kernel kernel, size_t bytes,
+                              PerDevice<size_t>& record) {
+  size_t& granted = record.here();
   if (bytes <= 48 * 1024 || bytes <= granted) return cudaSuccess;
   const cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

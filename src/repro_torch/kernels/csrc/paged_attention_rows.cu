@@ -76,7 +76,7 @@ struct Launcher {
   cudaError_t run() const {
     auto kernel = rows_paged_attention_kernel<QT, KT, D>;
     const size_t smem = smem_floats(group_tokens * G, D, bs) * sizeof(float);
-    static size_t granted = 0;
+    static PerDevice<size_t> granted;
     const cudaError_t e = allow_smem(kernel, smem, granted);
     if (e != cudaSuccess) return e;
     const int groups = (C + group_tokens - 1) / group_tokens;

@@ -46,6 +46,7 @@
 #include <stdint.h>
 
 #include "mma_common.cuh"
+#include "per_device.cuh"
 
 namespace paged_split {
 
@@ -681,14 +682,15 @@ split_combine_kernel(Items items, Launch L, Pools p) {
 
 // Launch the split kernel (and, with more than one split, the combine)
 // for pool type KT and head dim D; `granted` records the shared-memory
-// opt-in so far.
+// opt-in so far, one value a device.
 template <typename KT, int D, typename Items>
 cudaError_t launch_split(const Items& items, const Launch& L, const Pools& p,
                          int n_splits, cudaStream_t stream) {
   using S = Shape<D>;
   auto kernel = split_attention_kernel<KT, D, Items>;
   const size_t smem = Smem<KT, D>::kBytes;
-  static size_t granted = 0;
+  static PerDevice<size_t> record;
+  size_t& granted = record.here();
   if (smem > 48 * 1024 && smem > granted) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

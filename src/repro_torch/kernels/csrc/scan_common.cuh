@@ -13,6 +13,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "per_device.cuh"
+
 namespace scan {
 
 constexpr int kThreads = 256;            // 16 x 16 threads a block
@@ -38,10 +40,12 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
-// Opt ``kernel`` into the largest dynamic shared memory once (a static per
-// template instantiation of the caller holds ``done``).
+// Opt ``kernel`` into the largest dynamic shared memory once a device (a
+// static PerDevice per template instantiation of the caller holds the
+// flags; the opt-in acts on the current device).
 template <typename K>
-__host__ cudaError_t allow_smem(K kernel, bool& done) {
+__host__ cudaError_t allow_smem(K kernel, PerDevice<bool>& record) {
+  bool& done = record.here();
   if (done) return cudaSuccess;
   const cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -230,7 +230,7 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_kernel(Args a) {
 
 template <typename T, int RP>
 cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
-  static bool granted = false;
+  static PerDevice<bool> granted;
   const cudaError_t e = scan::allow_smem(ssd_kernel<T, RP>, granted);
   if (e != cudaSuccess) return e;
   const dim3 grid(a.H, B);

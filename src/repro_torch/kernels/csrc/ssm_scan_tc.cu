@@ -471,8 +471,8 @@ __global__ void __launch_bounds__(kThreads, KN <= 4 ? 2 : 1)
 
 template <int KN>
 cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
-  static bool granted = false;
-  if (!granted) {
+  static PerDevice<bool> granted;
+  if (!granted.here()) {
     const cudaError_t e = cudaFuncSetAttribute(
         ssd_tc_kernel<KN>, cudaFuncAttributePreferredSharedMemoryCarveout,
         static_cast<int>(cudaSharedmemCarveoutMaxShared));

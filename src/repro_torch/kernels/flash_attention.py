@@ -33,6 +33,7 @@ its path went through the kernels.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Dict, Tuple
 
 import torch
@@ -52,6 +53,8 @@ HEAD_DIMS = (64, 80, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launch_counts: Dict[str, int] = {B6: 0, B6F: 0, B6_DQ: 0, B6_DKV: 0}
+# the backward launches from one autograd thread a card
+_count_lock = threading.Lock()
 _fns: Dict[str, object] = {}
 
 
@@ -148,7 +151,8 @@ def _forward(q, k, v, causal: bool, window: int, with_lse: bool):
             lse.data_ptr() if with_lse else None, _strides(q, k, v, o), B,
             H, k.shape[1], S, D, _DTYPES[q.dtype], int(causal), window,
             1.0 / D ** 0.5, _stream(q)), _source("fwd", q.dtype))
-    launch_counts[B6F if with_lse else B6] += 1
+    with _count_lock:
+        launch_counts[B6F if with_lse else B6] += 1
     return o, lse
 
 
@@ -216,7 +220,8 @@ def launch_bwd_kernel(which: str, q: torch.Tensor, k: torch.Tensor,
             dv.data_ptr(), _strides(q, k, v, do, dq, dk, dv), B, H,
             k.shape[1], S, D, _DTYPES[q.dtype], int(causal), window,
             1.0 / D ** 0.5, _stream(q)), f"{_source(which, q.dtype)} {which}")
-    launch_counts[B6_DQ if which == "dq" else B6_DKV] += 1
+    with _count_lock:
+        launch_counts[B6_DQ if which == "dq" else B6_DKV] += 1
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -111,9 +111,10 @@ def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         work = torch.empty(lib.mlstm_scan_tc_workspace_bytes(B, H, L, hd, Q),
                            dtype=torch.uint8, device=q.device)
         vec = hd % 8 == 0 and rows_aligned(q, k, v, h)
-        err = lib.mlstm_scan_tc_launch(
-            *args, work.data_ptr(), strides(q, k, v, log_i, log_f, h), B, H,
-            L, hd, Q, int(vec), 1.0 / hd ** 0.5, stream)
+        with torch.cuda.device(q.device):
+            err = lib.mlstm_scan_tc_launch(
+                *args, work.data_ptr(), strides(q, k, v, log_i, log_f, h), B,
+                H, L, hd, Q, int(vec), 1.0 / hd ** 0.5, stream)
     else:
         lib = _lib(MLSTM)
         if Q > MAX_CHUNK or lib.mlstm_scan_smem_bytes(Q, hd) > 232448:
@@ -122,9 +123,10 @@ def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              "memory (hd <= 1024 at chunk 128)")
         scores = torch.empty((B, H, L, Q), dtype=torch.float32,
                              device=q.device)
-        err = lib.mlstm_scan_launch(
-            *args, scores.data_ptr(), strides(q, k, v, log_i, log_f, h), B,
-            H, L, hd, Q, 0, 1.0 / hd ** 0.5, stream)
+        with torch.cuda.device(q.device):
+            err = lib.mlstm_scan_launch(
+                *args, scores.data_ptr(), strides(q, k, v, log_i, log_f, h),
+                B, H, L, hd, Q, 0, 1.0 / hd ** 0.5, stream)
     if err != 0:
         raise RuntimeError(f"{MLSTM} launch failed: CUDA error {err}")
     launch_counts[MLSTM] += 1

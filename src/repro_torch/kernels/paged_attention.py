@@ -206,12 +206,14 @@ def _launch(name: str, rows: int, q: torch.Tensor, k_pool: torch.Tensor,
                          f"of shared memory per block, the card allows "
                          f"{SMEM_LIMIT}")
     quantized = k_scale is not None
-    err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-             k_scale.data_ptr() if quantized else None,
-             v_scale.data_ptr() if quantized else None,
-             *(p.data_ptr() for p in ptrs), out.data_ptr(),
-             _Q_CODES[q.dtype], _POOL_CODES[k_pool.dtype], D, *ints,
-             1.0 / (D ** 0.5), torch.cuda.current_stream(q.device).cuda_stream)
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                 k_scale.data_ptr() if quantized else None,
+                 v_scale.data_ptr() if quantized else None,
+                 *(p.data_ptr() for p in ptrs), out.data_ptr(),
+                 _Q_CODES[q.dtype], _POOL_CODES[k_pool.dtype], D, *ints,
+                 1.0 / (D ** 0.5),
+                 torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     with _count_lock:
@@ -244,15 +246,16 @@ def _launch_split(name: str, count_as: str, q: torch.Tensor,
         ml = torch.empty((n_splits, n_items, Hkv, rows, 2),
                          dtype=torch.float32, device=q.device)
     quantized = k_scale is not None
-    err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-             k_scale.data_ptr() if quantized else None,
-             v_scale.data_ptr() if quantized else None,
-             *(None if p is None else p.data_ptr() for p in ptrs),
-             out.data_ptr(), acc.data_ptr() if acc is not None else None,
-             ml.data_ptr() if ml is not None else None,
-             _POOL_CODES[k_pool.dtype], D, *ints, bs, max_blocks, window,
-             split_blocks, n_splits, 1.0 / (D ** 0.5),
-             torch.cuda.current_stream(q.device).cuda_stream)
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                 k_scale.data_ptr() if quantized else None,
+                 v_scale.data_ptr() if quantized else None,
+                 *(None if p is None else p.data_ptr() for p in ptrs),
+                 out.data_ptr(), acc.data_ptr() if acc is not None else None,
+                 ml.data_ptr() if ml is not None else None,
+                 _POOL_CODES[k_pool.dtype], D, *ints, bs, max_blocks, window,
+                 split_blocks, n_splits, 1.0 / (D ** 0.5),
+                 torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     with _count_lock:

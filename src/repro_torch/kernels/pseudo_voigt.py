@@ -72,8 +72,10 @@ def pseudo_voigt_fit(patches: torch.Tensor, *, n_iter: int = 5
     out = torch.empty((Np, 6), dtype=torch.float32, device=patches.device)
     if Np == 0:
         return out
-    err = _kernel()(patches.data_ptr(), out.data_ptr(), Np, ph, pw, n_iter,
-                    torch.cuda.current_stream(patches.device).cuda_stream)
+    with torch.cuda.device(patches.device):
+        err = _kernel()(patches.data_ptr(), out.data_ptr(), Np, ph, pw,
+                        n_iter,
+                        torch.cuda.current_stream(patches.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{PV} launch failed: CUDA error {err}")
     launch_counts[PV] += 1

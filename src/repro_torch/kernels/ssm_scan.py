@@ -146,13 +146,12 @@ def ssd_scan(xdt: torch.Tensor, dA: torch.Tensor, Bm: torch.Tensor,
     args = (xdt.data_ptr(), dA.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
             y.data_ptr(), strides(xdt, dA, Bm, Cm, y), B, H, G, L, P, N, Q)
     stream = torch.cuda.current_stream(xdt.device).cuda_stream
-    if tc:
-        err = lib.ssm_scan_tc_launch(*args, stream)
-    else:
-        if lib.ssm_scan_smem_bytes(Q, P, N) > 232448:
-            raise ValueError(f"chunk {Q}, P {P}, N {N}: the float32 kernel "
-                             "takes them within 227 KB of shared memory")
-        err = lib.ssm_scan_launch(*args, 0, stream)
+    if not tc and lib.ssm_scan_smem_bytes(Q, P, N) > 232448:
+        raise ValueError(f"chunk {Q}, P {P}, N {N}: the float32 kernel "
+                         "takes them within 227 KB of shared memory")
+    with torch.cuda.device(xdt.device):
+        err = (lib.ssm_scan_tc_launch(*args, stream) if tc
+               else lib.ssm_scan_launch(*args, 0, stream))
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     launch_counts[SSD] += 1

@@ -22,8 +22,9 @@ and lists; a leaf's path joins dict keys and list indices with "/"
 (serving).  Sharded training stores each element once: :func:`place` is
 the counterpart of ``jax.device_put(params, to_named(specs, mesh))``,
 :func:`local_trees` hands every position its differentiable local tree
-(the FSDP all-gather over "data", whose backward is the reduce-scatter)
-and :func:`unshard` rebuilds the whole tree.  The reference's
+(the FSDP all-gather over "data", or over every axis for a step that
+gathers whole weights; its backward is the reduce-scatter) and
+:func:`unshard` rebuilds the whole tree.  The reference's
 ``maybe_shard`` and ``models.common.constrain`` are sharding hints to
 XLA's partitioner, which an eager program has no use for, so they have
 no counterpart.
@@ -187,6 +188,10 @@ def _map_with_path(fn: Callable[[str, Any], Any], tree: PyTree,
     return fn(prefix[:-1], tree)
 
 
+# the fsdp_flat policy replicates leaves of fewer elements
+FSDP_FLAT_MIN_ELEMENTS = 1 << 23
+
+
 def _fsdp_flat_spec(shape: Tuple[int, ...],
                     mesh_axes: Dict[str, int]) -> PartitionSpec:
     """Weight storage sharded over the whole mesh (one dim over ("pod",
@@ -198,7 +203,7 @@ def _fsdp_flat_spec(shape: Tuple[int, ...],
     n_elem = 1
     for s in shape:
         n_elem *= s
-    if n_elem < (1 << 23):
+    if n_elem < FSDP_FLAT_MIN_ELEMENTS:
         return P(*([None] * len(shape)))
     # combined suffixes, then single axes, largest dim first
     dims = sorted(range(len(shape)), key=lambda i: -shape[i])
@@ -425,42 +430,51 @@ def place(tree: PyTree, specs: PyTree, mesh) -> PyTree:
     return _zip_map(per_leaf, tree, specs)
 
 
-def _data_dims(spec: PartitionSpec, sizes: Dict[str, int]
-               ) -> List[Tuple[int, Tuple[str, ...]]]:
-    """(dim, axes) of the dims a spec cuts over data axes (every cut axis
-    but "model"), larger than 1.  A dim cut over "model" jointly with a
-    data axis (the ``fsdp_flat`` policy) is refused."""
+def _gather_dims(spec: PartitionSpec, sizes: Dict[str, int], whole: bool
+                 ) -> List[Tuple[int, Tuple[str, ...]]]:
+    """(dim, axes) of the dims a local tree concatenates, over their axes
+    larger than 1: with ``whole`` every cut dim (a dim cut jointly over
+    ("data", "model"), the ``fsdp_flat`` policy, over both, row-major in
+    the spec's order), else the dims cut over data axes (every axis but
+    "model").  A dim cut over "model" jointly with a data axis has no
+    tensor-parallel piece, so it is gathered only whole."""
     out = []
     for dim, choice in enumerate(spec):
         if choice is None:
             continue
         names = tuple(a for a in (choice if isinstance(choice, tuple)
                                   else (choice,)) if sizes[a] > 1)
-        if "model" in names and len(names) > 1:
-            raise NotImplementedError(
+        if not whole and "model" in names and len(names) > 1:
+            raise ValueError(
                 f"a dim cut over {names} jointly (the fsdp_flat policy) "
-                "is not trained sharded yet (ROADMAP A9c)")
-        data = tuple(a for a in names if a != "model")
-        if data:
-            out.append((dim, data))
+                "is gathered only whole (whole=True)")
+        if not whole:
+            names = tuple(a for a in names if a != "model")
+        if names:
+            out.append((dim, names))
     return out
 
 
 def local_trees(placed: PyTree, specs: PyTree, mesh, *,
-                dtype: Optional[torch.dtype] = None) -> List[PyTree]:
+                dtype: Optional[torch.dtype] = None,
+                whole: bool = False) -> List[PyTree]:
     """One local tree per mesh position (row-major over the mesh), built
     differentiably from the pieces of :func:`place`: a leaf's cuts over
     "model" are that position's piece, its cuts over the data axes are
     the pieces concatenated along their dims (the FSDP all-gather; its
     backward sums the positions' gradients into each piece, the
-    reduce-scatter).  With ``dtype`` every float piece is cast to it once,
-    before the concatenation (the reference's ``pre_gather`` bf16
-    gather).  A piece that needs no cast, no move and no concatenation is
-    handed over as is, so a replicated leaf's gradient sums over the
-    positions that read it."""
+    reduce-scatter).  With ``whole`` the cuts over "model" are
+    concatenated too, so every position holds the whole tree (the
+    gathered regime of sharded training).  With ``dtype`` every float
+    piece is cast to it once, before the concatenation (the reference's
+    ``pre_gather`` bf16 gather).  A piece that needs no cast, no move and
+    no concatenation is handed over as is, and positions on one device
+    that assemble the same leaf share it, so a replicated leaf's gradient
+    sums over the positions that read it."""
     sizes = dict(zip(mesh.axis_names, mesh.devices.shape))
     flat_devices = mesh.devices.reshape(-1)
     memo: Dict[Tuple[int, torch.device], torch.Tensor] = {}
+    built: Dict[Tuple, torch.Tensor] = {}
 
     def fetch(piece: torch.Tensor, dev: torch.device) -> torch.Tensor:
         key = (id(piece), dev)
@@ -478,6 +492,12 @@ def local_trees(placed: PyTree, specs: PyTree, mesh, *,
 
         def per_leaf(pieces, spec, _here=here, _dev=dev):
             cut = _cut_axes(spec, sizes, mesh.axis_names)
+            dims = _gather_dims(spec, sizes, whole)
+            gathered = {a for _, names in dims for a in names}
+            key = (id(pieces), _dev, tuple(_here[a] for a in cut
+                                           if a not in gathered))
+            if key in built:
+                return built[key]
             index = {tuple(c[a] for a in cut): i for i, (c, _) in
                      enumerate(_pieces(mesh, spec))}
 
@@ -491,7 +511,8 @@ def local_trees(placed: PyTree, specs: PyTree, mesh, *,
                          for idx in np.ndindex(*[sizes[a] for a in names])]
                 return torch.cat(parts, dim=dim)
 
-            return assemble(dict(_here), _data_dims(spec, sizes))
+            built[key] = assemble(dict(_here), dims)
+            return built[key]
 
         out.append(_zip_map(per_leaf, placed, specs))
     return out

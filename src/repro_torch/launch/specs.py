@@ -4,15 +4,27 @@ counterpart of ``make_loss_for_shape``, ``make_train_step_fn``,
 ``repro/launch/specs.py``.
 
 ``make_train_step_fn(..., mesh=, specs=)`` is the sharded train step of
-the dense and MoE families, the counterpart of jitting the reference's
-step on ``device_put`` parameters: its state is ``sharding.place``'s
-tree of pieces (each element stored once, float32) and
-``opt.init(placed)``; every step hands each mesh position its local tree
-(``sharding.local_trees``, the FSDP gather over "data", in bfloat16 first
-with ``pre_gather``), runs each data slice's rows through
-``transformer.tp_loss_fn`` (tensor-parallel over the slice's positions,
-the slices' loss sums added before dividing) and updates the pieces
-with ``adamw``.
+every family, the counterpart of jitting the reference's step on
+``device_put`` parameters: its state is ``sharding.place``'s tree of
+pieces (each element stored once, float32) and ``opt.init(placed)``;
+every step hands each mesh position its local tree
+(``sharding.local_trees``, in bfloat16 first with ``pre_gather``), runs
+the loss in one of two regimes and updates the pieces with ``adamw``:
+
+* tensor parallel (the dense, MoE and VLM families under specs that cut
+  over "model" alone, as ``baseline`` and ``local_recurrent`` do): the
+  local trees gather the "data" cuts, and each data slice's rows run
+  through the family's ``tp_loss`` (tensor-parallel over the slice's
+  positions);
+* gathered (the audio, hybrid and ssm families, and any family under
+  ``fsdp_flat`` or ``replicated``; the reference's §Perf-2 regime):
+  every position's local tree is the whole tree, gathered from the
+  pieces over every axis, and the rows are cut over every position, each
+  running the family's one-device loss forward (``loss_parts``) with no
+  collective inside it.
+
+Either way the positions' loss sums are added before dividing
+(``transformer.parts_loss``).
 
 :func:`abstract_params` is the parameter tree on the ``meta`` device
 (shapes and dtypes, no storage), which the sharding rules read.  The
@@ -23,7 +35,8 @@ A10).  Options that the reference does not have (``compute_dtype``,
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional, Tuple
+import dataclasses
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -37,8 +50,9 @@ from repro_torch.models.common import cast_weights
 from repro_torch.optim import Optimizer, adamw
 from repro_torch.train.trainer import make_train_step
 
-# the families whose training forward runs tensor-parallel over a mesh
-SHARDED_FAMILIES = ("dense", "moe")
+# the families with a tensor-parallel layer loop (``api.tp_loss``); the
+# others train sharded in the gathered regime
+TP_FAMILIES = ("dense", "moe", "vlm")
 
 
 def abstract_params(api: ModelAPI, dtype: torch.dtype = torch.bfloat16):
@@ -47,16 +61,23 @@ def abstract_params(api: ModelAPI, dtype: torch.dtype = torch.bfloat16):
     return api.init(seed=0, device="meta", dtype=dtype)
 
 
+def _loss_kwargs(api: ModelAPI, shape: InputShape, **kw) -> Dict[str, Any]:
+    """The loss's keywords: ``kw`` and the attention window that
+    ``shape``'s sequence length gives the arch (none for the audio
+    family, as the reference's)."""
+    if api.cfg.family != "audio":
+        kw["window"] = api.effective_window(shape.seq_len)
+    return kw
+
+
 def make_loss_for_shape(api: ModelAPI, shape: InputShape, *,
                         attn_chunk: int = 512, remat: bool = True,
                         **model_kw) -> Callable:
     """loss(params, batch) -> (loss, metrics) at the attention window
     that ``shape``'s sequence length gives the arch; the audio family's
     loss gets no window, as the reference's."""
-    kwargs: Dict[str, Any] = dict(attn_chunk=attn_chunk, remat=remat,
-                                  **model_kw)
-    if api.cfg.family != "audio":
-        kwargs["window"] = api.effective_window(shape.seq_len)
+    kwargs = _loss_kwargs(api, shape, attn_chunk=attn_chunk, remat=remat,
+                          **model_kw)
 
     def loss(params, batch):
         return api.loss(params, batch, **kwargs)
@@ -75,12 +96,62 @@ def train_specs(api: ModelAPI, params, mesh: Mesh,
                 policy: str = "baseline"):
     """The sharded train step's parameter specs, which :func:`place
     <repro_torch.launch.sharding.place>` takes too: the reference
-    launcher's ``param_specs(params, axes, data_axes)``, with the
-    per-head q/k norm scales whole, as the tensor-parallel layers read
-    them (``transformer.tp_specs``)."""
+    launcher's ``param_specs(params, axes, data_axes, policy)`` (its
+    dry-run's for ``fsdp_flat`` and ``replicated``), with the
+    tensor-parallel families' per-head q/k norm scales whole, as their
+    layers read them (:func:`_whole_norms`)."""
     specs = shard_lib.param_specs(params, mesh_axis_sizes(mesh),
                                   data_axes_of(mesh), policy)
-    return transformer.tp_specs(specs)
+    return _whole_norms(api, specs)
+
+
+def _whole_norms(api: ModelAPI, specs):
+    """``transformer.tp_specs`` on the backbone of a tensor-parallel
+    family (the VLM's ``lm``); the other families' specs as they are."""
+    family = api.cfg.family
+    if family == "vlm":
+        return {**specs, "lm": transformer.tp_specs(specs["lm"])}
+    return transformer.tp_specs(specs) if family in TP_FAMILIES else specs
+
+
+def gathers_whole(api: ModelAPI, specs) -> bool:
+    """Whether the sharded step runs in the gathered regime: the family
+    has no tensor-parallel layer loop, or the specs cut no leaf over
+    "model" alone (``replicated``) or cut a dim over "model" jointly with
+    another axis (``fsdp_flat``)."""
+    if api.cfg.family not in TP_FAMILIES:
+        return True
+    choices = [c for spec in shard_lib.leaves(specs) for c in spec]
+    joint = any(isinstance(c, tuple) and "model" in c for c in choices)
+    return joint or "model" not in choices
+
+
+@dataclasses.dataclass(frozen=True)
+class GatherPlan:
+    """The gathered regime's layout: ``devices`` are the positions
+    (row-major over the mesh), each computing the whole model's loss on
+    its rows; ``gathers`` counts the leaves cut over some axis of the
+    mesh, each gathered whole once a step.  ``collectives`` a step by
+    design: those gathers and their backward duals (the reduce-scatters
+    into the pieces); a replicated leaf is read as is."""
+    devices: List[torch.device]
+    gathers: int
+
+    @property
+    def collectives(self) -> int:
+        return 2 * self.gathers
+
+
+def _rows(batch: Dict, devices) -> list:
+    """The batch's rows cut over ``devices`` in order, each share on its
+    device; every row is computed once."""
+    b, n = batch["tokens"].shape[0], len(devices)
+    if b % n:
+        raise ValueError(f"a batch of {b} rows does not divide over the "
+                         f"mesh's {n} positions")
+    k = b // n
+    return [{key: v[i * k:(i + 1) * k].to(d) for key, v in batch.items()}
+            for i, d in enumerate(devices)]
 
 
 def _data_slices(batch: Dict, mesh: Mesh, dp: int) -> list:
@@ -104,16 +175,19 @@ def make_train_step_fn(api: ModelAPI, shape: InputShape, *,
     (params, opt_state, metrics) with ``adamw(lr, grad_clip_norm=1.0)``;
     metrics hold the loss's metrics, ``loss`` and ``grad_norm``.
 
-    With a ``mesh`` the step is sharded (the dense and MoE families):
-    params is ``place(params, specs, mesh)`` (``specs`` default:
-    :func:`train_specs` of the arch's tree), the optimizer state
-    ``opt.init`` of it, and gradients, their norm and the update are the
-    pieces', each element once.  Every position's local tree comes from
-    the pieces (``sharding.local_trees``; bf16 first with
-    ``pre_gather``), the batch's rows are cut over the data slices and
-    each slice runs ``transformer.tp_loss_fn``'s tensor-parallel forward;
-    ``train_step.plans`` are the slices' ``TPPlan``s (their
-    ``collectives``)."""
+    With a ``mesh`` the step is sharded: params is ``place(params, specs,
+    mesh)`` (``specs`` default: :func:`train_specs` of the arch's tree),
+    the optimizer state ``opt.init`` of it, and gradients, their norm and
+    the update are the pieces', each element once.  Every position's
+    local tree comes from the pieces (``sharding.local_trees``; bf16 first
+    with ``pre_gather``).  In the tensor-parallel regime the batch's rows
+    are cut over the data slices, each slice runs the family's
+    ``tp_loss`` and ``train_step.plans`` are the slices' ``TPPlan``s
+    (their ``collectives``); in the gathered regime
+    (:func:`gathers_whole`) the rows are cut over every position (a batch
+    that does not divide them raises ``ValueError``), each runs the
+    family's ``loss_parts`` on the whole tree, and ``train_step.gather``
+    is the :class:`GatherPlan`."""
     opt = adamw(lr, grad_clip_norm=1.0)
     if mesh is None:
         loss = make_loss_for_shape(api, shape, attn_chunk=attn_chunk,
@@ -124,27 +198,41 @@ def make_train_step_fn(api: ModelAPI, shape: InputShape, *,
 
         return make_train_step(loss_of, opt), opt
     cfg = api.cfg
-    if cfg.family not in SHARDED_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: sharded training of the {cfg.family} family (no "
-            "tensor-parallel layer loop yet) is ROADMAP A9c")
     if specs is None:
         specs = train_specs(api, abstract_params(api, torch.float32), mesh)
-    elif transformer.tp_specs(specs) != specs:
+    elif _whole_norms(api, specs) != specs:
         raise ValueError("place the parameters with train_specs: the q/k "
                          "norm scales must be whole")
+    dtype = torch.bfloat16 if pre_gather else None
+    kwargs = _loss_kwargs(api, shape, attn_chunk=attn_chunk, remat=remat,
+                          **model_kw)
+
+    if gathers_whole(api, specs):
+        devices = list(mesh.devices.reshape(-1))
+        dst = devices[0]
+
+        def gathered_loss(placed, batch):
+            trees = shard_lib.local_trees(placed, specs, mesh, dtype=dtype,
+                                          whole=True)
+            return transformer.parts_loss(
+                [api.loss_parts(t, rows, **kwargs)
+                 for t, rows in zip(trees, _rows(batch, devices))], cfg, dst)
+
+        step = make_train_step(gathered_loss, opt)
+        step.gather = GatherPlan(devices, sum(
+            bool(shard_lib._cut_axes(spec, mesh.shape, mesh.axis_names))
+            for spec in shard_lib.leaves(specs)))
+        return step, opt
+
     plans = [api.tp_plan(specs, list(m.devices.reshape(-1)))
              for m in mesh_slices(mesh)]
     tp = plans[0].tp
-    window = api.effective_window(shape.seq_len)
-    dtype = torch.bfloat16 if pre_gather else None
 
     def sharded_loss(placed, batch):
         local = shard_lib.local_trees(placed, specs, mesh, dtype=dtype)
         shards = [local[i * tp:(i + 1) * tp] for i in range(len(plans))]
-        return transformer.tp_loss_fn(
-            shards, _data_slices(batch, mesh, len(plans)), cfg, plans,
-            window=window, attn_chunk=attn_chunk, remat=remat, **model_kw)
+        return api.tp_loss(shards, _data_slices(batch, mesh, len(plans)),
+                           plans, **kwargs)
 
     step = make_train_step(sharded_loss, opt)
     step.plans = plans

@@ -21,14 +21,19 @@ scan kernels have no backward), unless ``--device cpu`` is given.
 dp x tp cards; with ``--device cpu`` the positions are CPU positions
 (``--model-parallel N``: N of them), which run every shard's layers and
 reduces on the CPU.  The float32 masters are placed once by the
-reference's ``param_specs`` (``launch/specs.py::train_specs``,
-``sharding.place``), each step's ``lm_token_batch`` is drawn whole and
-cut by rows over the data slices, and a checkpoint holds the whole tree
-(``sharding.unshard``) in the reference's format.  The dense and MoE
-families train sharded; the others train on one device with a model axis
-of 1 and raise ``NotImplementedError`` above it (ROADMAP A9c):
+reference's ``param_specs`` under its ``baseline`` policy
+(``launch/specs.py::train_specs``, ``sharding.place``), each step's
+``lm_token_batch`` is drawn whole and cut by rows, and a checkpoint
+holds the whole tree (``sharding.unshard``) in the reference's format.
+Every family trains sharded: the dense, MoE and VLM families
+tensor-parallel over each data slice's positions, the audio, hybrid and
+ssm families in the gathered regime (each position gathers the whole
+tree and runs the one-device loss on its share of the rows, which the
+positions must divide), with per-layer remat on one card or several:
 
     python -m repro_torch.launch.train --arch gemma-7b --device cpu \\
+        --mesh-shape 2,2
+    python -m repro_torch.launch.train --arch xlstm-1.3b --device cpu \\
         --mesh-shape 2,2
 """
 from __future__ import annotations
@@ -92,12 +97,6 @@ def main(argv=None) -> None:
         cfg = cfg.smoke_variant()
     api = build_model(cfg)
     mesh = build_mesh(args.mesh_shape, args.model_parallel, args.device)
-    if mesh is not None and cfg.family not in specs_lib.SHARDED_FAMILIES:
-        if mesh.shape["model"] > 1:
-            raise NotImplementedError(
-                f"{cfg.name}: sharded training of the {cfg.family} family "
-                "(no tensor-parallel layer loop yet) is ROADMAP A9c")
-        mesh = None                 # a model axis of 1: one device
     if mesh is not None and mesh.devices.size == 1:
         mesh = None
     dev = (resolve_device(args.device) if mesh is None
@@ -112,12 +111,8 @@ def main(argv=None) -> None:
     if mesh is not None:
         specs = specs_lib.train_specs(api, params, mesh)
         params = shard_lib.place(params, specs, mesh)
-    # per-layer remat over positions on several cards is refused
-    # (transformer.tp_forward)
-    remat = mesh is None or len(set(mesh.devices.reshape(-1))) == 1
     step_fn, opt = specs_lib.make_train_step_fn(api, shape, lr=args.lr,
-                                                mesh=mesh, specs=specs,
-                                                remat=remat)
+                                                mesh=mesh, specs=specs)
     opt_state = opt.init(params)
     gen = torch.Generator()
 
@@ -136,9 +131,14 @@ def main(argv=None) -> None:
                   f"grad_norm {float(metrics['grad_norm']):.3f}  "
                   f"({(time.perf_counter() - t0) / step:.3f}s/step)")
     assert np.isfinite(losses[-1]), "training diverged"
-    if mesh is not None:
+    if mesh is not None and hasattr(step_fn, "plans"):
         print(f"collectives a step per slice: "
               f"{[p.collectives // args.steps for p in step_fn.plans]}")
+    elif mesh is not None:
+        print(f"gathered on {len(step_fn.gather.devices)} positions: "
+              f"collectives a step {step_fn.gather.collectives} (gathers "
+              "and their duals)")
+    if mesh is not None:
         params = shard_lib.unshard(params, specs, mesh)
     if args.ckpt_dir:
         ckpt_lib.save_checkpoint(args.ckpt_dir, args.steps,

@@ -62,12 +62,8 @@ def main(argv=None) -> None:
     specs = specs_lib.train_specs(api, params, mesh)
     placed = shard_lib.place(params, specs, mesh)
     del params
-    # per-layer remat over positions on several cards is refused
-    # (transformer.tp_forward)
-    remat = len(set(mesh.devices.reshape(-1))) == 1
     step_fn, opt = specs_lib.make_train_step_fn(api, shape, lr=args.lr,
-                                                mesh=mesh, specs=specs,
-                                                remat=remat)
+                                                mesh=mesh, specs=specs)
     opt_state = opt.init(placed)
 
     def make_batch(gen, batch):

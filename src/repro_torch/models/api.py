@@ -7,6 +7,13 @@ ssm (xLSTM) and audio (whisper's encoder-decoder).
     (``dtype=torch.float32`` for training masters);
   * ``loss(params, batch, **kw)`` -> (loss, metrics) and
     ``forward(params, tokens, **kw)`` -> (logits, aux): the training path;
+  * ``loss_parts(params, batch, **kw)`` -> (``lm_loss_parts``, MoE
+    balance means): one position's share of ``loss`` over its rows,
+    which ``transformer.parts_loss`` adds over positions before dividing
+    (the gathered regime of sharded training, ``launch/specs.py``);
+  * ``tp_loss(slices, batches, plans, **kw)`` -> (loss, metrics): the
+    loss over data-parallel slices, each tensor-parallel under its
+    ``tp_plan`` (the dense, MoE and VLM families);
   * ``init_cache(batch, cache_len, **kw)`` / ``decode_step`` — the
     dense-slot decode path (the oracle of the paged engine);
   * ``init_paged_cache(n_lanes, **kw)`` / ``paged_step`` — the
@@ -58,6 +65,8 @@ class ModelAPI:
     forward: Callable[..., Tuple[Any, Any]]
     init_cache: Callable[..., Any]
     decode_step: Callable[..., Tuple[Any, Any]]
+    loss_parts: Optional[Callable[..., Tuple[Any, Any]]] = None
+    tp_loss: Optional[Callable[..., Tuple[Any, Any]]] = None
     init_paged_cache: Optional[Callable[..., Any]] = None
     paged_step: Optional[Callable[..., Tuple[Any, Any]]] = None
     paged_decode_step: Optional[Callable[..., Tuple[Any, Any]]] = None
@@ -102,19 +111,30 @@ _RECURRENT = {
 }
 
 
-def _lm_loss_wrapper(forward_fn, cfg: ArchConfig):
-    """The recurrent families' loss: ``forward_fn`` with the scans on their
-    plain chunkwise forms (``scan_kernel=False``) then ``lm_loss`` (aux
+def _lm_loss_parts(forward_fn, cfg: ArchConfig):
+    """The recurrent families' share of the loss over one position's rows:
+    ``forward_fn`` with the scans on their plain chunkwise forms
+    (``scan_kernel=False``) then ``lm_loss_parts`` (no balance means: aux
     weight 0).  The reference always computes in bfloat16 here;
     ``compute_dtype`` lets a float32 run compare."""
-    def loss(params, batch, *, window: int = 0, attn_chunk: int = 512,
-             remat: bool = True, compute_dtype: torch.dtype = torch.bfloat16,
-             use_kernel: Optional[bool] = None):
-        logits, aux = forward_fn(params, batch["tokens"], cfg, window=window,
-                                 compute_dtype=compute_dtype,
-                                 attn_chunk=attn_chunk, remat=remat,
-                                 use_kernel=use_kernel, scan_kernel=False)
-        return transformer.lm_loss(logits, batch["labels"], aux, 0.0)
+    def loss_parts(params, batch, *, window: int = 0, attn_chunk: int = 512,
+                   remat: bool = True,
+                   compute_dtype: torch.dtype = torch.bfloat16,
+                   use_kernel: Optional[bool] = None):
+        logits, _ = forward_fn(params, batch["tokens"], cfg, window=window,
+                               compute_dtype=compute_dtype,
+                               attn_chunk=attn_chunk, remat=remat,
+                               use_kernel=use_kernel, scan_kernel=False)
+        return transformer.lm_loss_parts(logits, batch["labels"]), []
+
+    return loss_parts
+
+
+def _one_position(loss_parts, cfg: ArchConfig):
+    """The one-device loss: ``loss_parts``' one share, divided."""
+    def loss(params, batch, **kw):
+        return transformer.parts_loss([loss_parts(params, batch, **kw)], cfg,
+                                      batch["tokens"].device)
 
     return loss
 
@@ -122,10 +142,12 @@ def _lm_loss_wrapper(forward_fn, cfg: ArchConfig):
 def build_model(cfg: ArchConfig) -> ModelAPI:
     if cfg.family in _RECURRENT:
         init, forward, init_cache, decode_step = _RECURRENT[cfg.family]
+        parts = _lm_loss_parts(forward, cfg)
         return ModelAPI(
             cfg=cfg,
             init=lambda **kw: init(cfg, **kw),
-            loss=_lm_loss_wrapper(forward, cfg),
+            loss=_one_position(parts, cfg),
+            loss_parts=parts,
             forward=lambda p, t, **kw: forward(p, t, cfg, **kw),
             init_cache=lambda b, n, **kw: init_cache(cfg, b, n, **kw),
             decode_step=lambda p, c, t, **kw: decode_step(p, c, t, cfg,
@@ -136,6 +158,7 @@ def build_model(cfg: ArchConfig) -> ModelAPI:
             cfg=cfg,
             init=lambda **kw: encdec.init_params(cfg, **kw),
             loss=lambda p, b, **kw: encdec.loss_fn(p, b, cfg, **kw),
+            loss_parts=lambda p, b, **kw: encdec.loss_parts(p, b, cfg, **kw),
             forward=lambda p, t, **kw: encdec.forward(p, t, cfg, **kw),
             init_cache=lambda b, n, **kw: encdec.init_cache(cfg, b, n, **kw),
             decode_step=lambda p, c, t, **kw: encdec.decode_step(
@@ -147,6 +170,9 @@ def build_model(cfg: ArchConfig) -> ModelAPI:
         cfg=cfg,
         init=lambda **kw: m.init_params(cfg, **kw),
         loss=lambda p, b, **kw: m.loss_fn(p, b, cfg, **kw),
+        loss_parts=lambda p, b, **kw: m.loss_parts(p, b, cfg, **kw),
+        tp_loss=lambda s, b, plans, **kw: m.tp_loss_fn(s, b, cfg, plans,
+                                                       **kw),
         forward=lambda p, t, **kw: m.forward(p, t, cfg, **kw),
         init_cache=lambda b, n, **kw: m.init_cache(cfg, b, n, **kw),
         decode_step=lambda p, c, t, **kw: m.decode_step(p, c, t, cfg, **kw),

@@ -39,7 +39,8 @@ from repro_torch.models.common import (apply_norm, cast_weights, embed_init_,
                                        norm_params)
 from repro_torch.models.transformer import (_check_compute_dtype,
                                             attention_params, layer_params,
-                                            lm_loss, mlp_params)
+                                            lm_loss_parts, mlp_params,
+                                            parts_loss)
 
 
 def sinusoids(length: int, channels: int, device=None) -> torch.Tensor:
@@ -229,19 +230,28 @@ def forward(params: Dict, tokens: torch.Tensor, cfg: ArchConfig, *,
     return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
 
 
-def loss_fn(params: Dict, batch: Dict, cfg: ArchConfig, *,
-            window: int = 0, attn_chunk: int = 512, remat: bool = True,
-            compute_dtype: torch.dtype = torch.bfloat16,
-            use_kernel: Optional[bool] = None) -> Tuple[torch.Tensor, Dict]:
+def loss_fn(params: Dict, batch: Dict, cfg: ArchConfig, **kw
+            ) -> Tuple[torch.Tensor, Dict]:
     """:func:`forward` on ``batch["frames"]`` and ``batch["tokens"]``, then
     ``lm_loss`` against ``batch["labels"]``.  The reference always
     computes in bfloat16 here; ``compute_dtype`` lets a float32 run
-    compare."""
+    compare.  ``kw`` as :func:`loss_parts`'; the one-position case of
+    ``transformer.parts_loss`` over positions' shares."""
+    return parts_loss([loss_parts(params, batch, cfg, **kw)], cfg,
+                      batch["tokens"].device)
+
+
+def loss_parts(params: Dict, batch: Dict, cfg: ArchConfig, *,
+               window: int = 0, attn_chunk: int = 512, remat: bool = True,
+               compute_dtype: torch.dtype = torch.bfloat16,
+               use_kernel: Optional[bool] = None):
+    """One position's share of :func:`loss_fn` over its rows ``batch``:
+    (``lm_loss_parts``, no balance means)."""
     logits, _ = forward(params, batch["tokens"], cfg, frames=batch["frames"],
                         window=window, compute_dtype=compute_dtype,
                         attn_chunk=attn_chunk, remat=remat,
                         use_kernel=use_kernel)
-    return lm_loss(logits, batch["labels"])
+    return lm_loss_parts(logits, batch["labels"]), []
 
 
 # ---------------------------------------------------------------------------

@@ -7,8 +7,9 @@ The counterpart of ``repro/models/transformer.py``.  Parameters keep the
 reference's layout: every leaf of ``params["blocks"]`` has a leading
 layer axis, and an MoE config's ``first_dense_layers`` are an unstacked
 list, ``params["head_blocks"]``, run before them.  The port runs eagerly:
-a Python loop over layers takes the place of ``lax.scan`` (and
-``torch.utils.checkpoint`` per block that of ``jax.checkpoint``), and the
+a Python loop over layers takes the place of ``lax.scan`` (and one
+recomputing autograd node per block, :func:`remat_node`, that of
+``jax.checkpoint``), and the
 KV caches are one ``(n_layers, ...)`` tensor per leaf over all layers
 (head block i uses layer i), updated in place through per-layer views
 instead of being rebuilt and donated every step.
@@ -33,7 +34,6 @@ import functools
 from typing import Dict, List, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device, seeded_generator
@@ -229,8 +229,8 @@ def forward(params: Dict, tokens: torch.Tensor, cfg: ArchConfig, *,
     reference reads it) is cast to ``compute_dtype`` once per call,
     differentiably, so float32 masters train as the reference's do (a
     leaf already in ``compute_dtype`` is used as is).  With ``remat`` each
-    block runs under non-reentrant ``torch.utils.checkpoint`` when
-    autograd records, so the backward pass recomputes its insides.
+    block runs as one :func:`remat_node` node when autograd records, so the
+    backward pass recomputes its insides.
     Attention follows ``layers.causal_attention``'s ``use_kernel`` rule.
     aux sums the MoE layers' load-balance losses (0 for the dense
     family).  The one-position case of :func:`tp_forward`."""
@@ -296,10 +296,39 @@ def loss_fn(params: Dict, batch: Dict, cfg: ArchConfig, *, window: int = 0,
     computes in bfloat16 here; ``compute_dtype`` lets a float32 run
     compare against its float32 forward.  The one-position case of
     :func:`tp_loss_fn`."""
+    return parts_loss([loss_parts(params, batch, cfg, window=window,
+                                  attn_chunk=attn_chunk, remat=remat,
+                                  compute_dtype=compute_dtype,
+                                  use_kernel=use_kernel)],
+                      cfg, batch["tokens"].device)
+
+
+def loss_parts(params: Dict, batch: Dict, cfg: ArchConfig, **kw
+               ) -> Tuple[Dict[str, torch.Tensor], List[Tuple]]:
+    """One position's share of :func:`loss_fn` over its rows ``batch``:
+    (:func:`lm_loss_parts`, the MoE layers' balance means), which
+    :func:`parts_loss` adds over positions before dividing.  ``kw`` as
+    :func:`loss_fn`'s."""
     plan = tp_plan(cfg, None, [batch["tokens"].device])
-    return tp_loss_fn([[params]], [batch], cfg, [plan], window=window,
-                      attn_chunk=attn_chunk, remat=remat,
-                      compute_dtype=compute_dtype, use_kernel=use_kernel)
+    return slice_parts([params], batch, cfg, plan, **kw)
+
+
+def parts_loss(parts: List[Tuple[Dict[str, torch.Tensor], List[Tuple]]],
+               cfg: ArchConfig, dst: torch.device
+               ) -> Tuple[torch.Tensor, Dict]:
+    """The loss of data-parallel shares, each (:func:`lm_loss_parts`, the
+    MoE layers' balance means or []): the sums added on ``dst`` before
+    dividing (a mean of the shares' losses is wrong where the label masks
+    fall unevenly), and the MoE aux from the shares' averaged balance
+    means (:func:`_balance_aux`).  Returns the loss and the metrics of
+    :func:`lm_loss`."""
+    totals: Dict[str, torch.Tensor] = {}
+    for share, _ in parts:
+        for k, v in share.items():
+            totals[k] = v.to(dst) if k not in totals else totals[k] + v.to(dst)
+    aw = cfg.moe.router_aux_weight if cfg.moe else 0.0
+    return lm_loss_from_parts(
+        totals, _balance_aux([m for _, m in parts], cfg, dst), aw)
 
 
 # ---------------------------------------------------------------------------
@@ -898,6 +927,83 @@ def _tp_attention(bps, positions, cfg: ArchConfig, plan: TPPlan, *,
     return attn
 
 
+class _Remat(torch.autograd.Function):
+    """:func:`remat_node`'s node: the inputs are the flat tensors, ``run``
+    maps them to the flat outputs."""
+
+    @staticmethod
+    def forward(ctx, run, *inputs: torch.Tensor):
+        ctx.set_materialize_grads(False)
+        ctx.run = run
+        ctx.save_for_backward(*inputs)
+        # grad mode on over detached inputs, so every op runs as it does
+        # when autograd records (the flash kernels' B6f, not B6); the
+        # graph it builds is dropped with ``outs``
+        with torch.enable_grad():
+            outs = run(*_detached(inputs))
+        return tuple(o.detach() for o in outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        inputs = _detached(ctx.saved_tensors)
+        with torch.enable_grad():
+            outs = ctx.run(*inputs)
+        pairs = [(o, g) for o, g in zip(outs, grads)
+                 if g is not None and o.requires_grad]
+        need = [x for x in inputs if x.requires_grad]
+        got = iter(torch.autograd.grad(
+            [o for o, _ in pairs], need, [g for _, g in pairs],
+            allow_unused=True) if pairs and need else [None] * len(need))
+        return (None,) + tuple(next(got) if x.requires_grad else None
+                               for x in inputs)
+
+
+def _detached(ts) -> List[torch.Tensor]:
+    return [t.detach().requires_grad_(t.requires_grad) for t in ts]
+
+
+def remat_node(fn, *args):
+    """``fn(*args)`` as one autograd node that keeps only its inputs and
+    recomputes ``fn`` once in the backward, whichever device thread of
+    the backward reaches it (reentrant style: the node's inputs are every
+    tensor of ``args``, weights and activations, and its backward
+    differentiates the recomputation).  ``args`` and the result are
+    nested lists, tuples and dicts of tensors (and None); every reduce
+    and gather of ``fn`` runs again in the recomputation, and every
+    kernel runs as under autograd both times."""
+    leaves, (rebuild,) = _flatten(args)
+    out_rebuild = []
+
+    def run(*flat):
+        out, out_rebuild[:] = _flatten(fn(*rebuild(flat)))
+        return out
+
+    outs = _Remat.apply(run, *leaves)       # sets out_rebuild
+    return out_rebuild[0](outs)
+
+
+def _flatten(tree):
+    """(the tensors of a nested list / tuple / dict / None tree, in order,
+    and a one-element list holding the function that rebuilds the tree
+    from such a sequence)."""
+    if torch.is_tensor(tree):
+        return [tree], [lambda flat: flat[0]]
+    if tree is None:
+        return [], [lambda flat: None]
+    keys = list(tree) if isinstance(tree, dict) else range(len(tree))
+    parts = [_flatten(tree[k]) for k in keys]
+
+    def rebuild(flat):
+        out, i = [], 0
+        for leaves, (fn,) in parts:
+            out.append(fn(flat[i:i + len(leaves)]))
+            i += len(leaves)
+        return dict(zip(keys, out)) if isinstance(tree, dict) \
+            else type(tree)(out)
+
+    return [t for leaves, _ in parts for t in leaves], [rebuild]
+
+
 def tp_forward(shards: List[Dict], tokens: List[torch.Tensor],
                cfg: ArchConfig, plan: TPPlan, *, window: int = 0,
                extra_embeds: Optional[List[torch.Tensor]] = None,
@@ -910,21 +1016,13 @@ def tp_forward(shards: List[Dict], tokens: List[torch.Tensor],
     once) on its copy ``tokens[s]`` (B, S) of the batch (after its
     ``extra_embeds[s]``), and the layers' partial sums meet in
     ``plan``'s reduces, whose backward duals carry the gradients.  With
-    ``remat`` each layer runs under non-reentrant
-    ``torch.utils.checkpoint`` over all positions when autograd records,
-    with early stopping off, so its recomputation repeats every forward
-    collective of the layer.  Returns (logits (B, S_extra + S, V)
-    float32 on position 0's device, the MoE layers'
-    ``moe.balance_means`` in order, from position 0)."""
+    ``remat`` each layer over all positions is one :func:`remat_node` node
+    when autograd records, recomputed once in the backward (on one device
+    or several), so its recomputation repeats every forward collective of
+    the layer.  Returns (logits (B, S_extra + S, V) float32 on position
+    0's device, the MoE layers' ``moe.balance_means`` in order, from
+    position 0)."""
     _check_family(cfg)
-    if remat and torch.is_grad_enabled() and len(set(plan.devices)) > 1:
-        # the backward's device threads can each start the layer's
-        # recomputation (checkpoint marks it done only after the rerun),
-        # which then fails with "trying to save more tensors during
-        # recomputation"
-        raise NotImplementedError(
-            "per-layer remat over positions on several devices is not "
-            "supported (ROADMAP A9c); pass remat=False")
     ps = [cast_weights(p, compute_dtype) for p in shards]
     xs = _tp_embed(ps, tokens, cfg, plan)
     if extra_embeds is not None:
@@ -938,15 +1036,14 @@ def tp_forward(shards: List[Dict], tokens: List[torch.Tensor],
         return _tp_layer(bps, xs_, attn, cfg, plan, plan.layers[l])
 
     means = []
-    with set_checkpoint_early_stop(False):
-        for l, bps in enumerate(zip(*(_layers(p, cfg) for p in ps))):
-            if remat and torch.is_grad_enabled():
-                xs, m = checkpoint(block, l, list(bps), xs,
-                                   use_reentrant=False)
-            else:
-                xs, m = block(l, list(bps), xs)
-            if m is not None:
-                means.append(m)
+    for l, bps in enumerate(zip(*(_layers(p, cfg) for p in ps))):
+        run = functools.partial(block, l)
+        if remat and torch.is_grad_enabled():
+            xs, m = remat_node(run, list(bps), xs)
+        else:
+            xs, m = run(list(bps), xs)
+        if m is not None:
+            means.append(m)
     return _tp_finish(ps, xs, cfg, plan), means
 
 
@@ -966,42 +1063,47 @@ def _balance_aux(means: List[List[Tuple]], cfg: ArchConfig,
     return aux
 
 
+def slice_parts(shards: List[Dict], batch: Dict, cfg: ArchConfig,
+                plan: TPPlan, *, window: int = 0, attn_chunk: int = 512,
+                remat: bool = True,
+                compute_dtype: torch.dtype = torch.bfloat16,
+                use_kernel: Optional[bool] = None
+                ) -> Tuple[Dict[str, torch.Tensor], List[Tuple]]:
+    """One tensor-parallel slice's share of the loss: :func:`tp_forward`
+    of its positions' local parameters ``shards`` under ``plan`` over its
+    rows ``batch``, then (:func:`lm_loss_parts` on position 0's device,
+    the balance means).  ``batch["extra_embeds"]``, if given, is one
+    (B, S_extra, d_model) tensor copied to every position or a list of
+    the positions' own (a tensor-parallel projector's outputs); its
+    positions are labelled -1 (no loss)."""
+    extra = batch.get("extra_embeds")
+    if torch.is_tensor(extra):
+        extra = [extra.to(d) for d in plan.devices]
+    logits, means = tp_forward(
+        shards, [batch["tokens"].to(d) for d in plan.devices], cfg, plan,
+        window=window, extra_embeds=extra, compute_dtype=compute_dtype,
+        attn_chunk=attn_chunk, remat=remat, use_kernel=use_kernel)
+    labels = batch["labels"].to(logits.device)
+    if extra is not None:
+        pad = -torch.ones(extra[0].shape[:2], dtype=labels.dtype,
+                          device=labels.device)
+        labels = torch.cat([pad, labels], dim=1)
+    return lm_loss_parts(logits, labels), means
+
+
 def tp_loss_fn(slices: List[List[Dict]], batches: List[Dict],
-               cfg: ArchConfig, plans: List[TPPlan], *, window: int = 0,
-               attn_chunk: int = 512, remat: bool = True,
-               compute_dtype: torch.dtype = torch.bfloat16,
-               use_kernel: Optional[bool] = None
+               cfg: ArchConfig, plans: List[TPPlan], **kw
                ) -> Tuple[torch.Tensor, Dict]:
     """:func:`loss_fn` over data-parallel slices, each tensor-parallel:
-    slice i runs :func:`tp_forward` on its positions' local parameters
-    ``slices[i]`` under ``plans[i]`` over its rows ``batches[i]``.  The
-    slices' :func:`lm_loss_parts` are added on slice 0's first device
-    before dividing (a mean of the slices' losses is wrong where the
-    label masks fall unevenly), and the MoE aux comes from the slices'
-    averaged balance means (:func:`_balance_aux`).  Returns the loss and
-    the metrics of :func:`lm_loss`."""
-    dst = plans[0].devices[0]
-    totals: Dict[str, torch.Tensor] = {}
-    means = []
-    for shards, batch, plan in zip(slices, batches, plans):
-        extra = batch.get("extra_embeds")
-        logits, m = tp_forward(
-            shards, [batch["tokens"].to(d) for d in plan.devices], cfg,
-            plan, window=window,
-            extra_embeds=None if extra is None else [
-                extra.to(d) for d in plan.devices],
-            compute_dtype=compute_dtype, attn_chunk=attn_chunk, remat=remat,
-            use_kernel=use_kernel)
-        labels = batch["labels"].to(logits.device)
-        if extra is not None:
-            pad = -torch.ones(extra.shape[:2], dtype=labels.dtype,
-                              device=labels.device)
-            labels = torch.cat([pad, labels], dim=1)
-        for k, v in lm_loss_parts(logits, labels).items():
-            totals[k] = v.to(dst) if k not in totals else totals[k] + v.to(dst)
-        means.append(m)
-    aw = cfg.moe.router_aux_weight if cfg.moe else 0.0
-    return lm_loss_from_parts(totals, _balance_aux(means, cfg, dst), aw)
+    slice i's share (:func:`slice_parts`) from its positions' local
+    parameters ``slices[i]`` under ``plans[i]`` over its rows
+    ``batches[i]``, the shares added on slice 0's first device by
+    :func:`parts_loss`.  ``kw`` as :func:`slice_parts`'.  Returns the
+    loss and the metrics of :func:`lm_loss`."""
+    return parts_loss([slice_parts(shards, batch, cfg, plan, **kw)
+                       for shards, batch, plan in zip(slices, batches,
+                                                      plans)],
+                      cfg, plans[0].devices[0])
 
 
 def tp_ragged_step(shards: List[Dict], caches: List[Dict],

@@ -78,19 +78,80 @@ def loss_fn(params: Dict, batch: Dict, cfg: ArchConfig, *, window: int = 0,
             use_kernel: Optional[bool] = None) -> Tuple[torch.Tensor, Dict]:
     """:func:`forward` then ``transformer.lm_loss``; the patch positions
     are labelled -1 (no loss).  The reference always computes in
-    bfloat16 here; ``compute_dtype`` lets a float32 run compare."""
+    bfloat16 here; ``compute_dtype`` lets a float32 run compare.  The
+    one-position case of :func:`tp_loss_fn`."""
+    return transformer.parts_loss(
+        [loss_parts(params, batch, cfg, window=window, attn_chunk=attn_chunk,
+                    remat=remat, compute_dtype=compute_dtype,
+                    use_kernel=use_kernel)], cfg, batch["tokens"].device)
+
+
+def loss_parts(params: Dict, batch: Dict, cfg: ArchConfig, **kw):
+    """One position's share of :func:`loss_fn` over its rows ``batch``
+    (``transformer.loss_parts``'s, the patches projected first)."""
+    plan = tp_plan(cfg, None, [batch["tokens"].device])
+    return _slice_parts([params], batch, cfg, plan, **kw)
+
+
+def _projector_cut(plan) -> bool:
+    """Whether ``plan``'s specs cut the projector over "model": w1's
+    output dim and w2's rows (``launch/sharding.py``'s rules)."""
+    if plan.specs is None:
+        return False
+    spec = plan.specs["projector"]
+    cut = transformer._cut(spec["w1"], plan.tp)
+    if cut != transformer._cut(spec["w2"], plan.tp):
+        raise ValueError("the projector's w1 and w2 must be cut together")
+    return cut
+
+
+def _tp_project(shards, patches, plan,
+                compute_dtype: torch.dtype) -> list:
+    """Each position's projected patches (B, n, d_model).  With the
+    projector cut, position s computes its slice of the hidden units (its
+    columns of w1 and its slice of the replicated b1, then the GELU) and
+    their share of the output through its rows of w2; one reduce sums
+    the shares and b2 is added once after it.  Otherwise every position
+    projects whole."""
+    if not _projector_cut(plan):
+        return [project_patches(p, x, compute_dtype)
+                for p, x in zip(shards, patches)]
+    parts = []
+    for s, (p, x) in enumerate(zip(shards, patches)):
+        pr = {k: v.to(compute_dtype) for k, v in p["projector"].items()}
+        n = pr["w1"].shape[-1]
+        b1 = pr["b1"][s * n:(s + 1) * n]
+        h = F.gelu(x.to(compute_dtype) @ pr["w1"] + b1, approximate="tanh")
+        parts.append(h @ pr["w2"])
+    return [y + p["projector"]["b2"].to(compute_dtype)
+            for y, p in zip(plan.reduce(parts), shards)]
+
+
+def _slice_parts(shards, batch: Dict, cfg: ArchConfig, plan, *,
+                 compute_dtype: torch.dtype = torch.bfloat16, **kw):
+    """One tensor-parallel slice's share of the loss: the projected
+    patches (:func:`_tp_project`) enter ``transformer.slice_parts`` as
+    the positions' extra embeddings, labelled -1."""
     patches = batch.get("patches")
-    logits, aux = forward(params, batch["tokens"], cfg, patches=patches,
-                          window=window, compute_dtype=compute_dtype,
-                          attn_chunk=attn_chunk, remat=remat,
-                          use_kernel=use_kernel)
-    labels = batch["labels"]
+    rows = {"tokens": batch["tokens"], "labels": batch["labels"]}
     if patches is not None:
-        pad = -torch.ones(patches.shape[:2], dtype=labels.dtype,
-                          device=labels.device)
-        labels = torch.cat([pad, labels], dim=1)
-    aw = cfg.moe.router_aux_weight if cfg.moe else 0.0
-    return transformer.lm_loss(logits, labels, aux, aw)
+        rows["extra_embeds"] = _tp_project(
+            shards, [patches.to(d) for d in plan.devices], plan,
+            compute_dtype)
+    return transformer.slice_parts([p["lm"] for p in shards], rows, cfg,
+                                   plan, compute_dtype=compute_dtype, **kw)
+
+
+def tp_loss_fn(slices, batches, cfg: ArchConfig, plans, **kw):
+    """:func:`loss_fn` over data-parallel slices, each tensor-parallel
+    (``transformer.tp_loss_fn``'s layout): slice i's share from its
+    positions' local trees ``slices[i]`` (``{"projector", "lm"}``) under
+    ``plans[i]`` over its rows ``batches[i]``, the shares added before
+    dividing."""
+    return transformer.parts_loss(
+        [_slice_parts(shards, batch, cfg, plan, **kw)
+         for shards, batch, plan in zip(slices, batches, plans)],
+        cfg, plans[0].devices[0])
 
 
 # image patches enter through forward (the prefill); the decode and paged

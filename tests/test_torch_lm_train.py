@@ -427,7 +427,8 @@ def test_checkpoint_roundtrip_retention_and_integrity(tmp_path):
 
 def test_train_launcher_runs_on_cpu(tmp_path, capsys):
     """``python -m repro_torch.launch.train --arch gemma-7b --device cpu``
-    for 2 steps, with a checkpoint the reference format reads back."""
+    for 2 steps, with a checkpoint the reference format reads back; then
+    whisper-base on 2 CPU positions for a step, in the gathered regime."""
     train_launcher.main(["--arch", "gemma-7b", "--device", "cpu",
                          "--steps", "2", "--log-every", "1", "--seq", "32",
                          "--ckpt-dir", str(tmp_path)])
@@ -435,6 +436,9 @@ def test_train_launcher_runs_on_cpu(tmp_path, capsys):
     assert "step     1" in out and "step     2" in out
     assert out.strip().endswith("done")
     assert ck.latest_step(str(tmp_path)) == 2
-    with pytest.raises(NotImplementedError, match="A9c"):
-        train_launcher.main(["--arch", "whisper-base", "--device", "cpu",
-                             "--model-parallel", "2"])
+    # a family without a tensor-parallel layer loop trains gathered
+    train_launcher.main(["--arch", "whisper-base", "--device", "cpu",
+                         "--model-parallel", "2", "--steps", "1",
+                         "--seq", "32"])
+    out = capsys.readouterr().out
+    assert "gathered on 2 positions" in out and out.strip().endswith("done")

@@ -313,7 +313,8 @@ def test_place_local_trees_and_unshard():
     """Pieces store each element once, on the first position that holds
     them; local trees gather "data" cuts and keep "model" cuts; unshard
     gives the tree back; a cut over "model" jointly with "data"
-    (fsdp_flat) is refused."""
+    (fsdp_flat) is gathered only whole, in row-major order of the two
+    axes, and is refused for a tensor-parallel local tree."""
     mesh = _mesh(2, 2)
     tree = {"a": torch.arange(24.).reshape(2, 3, 4),
             "b": [torch.arange(8.).reshape(2, 4)], "c": torch.ones(3)}
@@ -331,18 +332,42 @@ def test_place_local_trees_and_unshard():
     assert local[1]["c"] is placed["c"][0]
     half = sh.local_trees(placed, specs, mesh, dtype=torch.bfloat16)
     assert half[0]["b"][0].dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="A9c"):
-        sh.local_trees(sh.place(tree, {**specs, "a": sh.P(
-            None, None, ("data", "model"))}, mesh),
-            {**specs, "a": sh.P(None, None, ("data", "model"))}, mesh)
+    joint = {**specs, "a": sh.P(None, None, ("data", "model"))}
+    placed = sh.place(tree, joint, mesh)
+    assert torch.equal(placed["a"][1], tree["a"][..., 1:2])
+    for local in sh.local_trees(placed, joint, mesh, whole=True):
+        for a, b in zip(sh.leaves(local), sh.leaves(tree)):
+            assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="whole"):
+        sh.local_trees(placed, joint, mesh)
 
 
 def test_remat_over_several_devices_is_refused(models):
-    """Per-layer remat over positions on more than one device is refused
-    before any work, naming A9c."""
+    """Per-layer remat over positions, once refused on several devices,
+    is one autograd node a layer (``transformer.remat_node``) whose
+    inputs are the layer's weights and activations on every position and
+    whose backward recomputes the layer once: at TP 2 in float32 the
+    logits and every piece's gradient equal those of ``remat=False``, and
+    the collectives count the layers' forward ones once again, no more."""
     m = models["gemma-7b", None]
     cfg = m["api"].cfg
-    plan = tf.tp_plan(cfg, None, [CPU, torch.device("meta")])
-    with pytest.raises(NotImplementedError, match="A9c"):
-        tf.tp_forward([m["params"]] * 2, [m["batch"]["tokens"]] * 2, cfg,
-                      plan)
+    mesh = _mesh(1, 2)
+    specs = sp.train_specs(m["api"], m["params"], mesh)
+    placed = sh.place(m["params"], specs, mesh)
+    got = {}
+    for remat in (False, True):
+        pieces = [t.detach().clone().requires_grad_(True)
+                  for t in tree_leaves(placed)]
+        it = iter(pieces)
+        local = sh.local_trees(sh._zip_map(lambda p, _: [next(it) for _ in p],
+                                           placed, specs), specs, mesh)
+        plan = tf.tp_plan(cfg, specs, [CPU] * 2)
+        logits, _ = tf.tp_forward(local, [m["batch"]["tokens"]] * 2, cfg,
+                                  plan, compute_dtype=torch.float32,
+                                  remat=remat)
+        grads = torch.autograd.grad((logits * logits).mean(), pieces)
+        got[remat] = (logits.detach(), grads, plan.collectives)
+    torch.testing.assert_close(got[True][0], got[False][0], rtol=0, atol=0)
+    for a, b in zip(got[True][1], got[False][1]):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
+    assert got[True][2] == got[False][2] + 2 * cfg.n_layers

@@ -1,10 +1,10 @@
 """The sharded training launchers on CPU positions: ``launch/train.py``
 with ``--mesh-shape`` and ``--model-parallel`` (a falling loss, a
 checkpoint in the reference's format), the ``train_llm`` twin of
-``examples/train_llm.py`` on four positions, and the refusal of the
-families without a tensor-parallel layer loop (ROADMAP A9c).  The
-launchers print their losses; a falling loss is the last logged below
-the first.
+``examples/train_llm.py`` on four positions, and the VLM, audio, hybrid
+and ssm families on 2 x 2 positions (the VLM tensor-parallel, the others
+gathered).  The launchers print their losses; a falling loss is the last
+logged below the first.
 """
 import pytest
 import torch
@@ -72,13 +72,28 @@ def test_train_llm_on_four_cpu_positions(capsys):
 
 @pytest.mark.parametrize("arch", ["whisper-base", "llava-next-mistral-7b",
                                   "xlstm-1.3b", "zamba2-2.7b"])
-def test_families_without_a_tp_layer_loop_are_refused(arch):
-    """The VLM, audio, ssm and hybrid families under a model axis > 1
-    raise naming ROADMAP A9c, from the launcher and the step builder."""
-    with pytest.raises(NotImplementedError, match="A9c"):
-        train_launcher.main(["--arch", arch, "--device", "cpu",
-                             "--model-parallel", "2"])
+def test_families_without_a_tp_layer_loop_are_refused(tmp_path, capsys,
+                                                      arch):
+    """The families once refused above a model axis of 1 (ROADMAP A9c)
+    train: ``launch/train.py --device cpu --mesh-shape 2,2`` runs 2 steps
+    of each, the VLM tensor-parallel and the others gathered, and its
+    checkpoint holds the whole tree; ``make_train_step_fn`` takes each
+    family in that regime."""
+    train_launcher.main(["--arch", arch, "--device", "cpu", "--mesh-shape",
+                         "2,2", "--steps", "2", "--log-every", "1", "--seq",
+                         "16", "--ckpt-dir", str(tmp_path)])
+    out = capsys.readouterr().out
+    assert out.strip().endswith("done"), out
+    tp = arch == "llava-next-mistral-7b"
+    assert ("collectives a step per slice" if tp
+            else "gathered on 4 positions") in out
     api = build_model(get_config(arch).smoke_variant())
-    with pytest.raises(NotImplementedError, match="A9c"):
-        sp.make_train_step_fn(api, SHAPE, mesh=_mesh(1, 2),
-                              specs={"blocks": {}})
+    whole = api.init(seed=0, device="cpu", dtype=torch.float32)
+    tree, _ = ck.restore_checkpoint(str(tmp_path), {"params": whole})
+    got, want = tree_leaves(tree), tree_leaves(whole)
+    assert [t.shape for t in got] == [t.shape for t in want]
+    assert all(torch.isfinite(t).all() for t in got)
+    assert sum(not torch.equal(a, b) for a, b in zip(got, want)) > 0
+    mesh = _mesh(1, 2)
+    step, _ = sp.make_train_step_fn(api, SHAPE, mesh=mesh)
+    assert hasattr(step, "plans") == tp and hasattr(step, "gather") != tp
