@@ -266,7 +266,20 @@ printing its own line(s):
    same row shares (the rows' order of sums, batched against shares, is
    printed).  Where
    ``torch.cuda.device_count() >= 2``, (a) runs again on two cards; on
-   one card a line says it did not run.
+   one card a line says it did not run;
+17. the measured steps against their roofline bound: (a) (run right
+   after 5, on phase 4's weights) the parameter count of the arch's tree
+   on the ``meta`` device (``launch/dryrun.count_params``) must equal the
+   card's tree exactly; gemma-7b's prefill step at 1 x FULL_PREFILL
+   tokens (no grad) must launch B6 once a layer and nothing else, and is
+   timed, as is its serve step at batch FULL_DECODE[0] over a
+   FULL_DECODE[1]-slot cache (the dense slot step, which must launch no
+   kernel); then each step of (a) and the medians that phases 8b, 9
+   and 13a measured print their ``InputShape`` and depth,
+   ``roofline/analytic.py``'s FLOPs and bytes, the H100 roofline terms
+   (``roofline/analysis.RooflineTerms``, one card), the measured time,
+   the bound share (the least time over the measured time, which must
+   lie in (0, ROOFLINE_SHARE_MAX]) and the model-FLOP share.
 
 Then one JSON line of per-kernel numbers, and last
 ``{"ok": true, "device": {...}}``.  Any failed phase raises, so the run
@@ -371,6 +384,9 @@ RECURRENT_BF16_REL_L2 = {"zamba2-2.7b": 8e-2, "xlstm-1.3b": 4e-1}
 PREFILL_SEQ = 4096            # tokens a prefill (32 SSD / mLSTM chunks)
 SERVE_SLOTS = 2
 SERVE_REQUESTS = 3            # more requests than slots: a slot is reused
+# kernel prefills timed after the first, whose median phase 17 reads (the
+# sLSTM's prefill takes ≈ 10 s a run, so it gets fewer)
+PREFILL_TIMED = {"zamba2-2.7b": 5, "xlstm-1.3b": 3}
 SERVE_NEW = 8
 SEED = 0
 DEVICE = "cuda"
@@ -1484,8 +1500,8 @@ def phase_training():
     first, a float32 kernel-against-plain check on the last state, and one
     no-grad eval forward; the counts of every kernel are zeroed just
     before each run and read just after.  Returns the launches of the 10
-    kernel steps together and of the eval forward; raises if a check
-    fails."""
+    kernel steps together and of the eval forward, and the measured step
+    for phase 17 (:func:`_measured`); raises if a check fails."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -1679,7 +1695,8 @@ def phase_training():
     if counts != want_eval or not ok:
         raise AssertionError(f"eval forward: launches {counts} != "
                              f"{want_eval} or logits not finite")
-    return totals, counts
+    return totals, counts, _measured(
+        "8b gemma-7b train (median of steps 2-9)", cfg, shape, ms)
 
 
 # ---------------------------------------------------------------------------
@@ -1967,7 +1984,7 @@ def _profile_prefill(arch, step, params, batch) -> None:
         print(f"  {t_ms:9.3f} ms {n:5d} calls  {name[:100]}", flush=True)
 
 
-def phase_recurrent(arch: str, want: dict) -> dict:
+def phase_recurrent(arch: str, want: dict) -> tuple:
     """``arch`` at its published width and depth, random bf16 weights from
     SEED: the prefill step (``make_prefill_step_fn``, no grad) at batch 1
     and PREFILL_SEQ tokens must launch exactly ``want`` and no other
@@ -1976,7 +1993,9 @@ def phase_recurrent(arch: str, want: dict) -> dict:
     RECURRENT_BF16_REL_L2; float32 forwards within RECURRENT_F32_REL_L2);
     then ``SlotDecodeEngine`` serves SERVE_REQUESTS requests on
     SERVE_SLOTS slots (so slots are reused) and every request must
-    finish.  Returns the prefill's launches."""
+    finish.  Returns the prefill's launches and the median wall of its
+    PREFILL_TIMED[arch] kernel runs after the first, for phase 17
+    (:func:`_measured`)."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -2007,7 +2026,8 @@ def phase_recurrent(arch: str, want: dict) -> dict:
         for label, kw in (("kernel", {}), ("plain", {"use_kernel": False})):
             step = make_prefill_step_fn(api, shape, **kw)
             times = []
-            for _ in range(2):
+            for _ in range(1 + (PREFILL_TIMED[arch] if label == "kernel"
+                                else 1)):
                 _zero_counts()
                 t0 = time.perf_counter()
                 out = step(params, batch)
@@ -2015,11 +2035,14 @@ def phase_recurrent(arch: str, want: dict) -> dict:
                 times.append((time.perf_counter() - t0) * 1e3)
                 counts = {k: v for k, v in _read_counts().items() if v}
             runs[label] = out
+            ms = statistics.median(times[1:])
+            if label == "kernel":
+                prefill_ms = ms
             print(f"{arch} prefill [{label}, bf16]: batch 1 x {PREFILL_SEQ} "
                   f"tokens, logits {tuple(out.shape)} {out.dtype} "
                   f"finite={bool(torch.isfinite(out).all())} wall_ms="
-                  f"{times[0]:.2f} (first), {times[1]:.2f} "
-                  f"({PREFILL_SEQ / times[1] * 1e3:.1f} tokens/s) "
+                  f"{times[0]:.2f} (first), {ms:.2f} (median of "
+                  f"{len(times) - 1}; {PREFILL_SEQ / ms * 1e3:.1f} tokens/s) "
                   f"kernel_launches={json.dumps(counts)}", flush=True)
             expect = want if label == "kernel" else {}
             if counts != expect:
@@ -2083,7 +2106,8 @@ def phase_recurrent(arch: str, want: dict) -> dict:
         raise AssertionError(f"{arch} serve: not every request finished")
     del eng, params
     torch.cuda.empty_cache()
-    return want
+    return want, _measured(f"9 {arch} prefill (median)", cfg, shape,
+                           prefill_ms)
 
 
 def _sync() -> None:
@@ -3347,7 +3371,8 @@ def phase_whisper() -> dict:
     WHISPER_DECODE float32 decode steps with the cross K/V filled from
     ``encode`` -> ``encoder_kv``, against the forward's logits.  Serve:
     the slot engine on WHISPER_SERVE, every request to its end, no kernel
-    launched.  Returns the launches of a training step and the prefill."""
+    launched.  Returns the launches of a training step and the prefill,
+    and the measured training step for phase 17 (:func:`_measured`)."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -3396,6 +3421,9 @@ def phase_whisper() -> dict:
         "whisper-base train", step_fn, state, batch, WHISPER_STEPS,
         want_step)
     _train_summary("whisper-base train", losses, times, B * S)
+    train_step = _measured("13a whisper-base train (median after the "
+                           "first)", cfg, shape,
+                           statistics.median(times[1:]) * 1e3)
     rel_l = abs(losses[0] - loss_p) / abs(loss_p)
     rel_n = abs(norms[0] - norm_p) / norm_p
     print(f"whisper-base step 1 on the plain path (use_kernel=False): "
@@ -3544,7 +3572,7 @@ def phase_whisper() -> dict:
     torch.cuda.empty_cache()
     print(f"phase 13a: {time.perf_counter() - t_phase:.1f} s", flush=True)
     return {"train": {k: v for k, v in want_step.items() if v},
-            "prefill": prefill_counts}
+            "prefill": prefill_counts, "step": train_step}
 
 
 def phase_recurrent_train(arch: str) -> dict:
@@ -4146,7 +4174,7 @@ def _shard_run(label, arch, layers, dp_tp, batch_size, seq, steps,
 
     def counted(p, s, b):
         for plan in plans:
-            plan.collectives = 0
+            plan.reset()
         out = step(p, s, b)
         seen.append([plan.collectives for plan in plans])
         if seen[-1] != design:
@@ -4256,6 +4284,165 @@ def phase_sharded_families() -> dict:
     return totals
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the measured steps against their roofline bound
+# ---------------------------------------------------------------------------
+# the largest share of its bound a measured step may read: the bound is
+# the least time the card could take, so a share above 1 means that the
+# account or the timed window is wrong (5 % for the timers' spread)
+ROOFLINE_SHARE_MAX = 1.05
+FULL_PREFILL = 4096           # 17a: gemma-7b prefill at 1 x this
+FULL_DECODE = (8, 4096)       # 17a: gemma-7b decode, batch x cache slots
+
+
+def _measured(label: str, cfg, shape, ms: float) -> dict:
+    """A measured step for phase 17: its config (depth cut where the phase
+    cuts it), its ``InputShape`` and its time in ms."""
+    return {"label": label, "cfg": cfg, "shape": shape, "ms": ms}
+
+
+def _roofline_line(step: dict) -> None:
+    """Print a measured step beside ``roofline/analytic.py``'s account and
+    ``RooflineTerms(n_chips=1)`` on the H100's constants, with its bound
+    share (the least time over the measured time), which must lie in
+    (0, ROOFLINE_SHARE_MAX]."""
+    import torch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.specs import abstract_params
+    from repro_torch.models.api import build_model
+    from repro_torch.roofline import analytic
+    from repro_torch.roofline.analysis import (RooflineTerms,
+                                               model_flops_estimate)
+    cfg, shape, ms = step["cfg"], step["shape"], step["ms"]
+    api = build_model(cfg)
+    tree = abstract_params(api, torch.float32)
+    n_total = dryrun.count_params(tree)
+    n_active = dryrun.moe_active_params(cfg, tree)
+    # the measured train steps (8b, 13a) run make_train_step_fn's
+    # default per-block remat
+    acct = analytic.step_account(cfg, shape,
+                                 window=api.effective_window(shape.seq_len),
+                                 n_params_total=n_total,
+                                 n_params_active=n_active, remat=True)
+    kind = "train" if shape.kind == "train" else "forward"
+    mf = model_flops_estimate(n_active, dryrun.tokens_per_step(cfg, shape),
+                              kind)
+    t = RooflineTerms(arch=cfg.name, shape=shape.name, mesh="1x1",
+                      n_chips=1, hlo_flops=acct["flops"],
+                      hlo_bytes=acct["bytes"], collective_bytes_per_dev=0.0,
+                      model_flops=mf)
+    share = t.step_time_lower_bound * 1e3 / ms
+    mfu = mf / (t.peak_flops * ms / 1e3)
+    print(f"roofline [{step['label']}]: {shape} layers={cfg.n_layers} "
+          f"params={n_total:,} active={n_active:,} analytic flops="
+          f"{acct['flops']:.4e} bytes={acct['bytes']:.4e} t_compute_ms="
+          f"{t.compute_term * 1e3:.4f} t_memory_ms={t.memory_term * 1e3:.4f} "
+          f"dominant={t.dominant} bound_ms="
+          f"{t.step_time_lower_bound * 1e3:.4f} measured_ms={ms:.4f} "
+          f"bound_share={share:.4f} model_flops={mf:.4e} "
+          f"model_flop_share={mfu:.4f} (limit: 0 < bound share <= "
+          f"{ROOFLINE_SHARE_MAX:g}) [{CARD}]", flush=True)
+    if not 0 < share <= ROOFLINE_SHARE_MAX:
+        raise AssertionError(f"{step['label']}: bound share {share:.4f} "
+                             f"is outside (0, {ROOFLINE_SHARE_MAX:g}]: the "
+                             "account or the timed window is wrong")
+
+
+def phase_roofline_full(api, params) -> list:
+    """17a on phase 4's full-width gemma-7b bf16 weights: the meta tree's
+    parameter count must equal the card's exactly; the prefill step
+    (``make_prefill_step_fn``, no grad) at 1 x FULL_PREFILL must launch
+    B6 once a layer and no other kernel, and is timed with
+    :func:`_median_ms`; so is the serve step (``make_serve_step_fn``) at
+    batch FULL_DECODE[0] over a FULL_DECODE[1]-slot cache (the dense
+    slot path, which must launch no kernel; the LM server runs the paged
+    path, B1-B3, instead).  Returns the two measured steps."""
+    import torch
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.specs import (abstract_params,
+                                          make_prefill_step_fn,
+                                          make_serve_step_fn)
+    t_phase = time.perf_counter()
+    cfg = api.cfg
+    n_card = sum(t.numel() for t in _leaves(params))
+    n_meta = dryrun.count_params(abstract_params(api))
+    print(f"17a parameter count: meta tree {n_meta:,}, the card's tree "
+          f"{n_card:,} [{CARD}]", flush=True)
+    if n_meta != n_card:
+        raise AssertionError(f"the meta tree counts {n_meta:,} parameters, "
+                             f"the card's {n_card:,}")
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 17)
+    shape = InputShape(f"prefill_{FULL_PREFILL}", FULL_PREFILL, 1,
+                       "prefill")
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, FULL_PREFILL),
+                                     generator=gen, device=DEVICE)}
+    step = make_prefill_step_fn(api, shape)
+    steps = []
+    with torch.no_grad():
+        step(params, batch)
+        _sync()
+        _zero_counts()
+        out = step(params, batch)
+        _sync()
+        counts = {k: v for k, v in _read_counts().items() if v}
+        print(f"17a prefill: batch 1 x {FULL_PREFILL}, logits "
+              f"{tuple(out.shape)} finite={bool(torch.isfinite(out).all())} "
+              f"kernel_launches={json.dumps(counts)}", flush=True)
+        if counts != {fa.B6: cfg.n_layers}:
+            raise AssertionError(f"17a prefill launches {counts} != B6 x "
+                                 f"{cfg.n_layers}")
+        if not bool(torch.isfinite(out).all()):
+            raise AssertionError("17a prefill logits not finite")
+        ms = _median_ms(lambda: step(params, batch), reps=5, inner=3)
+        steps.append(_measured("17a gemma-7b prefill (median)", cfg, shape,
+                               ms))
+        del out, batch
+        B, slots = FULL_DECODE
+        dshape = InputShape(f"decode_{slots}", slots, B, "decode")
+        cache = api.init_cache(B, slots, window=api.effective_window(slots),
+                               dtype=torch.bfloat16, device=DEVICE)
+        tokens = torch.randint(0, cfg.vocab_size, (B, 1), generator=gen,
+                               device=DEVICE)
+        serve = make_serve_step_fn(api, dshape)
+        kv = sum(t.numel() * t.element_size()
+                 for t in cache["scan"].values())
+        ms = _median_ms(lambda: serve(params, cache, tokens), reps=5)
+        _zero_counts()
+        logits, _ = serve(params, cache, tokens)
+        _sync()
+        counts = {k: v for k, v in _read_counts().items() if v}
+        ok = bool(torch.isfinite(logits).all())
+        print(f"17a decode: batch {B} over {slots} slots, K/V "
+              f"{kv / 2**30:.2f} GiB, logits {tuple(logits.shape)} "
+              f"finite={ok}, kernel_launches={json.dumps(counts)}, "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card",
+              flush=True)
+        if counts:
+            raise AssertionError(f"17a decode launches {counts}: the dense "
+                                 "slot step runs no kernel")
+        if not ok:
+            raise AssertionError("17a decode logits not finite")
+        steps.append(_measured("17a gemma-7b decode (median)", cfg, dshape,
+                               ms))
+        del cache, logits
+    torch.cuda.empty_cache()
+    print(f"phase 17a: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return steps
+
+
+def phase_roofline(steps: list) -> None:
+    """Phase 17: every measured step of 17a and of phases 8b, 9 and 13a
+    against its bound (:func:`_roofline_line`)."""
+    t0 = time.perf_counter()
+    for step in steps:
+        _roofline_line(step)
+    print(f"phase 17: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -4308,6 +4495,9 @@ def main() -> None:
 
     # 5. full-width steps against the plain path
     phase_step_vs_plain(api, params)
+    # 17a. the parameter count, and the full-width prefill and decode
+    # steps timed for phase 17, on the same weights
+    roofline_steps = phase_roofline_full(api, params)
     del params
     torch.cuda.empty_cache()
 
@@ -4318,7 +4508,8 @@ def main() -> None:
     # versions (before any weights are loaded), then the training path
     torch.cuda.empty_cache()
     fa_checks = phase_flash_kernels()
-    train_launches, eval_launches = phase_training()
+    train_launches, eval_launches, step = phase_training()
+    roofline_steps.append(step)
     for name in fa_checks:
         launches[name] = train_launches[name] or eval_launches[name]
 
@@ -4326,9 +4517,11 @@ def main() -> None:
     # versions, then zamba2-2.7b's and xlstm-1.3b's prefill and serving
     torch.cuda.empty_cache()
     scan_checks = phase_scan_kernels()
-    zamba = phase_recurrent("zamba2-2.7b", {
+    zamba, step = phase_recurrent("zamba2-2.7b", {
         "ssd_scan": 54, "flash_attention": 9})
-    xlstm = phase_recurrent("xlstm-1.3b", {"mlstm_scan": 42})
+    roofline_steps.append(step)
+    xlstm, step = phase_recurrent("xlstm-1.3b", {"mlstm_scan": 42})
+    roofline_steps.append(step)
     launches["ssd_scan"] = zamba["ssd_scan"]
     launches["mlstm_scan"] = xlstm["mlstm_scan"]
 
@@ -4358,7 +4551,7 @@ def main() -> None:
     # 13. the audio family (whisper-base: training, prefill, decode
     # consistency, serving) and the recurrent families' training
     torch.cuda.empty_cache()
-    phase_whisper()
+    roofline_steps.append(phase_whisper()["step"])
     phase_recurrent_train("zamba2-2.7b")
     phase_recurrent_train("xlstm-1.3b")
 
@@ -4377,6 +4570,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     for name, n in phase_sharded_families().items():
         launches[name] += n
+
+    # 17. the measured steps of 17a, 8b, 9 and 13a against their bound
+    phase_roofline(roofline_steps)
 
     # each kernel's numbers at its main path's shapes
     numbers = {name: c["gemma-7b bf16"] for name, c in checks.items()}

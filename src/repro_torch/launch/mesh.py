@@ -118,8 +118,11 @@ def data_axes_of(mesh: Mesh) -> Tuple[str, ...]:
     return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
 
 
-# hardware constants for the roofline model: one NVIDIA H100 SXM (the
-# data sheet's dense rates at the 700 W power limit)
+# hardware constants for the roofline model (``roofline/analysis.py``):
+# one NVIDIA H100 SXM (the data sheet's dense rates at the 700 W power
+# limit).  The reference's ``make_production_mesh`` (a 16 x 16 TPU pod of
+# placeholder devices for its XLA dry-run) has no counterpart: the port's
+# dry-run runs on meta positions (``launch/dryrun.py``)
 CHIP_PEAK_FLOPS_BF16 = 989e12      # FLOP/s per card, bf16 tensor cores
 CHIP_HBM_BW = 3.35e12              # bytes/s per card, HBM3
 NVLINK_BW = 450e9                  # bytes/s per card and direction (NVLink 4)

@@ -397,6 +397,18 @@ def _cut_axes(spec: PartitionSpec, sizes: Dict[str, int],
     return [a for a in axis_names if sizes[a] > 1 and has_axis(spec, a)]
 
 
+def piece_numel(leaf: torch.Tensor, spec: PartitionSpec,
+                sizes: Dict[str, int]) -> int:
+    """Elements of one position's piece of ``leaf`` cut by ``spec`` over a
+    mesh of axis ``sizes``."""
+    n = leaf.numel()
+    for choice in spec:
+        for a in (choice if isinstance(choice, tuple) else (choice,)):
+            if a is not None:
+                n //= sizes[a]
+    return n
+
+
 def _pieces(mesh, spec: PartitionSpec):
     """(coords, position index) of a leaf's distinct pieces, in row-major
     order over the axes that cut it: each piece sits on the first position

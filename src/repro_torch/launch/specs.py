@@ -28,18 +28,23 @@ Either way the positions' loss sums are added before dividing
 
 :func:`abstract_params` is the parameter tree on the ``meta`` device
 (shapes and dtypes, no storage), which the sharding rules read.  The
-reference's abstract input specs and its AOT/HLO step builders read XLA's
-ahead-of-time compilation and have no counterpart here yet (ROADMAP
-A10).  Options that the reference does not have (``compute_dtype``,
+reference's abstract input specs have their counterparts here as meta
+tensors where the reference builds ``ShapeDtypeStruct`` stand-ins
+(:func:`batch_abstract`, :func:`cache_abstract`,
+:func:`decode_tokens_abstract`, :func:`cast_params_bf16`), with
+:func:`combo_supported`; ``launch/dryrun.py`` runs the step builders on
+them.  Options that the reference does not have (``compute_dtype``,
 ``use_kernel``) pass through ``**model_kw`` to the model's loss.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch.configs.base import ArchConfig
 from repro_torch.configs.shapes import InputShape
 from repro_torch.launch import sharding as shard_lib
 from repro_torch.launch.mesh import (Mesh, data_axes_of, mesh_axis_sizes,
@@ -48,6 +53,7 @@ from repro_torch.models import transformer
 from repro_torch.models.api import ModelAPI
 from repro_torch.models.common import cast_weights
 from repro_torch.optim import Optimizer, adamw
+from repro_torch.optim.optimizers import tree_map
 from repro_torch.train.trainer import make_train_step
 
 # the families with a tensor-parallel layer loop (``api.tp_loss``); the
@@ -59,6 +65,75 @@ def abstract_params(api: ModelAPI, dtype: torch.dtype = torch.bfloat16):
     """The arch's parameter tree on the ``meta`` device: every leaf's
     shape and dtype, nothing allocated."""
     return api.init(seed=0, device="meta", dtype=dtype)
+
+
+def _decoder_len(cfg: ArchConfig, seq: int) -> int:
+    if cfg.is_encoder_decoder and cfg.max_decoder_positions:
+        return min(seq, cfg.max_decoder_positions)
+    return seq
+
+
+def _meta(shape: Tuple[int, ...], dtype: torch.dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def batch_abstract(cfg: ArchConfig, shape: InputShape
+                   ) -> Dict[str, torch.Tensor]:
+    """Training / prefill batch on the ``meta`` device: int32 tokens and
+    labels, and the audio family's bf16 frames (its decoder cut to
+    ``max_decoder_positions``) or the VLM's bf16 patches (its text the
+    rest of the sequence, at least 16 tokens)."""
+    B = shape.global_batch
+    S = shape.seq_len
+    if cfg.family == "audio":
+        S_dec = _decoder_len(cfg, S)
+        return {
+            "frames": _meta((B, cfg.encoder_positions, cfg.frontend.d_embed),
+                            torch.bfloat16),
+            "tokens": _meta((B, S_dec), torch.int32),
+            "labels": _meta((B, S_dec), torch.int32),
+        }
+    if cfg.family == "vlm":
+        n_img = cfg.frontend.n_tokens
+        S_text = max(S - n_img, 16)
+        return {
+            "patches": _meta((B, n_img, cfg.frontend.d_embed),
+                             torch.bfloat16),
+            "tokens": _meta((B, S_text), torch.int32),
+            "labels": _meta((B, S_text), torch.int32),
+        }
+    return {
+        "tokens": _meta((B, S), torch.int32),
+        "labels": _meta((B, S), torch.int32),
+    }
+
+
+def cache_abstract(api: ModelAPI, shape: InputShape):
+    """The decode cache of ``shape``'s batch and sequence on the ``meta``
+    device, at the window that sequence gives the arch."""
+    window = api.effective_window(shape.seq_len)
+    return api.init_cache(shape.global_batch, shape.seq_len, window=window,
+                          device="meta")
+
+
+def decode_tokens_abstract(shape: InputShape) -> torch.Tensor:
+    return _meta((shape.global_batch, 1), torch.int32)
+
+
+def cast_params_bf16(tree):
+    """Inference-time parameter dtype (serving uses bf16 checkpoints):
+    every floating leaf in bfloat16."""
+    return tree_map(lambda t: t.to(torch.bfloat16)
+                    if t.is_floating_point() else t, tree)
+
+
+def combo_supported(cfg: ArchConfig, shape: InputShape
+                    ) -> Tuple[bool, str]:
+    if shape.name == "long_500k" and not cfg.supports_long_context:
+        return False, cfg.long_context_skip_reason or "no long-context path"
+    if shape.is_decode and not cfg.supports_decode:
+        return False, "encoder-only architecture has no decode step"
+    return True, ""
 
 
 def _loss_kwargs(api: ModelAPI, shape: InputShape, **kw) -> Dict[str, Any]:
@@ -133,13 +208,86 @@ class GatherPlan:
     its rows; ``gathers`` counts the leaves cut over some axis of the
     mesh, each gathered whole once a step.  ``collectives`` a step by
     design: those gathers and their backward duals (the reduce-scatters
-    into the pieces); a replicated leaf is read as is."""
+    into the pieces); a replicated leaf is read as is.  The bytes a
+    position receives a step: ``gather_bytes``, every gathered leaf
+    whole (in bfloat16 with ``pre_gather``), and ``scatter_bytes``, its
+    own piece of each leaf's gradient (:class:`ParamCollectives` counts
+    the gradient sums of the leaves read alike too)."""
     devices: List[torch.device]
     gathers: int
+    gather_bytes: int = 0
+    scatter_bytes: int = 0
 
     @property
     def collectives(self) -> int:
         return 2 * self.gathers
+
+    @property
+    def collective_bytes(self) -> int:
+        return self.gather_bytes + self.scatter_bytes
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamCollectives:
+    """The collectives a sharded train step runs on its parameters, as
+    ``sharding.local_trees`` builds them and autograd sums their
+    gradients, once a step each, in either regime.  ``gathers`` counts
+    the leaves whose pieces a position concatenates: in the gathered
+    regime every leaf cut over some axis of the mesh, gathered whole; in
+    the tensor-parallel regime every leaf cut over a data axis, gathered
+    over those axes into the position's "model" piece (the FSDP
+    all-gather).  Each has its backward dual, the reduce-scatter of the
+    gradient into the pieces.  ``reduces`` counts the leaves that the
+    positions along some axis larger than 1 read alike (the axis does not
+    cut them): those positions' gradients are summed (an all-reduce).
+    The bytes are each collective's output on one position, in the dtype
+    the pieces travel in (bfloat16 under ``pre_gather``):
+    ``gather_bytes`` the gathered leaves, ``scatter_bytes`` and
+    ``reduce_bytes`` the position's own piece of each gradient.  The
+    loss's few scalars a position are not counted."""
+    gathers: int = 0
+    reduces: int = 0
+    gather_bytes: int = 0
+    scatter_bytes: int = 0
+    reduce_bytes: int = 0
+
+    @property
+    def collectives(self) -> int:
+        return 2 * self.gathers + self.reduces
+
+    @property
+    def collective_bytes(self) -> int:
+        return self.gather_bytes + self.scatter_bytes + self.reduce_bytes
+
+
+def param_collectives(tree, specs, mesh: Mesh,
+                      dtype: Optional[torch.dtype], whole: bool
+                      ) -> ParamCollectives:
+    """The :class:`ParamCollectives` of ``tree``'s leaves (the float32
+    masters' shapes) placed by ``specs`` on ``mesh``, travelling in
+    ``dtype`` (None: as stored), gathered whole (the gathered regime) or
+    over the data axes only."""
+    sizes = mesh.shape
+    wide = [a for a in mesh.axis_names if sizes[a] > 1]
+    n = dict.fromkeys(("gathers", "reduces", "gather_bytes",
+                       "scatter_bytes", "reduce_bytes"), 0)
+    pairs = shard_lib.leaves(shard_lib._zip_map(
+        lambda leaf, spec: [(leaf, spec)], tree, specs))
+    for leaf, spec in pairs:
+        size = (torch.empty((), dtype=dtype).element_size()
+                if dtype is not None and leaf.is_floating_point()
+                else leaf.element_size())
+        piece = shard_lib.piece_numel(leaf, spec, sizes) * size
+        cut = shard_lib._cut_axes(spec, sizes, mesh.axis_names)
+        gathered = [a for a in cut if whole or a != "model"]
+        if gathered:
+            n["gathers"] += 1
+            n["gather_bytes"] += piece * math.prod(sizes[a] for a in gathered)
+            n["scatter_bytes"] += piece
+        if any(a not in cut for a in wide):
+            n["reduces"] += 1
+            n["reduce_bytes"] += piece
+    return ParamCollectives(**n)
 
 
 def _rows(batch: Dict, devices) -> list:
@@ -185,9 +333,11 @@ def make_train_step_fn(api: ModelAPI, shape: InputShape, *,
     ``tp_loss`` and ``train_step.plans`` are the slices' ``TPPlan``s
     (their ``collectives``); in the gathered regime
     (:func:`gathers_whole`) the rows are cut over every position (a batch
-    that does not divide them raises ``ValueError``), each runs the
+    that does not divide them raises ``ValueError``) and each runs the
     family's ``loss_parts`` on the whole tree, and ``train_step.gather``
-    is the :class:`GatherPlan`."""
+    is the :class:`GatherPlan`.  In both regimes
+    ``train_step.param_collectives`` counts the parameters' collectives
+    (:func:`param_collectives`)."""
     opt = adamw(lr, grad_clip_norm=1.0)
     if mesh is None:
         loss = make_loss_for_shape(api, shape, attn_chunk=attn_chunk,
@@ -198,8 +348,9 @@ def make_train_step_fn(api: ModelAPI, shape: InputShape, *,
 
         return make_train_step(loss_of, opt), opt
     cfg = api.cfg
+    tree = abstract_params(api, torch.float32)
     if specs is None:
-        specs = train_specs(api, abstract_params(api, torch.float32), mesh)
+        specs = train_specs(api, tree, mesh)
     elif _whole_norms(api, specs) != specs:
         raise ValueError("place the parameters with train_specs: the q/k "
                          "norm scales must be whole")
@@ -219,9 +370,10 @@ def make_train_step_fn(api: ModelAPI, shape: InputShape, *,
                  for t, rows in zip(trees, _rows(batch, devices))], cfg, dst)
 
         step = make_train_step(gathered_loss, opt)
-        step.gather = GatherPlan(devices, sum(
-            bool(shard_lib._cut_axes(spec, mesh.shape, mesh.axis_names))
-            for spec in shard_lib.leaves(specs)))
+        pc = step.param_collectives = param_collectives(
+            tree, specs, mesh, dtype, whole=True)
+        step.gather = GatherPlan(devices, pc.gathers, pc.gather_bytes,
+                                 pc.scatter_bytes)
         return step, opt
 
     plans = [api.tp_plan(specs, list(m.devices.reshape(-1)))
@@ -236,6 +388,8 @@ def make_train_step_fn(api: ModelAPI, shape: InputShape, *,
 
     step = make_train_step(sharded_loss, opt)
     step.plans = plans
+    step.param_collectives = param_collectives(tree, specs, mesh, dtype,
+                                               whole=False)
     return step, opt
 
 

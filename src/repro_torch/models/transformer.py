@@ -626,9 +626,14 @@ class TPPlan:
     all of them.  ``specs`` place the parameters on the positions: the
     serving specs, with the per-head q/k norm scales whole (the steps
     read them whole; the reference's partitioner gathers them at use).
-    ``collectives`` counts the reduces and gathers run since it was last
-    set to 0: in training, their backward duals too (each is an autograd
-    Function), and under per-block remat a layer's forward ones again."""
+    ``collectives`` counts the reduces and gathers run since the last
+    :meth:`reset`: in training, their backward duals too (each is an
+    autograd Function), and under per-block remat a layer's forward ones
+    again.  ``collective_bytes`` counts beside it the bytes of each
+    one's output that a position receives: the whole sum of a reduce,
+    the whole of a gather, position 0's piece of a gather's backward (a
+    reduce-scatter), as the reference's dry-run sums the per-device
+    output shapes of its HLO collectives."""
     devices: List[torch.device]
     embed: bool
     head: bool
@@ -636,6 +641,18 @@ class TPPlan:
     kv: List[Tuple[int, int]]
     specs: Dict
     collectives: int = 0
+    collective_bytes: int = 0
+
+    def reset(self) -> None:
+        """Set both counts to 0."""
+        self.collectives = 0
+        self.collective_bytes = 0
+
+    def _count(self, out: Optional[torch.Tensor]) -> None:
+        """One collective whose output a position receives is ``out``."""
+        self.collectives += 1
+        if out is not None:
+            self.collective_bytes += out.numel() * out.element_size()
 
     @property
     def tp(self) -> int:
@@ -679,14 +696,14 @@ class _Reduce(torch.autograd.Function):
         total = parts[0].to(dst)
         for p in parts[1:]:
             total = total + p.to(dst)
-        plan.collectives += 1
+        plan._count(total)
         return tuple(total.to(d) for d in plan.devices)
 
     @staticmethod
     def backward(ctx, *grads):
         plan = ctx.plan
         total = _sum_on(plan.devices[0], grads)
-        plan.collectives += 1
+        plan._count(total)
         return (None,) + tuple(None if total is None else total.to(d)
                                for d in ctx.part_devices)
 
@@ -702,18 +719,20 @@ class _Gather(torch.autograd.Function):
         ctx.widths = [p.shape[-1] for p in parts]
         dst = plan.devices[0]
         whole = torch.cat([p.to(dst) for p in parts], dim=-1)
-        plan.collectives += 1
+        plan._count(whole)
         return tuple(whole.to(d) for d in plan.devices)
 
     @staticmethod
     def backward(ctx, *grads):
         plan = ctx.plan
         total = _sum_on(plan.devices[0], grads)
-        plan.collectives += 1
         if total is None:
+            plan._count(None)
             return (None,) * (1 + len(ctx.widths))
+        pieces = total.split(ctx.widths, dim=-1)
+        plan._count(pieces[0])
         return (None,) + tuple(g.to(d) for g, d in zip(
-            total.split(ctx.widths, dim=-1), ctx.part_devices))
+            pieces, ctx.part_devices))
 
 
 def tp_specs(specs: Dict) -> Dict:

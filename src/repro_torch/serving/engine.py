@@ -365,7 +365,7 @@ class PagedDecodeEngine:
         """The model step on the scheduled tokens; logits on
         ``self.device``.  Counts the step's collectives (none off a
         mesh)."""
-        self._plan.collectives = 0
+        self._plan.reset()
         logits, _ = self._step_fn(self._shards, self._caches,
                                   self._put(tokens), self._plan,
                                   **self._step_kw)

@@ -30,7 +30,8 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
                  "launch.remote_retrain_flow", "launch.edge_serving",
                  "serving.frontend", "models.cookienetae",
                  "launch.crossover_analysis", "launch.mesh",
-                 "launch.sharding"):
+                 "launch.sharding", "launch.dryrun", "roofline",
+                 "roofline.analytic", "roofline.analysis"):
         assert f"repro_torch.{name}" in mods, name
     code = ("import sys\n"
             f"for m in {mods!r}:\n"

@@ -8,6 +8,8 @@ give the same PartitionSpec at every path (tolerance: exact, compared as
 tuples) on the axis sets ``{"data": 1, "model": 4}``, ``{"data": 16,
 "model": 16}`` and ``{"pod": 2, "data": 16, "model": 16}``.
 """
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,6 +22,7 @@ from repro.launch import sharding as jsh
 from repro.launch import specs as jspecs
 from repro.models import build_model as jax_build_model
 from repro_torch.configs import get_config
+from repro_torch.launch import dryrun
 from repro_torch.launch import sharding as sh
 from repro_torch.launch.mesh import (Mesh, data_axes_of, make_host_mesh,
                                      mesh_axis_sizes, mesh_slices)
@@ -79,6 +82,32 @@ def test_param_specs_equal_reference(trees, arch, axes):
         assert got == want, (arch, axes, policy)
     assert _port_flat(sh.serving_param_specs(ptree, mesh_axes)) == \
         _jax_flat(jsh.serving_param_specs(jtree, mesh_axes))
+
+
+def _reference_dryrun():
+    """``repro.launch.dryrun`` (its counting rules), imported on a backend
+    that is already up: the module sets XLA_FLAGS for its own process,
+    which is restored here."""
+    jax.devices()
+    flags = os.environ.get("XLA_FLAGS")
+    from repro.launch import dryrun as jdryrun
+    if flags is None:
+        os.environ.pop("XLA_FLAGS", None)
+    else:
+        os.environ["XLA_FLAGS"] = flags
+    return jdryrun
+
+
+@pytest.mark.parametrize("arch", ASSIGNED_ARCHS)
+def test_param_counts_equal_reference(trees, arch):
+    """The dry-run's parameter and active counts of the port's meta tree
+    equal the reference dry-run's on its ``jax.eval_shape`` tree."""
+    jdryrun = _reference_dryrun()
+    jtree, ptree = trees(arch)
+    got = (dryrun.count_params(ptree),
+           dryrun.moe_active_params(get_config(arch), ptree))
+    assert got == (jdryrun.count_params(jtree),
+                   jdryrun.moe_active_params(jax_get_config(arch), jtree))
 
 
 @pytest.mark.parametrize("cache_dtype", ["bf16", "int8"])
