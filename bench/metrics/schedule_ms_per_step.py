@@ -1,0 +1,17 @@
+"""Host self time, in ms a step, of the scheduler's own work: admission,
+budgeting and block allocation (the drafts and swap-outs it causes are
+spans of their own).  The window's change in the engine's
+``stats()["span_s.schedule"]`` over its change in ``steps``; a program
+without the span has nothing to read."""
+
+KEYS = ("span_s.schedule",)
+
+
+def read(run):
+    a, b = run.stats_open, run.stats_close
+    if any(k not in a or k not in b for k in KEYS):
+        return None
+    steps = b["steps"] - a["steps"]
+    if steps <= 0:
+        return None
+    return 1e3 * sum(b[k] - a[k] for k in KEYS) / steps

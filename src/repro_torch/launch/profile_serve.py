@@ -9,12 +9,14 @@ through ``PagedDecodeEngine`` in each of its three layouts -- the default
 ``torch.profiler``.  Prints, per layout, the wall time per step, the
 device's busy share of the profiled window (union of kernel intervals over
 the wall), the device time of the attention kernel, the GEMMs, an MoE
-arch's router and dispatch kernels and everything else, and the top
-device kernels by total time.  Then it drains the fleet unprofiled
-``ROUNDS`` times per layout, rotating which layout goes first, and
-prints each layout's wall ms/step and their median (the host clock of a
-shared host varies between drains, so one drain per layout is not a
-comparison).  ``--tp N`` serves through the tensor-parallel engine on N
+arch's router and dispatch kernels and everything else, beside them the
+host's self time in each span of the engine's step (``stats()``'s
+``span_s.*``; with an MoE arch its stages' device time, ``moe_ms.*``),
+per step, and the top device kernels by total time.  Then it drains the
+fleet unprofiled ``ROUNDS`` times per layout, rotating which layout goes
+first, and prints each layout's wall ms/step and their median (the host
+clock of a shared host varies between drains, so one drain per layout is
+not a comparison).  ``--tp N`` serves through the tensor-parallel engine on N
 mesh positions that all name the card (every shard's kernels and every
 reduce run on it).  Needs a CUDA card.
 """
@@ -33,6 +35,7 @@ from repro_torch.configs import get_config
 from repro_torch.launch.mesh import Mesh
 from repro_torch.models.api import build_model
 from repro_torch.serving.engine import PagedDecodeEngine
+from repro_torch.serving.tracing import MOE_STAGES, SPANS
 
 TOP = 12          # kernels listed by total device time, per layout
 ROUNDS = 3        # unprofiled drains per layout
@@ -158,6 +161,13 @@ def profile_layout(api, params, label: str, engine_kw) -> dict:
     for g, us in groups.items():
         print(f"  group {g}: {us / 1e3 / eng.steps:.3f} ms/step, "
               f"{us / total_us:.4f} of kernel time", flush=True)
+    st = eng.stats()
+    spans = {n: 1e3 * st[f"span_s.{n}"] / eng.steps for n in SPANS}
+    if st["moe_traced_steps"]:
+        spans.update({f"moe {s}": st[f"moe_ms.{s}"] / st["moe_traced_steps"]
+                      for s in MOE_STAGES})
+    print("  spans (self ms/step): " + ", ".join(
+        f"{n} {ms:.3f}" for n, ms in spans.items()), flush=True)
     rows = sorted(totals.items(), key=lambda kv: -kv[1][0])[:TOP]
     for name, (us, n) in rows:
         print(f"  {us / 1e3:10.3f} ms  {n:6d} calls  "
@@ -165,6 +175,7 @@ def profile_layout(api, params, label: str, engine_kw) -> dict:
               f"{name[:120]}")
     return {"steps": eng.steps, "wall_s": wall, "device_busy_s": busy,
             "groups_ms": {g: us / 1e3 for g, us in groups.items()},
+            "spans_ms_per_step": spans,
             "top": [[n[:90], us / 1e3, c] for n, (us, c) in rows]}
 
 

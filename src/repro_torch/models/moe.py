@@ -153,7 +153,7 @@ def apply_moe(p: Dict, x: torch.Tensor, cfg: ArchConfig
 
 
 def routed_experts(p: Dict, x: torch.Tensor, cfg: ArchConfig,
-                   logits: torch.Tensor, e0: int = 0
+                   logits: torch.Tensor, e0: int = 0, stages=None
                    ) -> Tuple[torch.Tensor, Tuple[torch.Tensor,
                                                   torch.Tensor]]:
     """The routed experts' share of the MoE output, (y (G, S, d), the
@@ -161,23 +161,45 @@ def routed_experts(p: Dict, x: torch.Tensor, cfg: ArchConfig,
     the layer's routes and drops come from its router ``logits`` (G, S,
     E) over all E experts, and ``p`` holds experts ``e0 .. e0 + E_p - 1``
     of them (all E by default), so a tensor-parallel shard adds the
-    outputs of its own experts only."""
+    outputs of its own experts only.  ``stages`` (a traced serving step's
+    ``serving.tracing.MoEStages``) gets a mark at each stage boundary:
+    the route, the dispatch before and after the experts, which are not
+    timed."""
     mo = cfg.moe
     assert mo is not None
     C = expert_capacity(x.shape[1], mo)
     n_local = p["experts_w_down"].shape[0]
+    if stages is not None:
+        stages.mark(x.device, "route")
     gates, idx, choice, pos_in_e, keep, means = _route(logits, mo, C)
+    if stages is not None:
+        stages.mark(x.device, "dispatch")
     if mo.impl == "gather":
         y = _dispatch_gather(p, x, cfg, C, gates, idx, choice, pos_in_e,
-                             keep, e0, n_local)
+                             keep, e0, n_local, stages)
     else:
         y = _dispatch_gshard(p, x, cfg, C, gates, choice, pos_in_e,
-                             keep[..., e0:e0 + n_local])
+                             keep[..., e0:e0 + n_local], stages)
+    if stages is not None:
+        stages.mark(x.device, None)
     return y, means
 
 
+def _timed_experts(p: Dict, xe: torch.Tensor, cfg: ArchConfig,
+                   stages) -> torch.Tensor:
+    """:func:`_experts`, left out of the dispatch stage's time: the
+    stretch after it is the dispatch's again (the combine)."""
+    if stages is None:
+        return _experts(p, xe, cfg)
+    stages.mark(xe.device, None)
+    ye = _experts(p, xe, cfg)
+    stages.mark(xe.device, "dispatch")
+    return ye
+
+
 def _dispatch_gshard(p: Dict, x: torch.Tensor, cfg: ArchConfig, C: int,
-                     gates, choice, pos_in_e, keep) -> torch.Tensor:
+                     gates, choice, pos_in_e, keep,
+                     stages=None) -> torch.Tensor:
     """The one-hot dispatch and combine einsums over the experts of ``p``
     (``keep`` cut to them)."""
     dt = x.dtype
@@ -190,13 +212,13 @@ def _dispatch_gshard(p: Dict, x: torch.Tensor, cfg: ArchConfig, C: int,
     dispatch = torch.einsum("gske,gskc->gsec", keep_c, slot)
     combine = torch.einsum("gske,gsk,gskc->gsec", keep_c, gates.to(dt), slot)
     xe = torch.einsum("gsec,gsd->egcd", dispatch, x)
-    ye = _experts(p, xe, cfg)
+    ye = _timed_experts(p, xe, cfg, stages)
     return torch.einsum("gsec,egcd->gsd", combine, ye)
 
 
 def _dispatch_gather(p: Dict, x: torch.Tensor, cfg: ArchConfig, C: int,
                      gates, idx, choice, pos_in_e, keep, e0: int,
-                     n_local: int) -> torch.Tensor:
+                     n_local: int, stages=None) -> torch.Tensor:
     """The gather dispatch: integer routing tables instead of one-hot
     einsums (zero-FLOP routing), then the plain gather combine, over
     experts ``e0 .. e0 + n_local - 1``.  Same routes, drops and result as
@@ -222,7 +244,7 @@ def _dispatch_gather(p: Dict, x: torch.Tensor, cfg: ArchConfig, C: int,
     tok = torch.clamp_min(buf - 1, 0)
     xe = x[torch.arange(B, device=x.device)[:, None, None], tok]  # (G,E,C,d)
     xe = (xe * valid[..., None].to(dt)).transpose(0, 1)      # (E,G,C,d)
-    ye = _experts(p, xe, cfg)
+    ye = _timed_experts(p, xe, cfg, stages)
     w = (gates * keep_slot).to(dt)                          # (G,S,k)
     ye_g = ye.transpose(0, 1)                               # (G,E,C,d)
     yk = ye_g[g_idx, idx_l, slot_in]                        # (G,S,k,d)

@@ -642,6 +642,9 @@ class TPPlan:
     specs: Dict
     collectives: int = 0
     collective_bytes: int = 0
+    # the MoE layers' stage marks (serving/tracing.py's MoEStages) while
+    # a traced serving step runs, else None
+    stages: Optional[object] = None
 
     def reset(self) -> None:
         """Set both counts to 0."""
@@ -869,7 +872,8 @@ def _tp_ffn(bps, xms, cfg: ArchConfig, plan: TPPlan, lp: Dict[str, bool]):
     for s, (bp, x, lg) in enumerate(zip(bps, xg, logits)):
         n = bp["moe"]["experts_w_down"].shape[0]
         y, m = moe_lib.routed_experts(bp["moe"], x, cfg, lg,
-                                      e0=s * n if lp["experts"] else 0)
+                                      e0=s * n if lp["experts"] else 0,
+                                      stages=plan.stages)
         routed.append(y[0] if flat else y)
         if s == 0:
             means = m

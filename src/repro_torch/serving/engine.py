@@ -59,6 +59,7 @@ from repro_torch.serving.blocks import KVCacheManager
 from repro_torch.serving.scheduler import (Request, RequestState, Scheduler,
                                            SchedulerConfig, StepDecision)
 from repro_torch.serving.spec import NgramProposer, Proposer
+from repro_torch.serving.tracing import TimedProposer, Tracer
 from repro_torch.serving.transfer import (KVBlockRecord, KVShipment,
                                           TransferIntegrityError,
                                           payload_checksum)
@@ -78,7 +79,8 @@ def _emit_token(engine, req: "Request", tok: int) -> bool:
     if finished:
         req.t_done = engine._now()
     if engine.on_token is not None:
-        engine.on_token(req.request_id, tok, finished)
+        with engine.trace.span("on_token"):
+            engine.on_token(req.request_id, tok, finished)
     return finished
 
 
@@ -278,11 +280,16 @@ class PagedDecodeEngine:
         if self.host_swap:
             self.kv.host_has = self._host_tier.__contains__
             self.kv.on_swap_out = self._swap_out_block
+        # spans and counters of the step (serving/tracing.py)
+        self.trace = Tracer()
         self.scheduler = Scheduler(
             SchedulerConfig(n_lanes=n_slots, token_budget=token_budget,
                             chunk_tokens=self.chunk_tokens,
                             fill_to_bucket=self.ragged,
-                            draft_k=self.draft_k, proposer=self.proposer,
+                            draft_k=self.draft_k,
+                            proposer=(TimedProposer(self.proposer,
+                                                    self.trace)
+                                      if self.spec else None),
                             ttft_target=ttft_target,
                             tpot_target=tpot_target),
             self.kv)
@@ -293,6 +300,9 @@ class PagedDecodeEngine:
         # own "head" pools; the port's pool holds them as layers 0..n-1
         moe_cfg = getattr(model_api.cfg, "moe", None)
         self._n_head = moe_cfg.first_dense_layers if moe_cfg else 0
+        # the MoE stages are timed with CUDA events while the log is on
+        self._moe_events = moe_cfg is not None and \
+            self.device.type == "cuda"
         pool_kw = dict(num_blocks=num_blocks, block_size=block_size,
                        max_blocks_per_lane=self.max_blocks,
                        dtype=cache_dtype if cache_dtype is not None
@@ -361,14 +371,16 @@ class PagedDecodeEngine:
         for cache, t in zip(self._caches, self._put(x)):
             cache[name] = t
 
-    def _run_step(self, tokens: np.ndarray) -> torch.Tensor:
-        """The model step on the scheduled tokens; logits on
-        ``self.device``.  Counts the step's collectives (none off a
-        mesh)."""
-        self._plan.reset()
-        logits, _ = self._step_fn(self._shards, self._caches,
-                                  self._put(tokens), self._plan,
-                                  **self._step_kw)
+    def _run_step(self, tokens: List[torch.Tensor]) -> torch.Tensor:
+        """The model step on the scheduled tokens (``_put`` already);
+        logits on ``self.device``.  Counts the step's collectives (none
+        off a mesh)."""
+        with self.trace.span("launch"):
+            self._plan.reset()
+            self._plan.stages = (self.trace.moe if self._moe_events
+                                 and self.trace.logging else None)
+            logits, _ = self._step_fn(self._shards, self._caches, tokens,
+                                      self._plan, **self._step_kw)
         self._collectives_per_step = self._plan.collectives
         self.collective_ops += self._plan.collectives
         return logits
@@ -446,19 +458,23 @@ class PagedDecodeEngine:
         verification window, else its last row), with one readback.
         ``seg_start(req)`` is the segment's first row of ``flat_logits``.
         Returns ``greedy(req, j)``, the argmax at row ``j`` of the
-        segment."""
-        offsets: Dict[int, int] = {}
-        rows: List[int] = []
-        for r in decision.scheduled:
-            n = decision.num_scheduled[r.request_id]
-            first = n - 1 - len(decision.drafts.get(r.request_id, ()))
-            offsets[r.request_id] = len(rows) - first
-            start = seg_start(r)
-            rows.extend(range(start + first, start + n))
+        segment.  The readback has passed the step's MoE stage events:
+        their times are read here."""
+        with self.trace.span("readback"):
+            offsets: Dict[int, int] = {}
+            rows: List[int] = []
+            for r in decision.scheduled:
+                n = decision.num_scheduled[r.request_id]
+                first = n - 1 - len(decision.drafts.get(r.request_id, ()))
+                offsets[r.request_id] = len(rows) - first
+                start = seg_start(r)
+                rows.extend(range(start + first, start + n))
+            if rows:
+                idx = torch.tensor(rows, device=self.device)
+                toks = torch.argmax(flat_logits[idx], dim=-1).cpu().numpy()
+            self.trace.moe.collect()
         if not rows:
             return lambda r, j: 0
-        idx = torch.tensor(rows, device=self.device)
-        toks = torch.argmax(flat_logits[idx], dim=-1).cpu().numpy()
         return lambda r, j: int(toks[offsets[r.request_id] + j])
 
     def _run_rect(self, decision: StepDecision):
@@ -466,25 +482,27 @@ class PagedDecodeEngine:
         to the widest scheduled chunk (pow2).  Paused lanes keep
         ``q_lens = 0``: their writes go to the null block and their rows
         are never read.  Returns ``greedy(req, j)``."""
-        sched_ids = {r.request_id for r in decision.scheduled}
-        width = padded_pow2(max(
-            [decision.num_scheduled[r.request_id]
-             for r in decision.scheduled] or [1]))
-        tokens = np.zeros((self.n_slots, width), np.int32)
-        pos = np.zeros((self.n_slots,), np.int32)
-        q_lens = np.zeros((self.n_slots,), np.int32)
-        tables = np.zeros((self.n_slots, self.max_blocks), np.int32)
-        for r in self.scheduler.running:
-            pos[r.lane] = r.cursor
-            tables[r.lane] = self.kv.padded_table(r.request_id)
-            if r.request_id in sched_ids:
-                n = decision.num_scheduled[r.request_id]
-                q_lens[r.lane] = n
-                tokens[r.lane, :n] = decision.segment_tokens(r)
-        self._set_meta("block_tables", tables)
-        self._set_meta("pos", pos)
-        self._set_meta("q_lens", q_lens)
-        logits = self._run_step(tokens)
+        with self.trace.span("prepare"):
+            sched_ids = {r.request_id for r in decision.scheduled}
+            width = padded_pow2(max(
+                [decision.num_scheduled[r.request_id]
+                 for r in decision.scheduled] or [1]))
+            tokens = np.zeros((self.n_slots, width), np.int32)
+            pos = np.zeros((self.n_slots,), np.int32)
+            q_lens = np.zeros((self.n_slots,), np.int32)
+            tables = np.zeros((self.n_slots, self.max_blocks), np.int32)
+            for r in self.scheduler.running:
+                pos[r.lane] = r.cursor
+                tables[r.lane] = self.kv.padded_table(r.request_id)
+                if r.request_id in sched_ids:
+                    n = decision.num_scheduled[r.request_id]
+                    q_lens[r.lane] = n
+                    tokens[r.lane, :n] = decision.segment_tokens(r)
+            self._set_meta("block_tables", tables)
+            self._set_meta("pos", pos)
+            self._set_meta("q_lens", q_lens)
+            fed = self._put(tokens)
+        logits = self._run_step(fed)
         self.scheduled_tokens += int(q_lens.sum())
         self.padded_tokens += self.n_slots * width
         return self._gather_greedy(
@@ -495,22 +513,24 @@ class PagedDecodeEngine:
         """The flat-token step: the segment-tiled read through a TileMap,
         or (``tiled=False``) the per-token read through ``token_lane``.
         Returns ``greedy(req, j)``."""
-        batch = RaggedBatch.build(decision, self.kv, self.n_slots,
-                                  self.block_size,
-                                  cap=self.scheduler._budget())
-        tables = np.zeros((self.n_slots, self.max_blocks), np.int32)
-        for r in self.scheduler.running:
-            tables[r.lane] = self.kv.padded_table(r.request_id)
-        self._set_meta("block_tables", tables)
-        self._set_meta("token_pos", batch.token_pos)
-        self._set_meta("slot_mapping", batch.slot_mapping)
-        if self.tiled:
-            tiles = batch.tiles(self.n_slots, self.tile)
-            self._set_meta("tile_meta", tiles.meta)
-            self._set_meta("row_tile", tiles.row_tile)
-        else:
-            self._set_meta("token_lane", batch.token_lane)
-        logits = self._run_step(batch.tokens)
+        with self.trace.span("prepare"):
+            batch = RaggedBatch.build(decision, self.kv, self.n_slots,
+                                      self.block_size,
+                                      cap=self.scheduler._budget())
+            tables = np.zeros((self.n_slots, self.max_blocks), np.int32)
+            for r in self.scheduler.running:
+                tables[r.lane] = self.kv.padded_table(r.request_id)
+            self._set_meta("block_tables", tables)
+            self._set_meta("token_pos", batch.token_pos)
+            self._set_meta("slot_mapping", batch.slot_mapping)
+            if self.tiled:
+                tiles = batch.tiles(self.n_slots, self.tile)
+                self._set_meta("tile_meta", tiles.meta)
+                self._set_meta("row_tile", tiles.row_tile)
+            else:
+                self._set_meta("token_lane", batch.token_lane)
+            fed = self._put(batch.tokens)
+        logits = self._run_step(fed)
         self.scheduled_tokens += batch.total_tokens
         self.padded_tokens += batch.padded_tokens
         return self._gather_greedy(decision, logits,
@@ -519,28 +539,42 @@ class PagedDecodeEngine:
     def step(self) -> StepDecision:
         """One engine iteration: schedule, swap in, apply CoW copies, run
         the ragged or rectangular step, then accept each lane's longest matching draft
-        prefix plus one bonus token and rewind the rejected KV slots."""
-        t0 = time.perf_counter()
+        prefix plus one bonus token and rewind the rejected KV slots.
+        Each phase is a span of ``self.trace``; the ``step`` span's wall
+        time feeds the scheduler's TPOT estimate."""
+        tr = self.trace
+        tr.begin_step(self.steps)
+        with tr.span("step") as whole:
+            with tr.span("schedule"):
+                decision = self.scheduler.schedule()
+            # swap-ins first: a CoW copy may read a block just swapped in
+            if self.host_swap:
+                with tr.span("swap_in"):
+                    swapins = self.kv.take_swap_ins()
+                    if swapins:
+                        self._apply_swap_ins(swapins)
+                    if self.host_swap_blocks is not None:
+                        while len(self._host_tier) > self.host_swap_blocks:
+                            self._host_tier.popitem(last=False)
+                            self.host_swap_drops += 1
+            with tr.span("cow"):
+                copies = self.kv.take_copy_ops()
+                if copies:
+                    self._apply_copies(copies)
+                    self.cow_block_copies += len(copies)
+            greedy = (self._run_ragged(decision) if self.ragged
+                      else self._run_rect(decision))
+            self.steps += 1
+            with tr.span("verify"):
+                emitted = self._accept(decision, greedy)
+        self.scheduler.observe_step(whole.ns * 1e-9, emitted)
+        return decision
+
+    def _accept(self, decision: StepDecision, greedy) -> int:
+        """Accept each scheduled lane's longest matching draft prefix plus
+        one bonus token, emit them, rewind the rejected KV slots, finish
+        and shed; returns the tokens emitted."""
         emitted = 0
-        decision = self.scheduler.schedule()
-        # swap-ins first: a CoW copy may read a block just swapped in
-        if self.host_swap:
-            swapins = self.kv.take_swap_ins()
-            if swapins:
-                self._apply_swap_ins(swapins)
-            if self.host_swap_blocks is not None:
-                while len(self._host_tier) > self.host_swap_blocks:
-                    self._host_tier.popitem(last=False)
-                    self.host_swap_drops += 1
-        copies = self.kv.take_copy_ops()
-        if copies:
-            self._apply_copies(copies)
-            self.cow_block_copies += len(copies)
-
-        greedy = (self._run_ragged(decision) if self.ragged
-                  else self._run_rect(decision))
-        self.steps += 1
-
         for r in list(decision.scheduled):
             n = decision.num_scheduled[r.request_id]
             drafts = decision.drafts.get(r.request_id, [])
@@ -579,8 +613,7 @@ class PagedDecodeEngine:
         if shed:
             self._finished.extend(shed)
             self.shed += len(shed)
-        self.scheduler.observe_step(time.perf_counter() - t0, emitted)
-        return decision
+        return emitted
 
     def has_work(self) -> bool:
         """True while requests are queued or running."""
@@ -675,9 +708,10 @@ class PagedDecodeEngine:
             return
         if digest in self._swap_quarantine:
             return
-        self._host_tier[digest] = {"parent": parent,
-                                   "tokens": tuple(int(t) for t in tokens),
-                                   "payload": self._read_block_payload(blk)}
+        with self.trace.span("swap_out"):
+            self._host_tier[digest] = {
+                "parent": parent, "tokens": tuple(int(t) for t in tokens),
+                "payload": self._read_block_payload(blk)}
         self.host_swap_outs += 1
 
     def _apply_swap_ins(self, ops: List[Tuple[str, int]]) -> None:
@@ -819,7 +853,9 @@ class PagedDecodeEngine:
     # ------------------------------------------------------------------
     def stats(self) -> Dict[str, float]:
         """Counters: token throughput, padding efficiency, prefix cache,
-        speculation, swap tier and cancellation (the reference's keys)."""
+        speculation, swap tier and cancellation (the reference's keys);
+        then admissions and their queue wait, and the step's spans
+        (``Tracer.stats``)."""
         return {
             "steps": self.steps,
             "tokens_decoded": self.tokens_decoded,
@@ -864,6 +900,11 @@ class PagedDecodeEngine:
             "kv_heads_sharded": int(self.kv_heads_sharded),
             "collectives_per_step": self._collectives_per_step,
             "collective_ops": self.collective_ops,
+            # first admissions and their summed wait since submit
+            "admitted": self.scheduler.first_admissions,
+            "queue_wait_s": self.scheduler.queue_wait_s,
+            # the step's spans (serving/tracing.py)
+            **self.trace.stats(),
         }
 
 
@@ -1128,6 +1169,9 @@ class SlotDecodeEngine:
         self.scheduled_tokens = 0
         self.padded_tokens = 0
         self.cancelled = 0
+        # times the client callback (``on_token`` span) as the paged
+        # engine's tracer does; the slot engine has no other span
+        self.trace = Tracer()
         self.clock = None
         self.on_token = None
 

@@ -98,6 +98,7 @@ class Request:
     # --- latency accounting (stamped from the engine's clock: wall time,
     # or the shared SimClock in disaggregated / open-loop runs) ---
     t_submit: float = 0.0
+    t_admit: float = 0.0             # first admission (not a re-admission)
     t_first_token: float = 0.0
     t_done: float = 0.0
 
@@ -222,6 +223,10 @@ class Scheduler:
         self.total_admitted = 0
         self.total_cancelled = 0
         self.total_shed = 0
+        # first admissions (re-admissions after preemption left out) and
+        # their summed wait from submit
+        self.first_admissions = 0
+        self.queue_wait_s = 0.0
         # last admission refusal: (request, feed_len, free_blocks, version)
         # — while none of those change, re-asking (and re-hashing a long
         # prompt against the prefix cache) every step is pointless
@@ -336,6 +341,10 @@ class Scheduler:
             del self.waiting[idx]
             lane = self.lanes.index(None)
             req.begin_run(lane)
+            if req.n_preemptions == 0:
+                req.t_admit = self.now_fn()
+                self.first_admissions += 1
+                self.queue_wait_s += req.t_admit - req.t_submit
             self.lanes[lane] = req
             self.running.append(req)
             # share the longest cached prefix; cursor skips past it
